@@ -1,0 +1,84 @@
+"""Configs and the model entry point (port of the detection parts of
+``embodiedscan_tpu/configs/base.py``)."""
+
+import dataclasses
+from typing import Sequence
+
+import torch
+
+
+@dataclasses.dataclass
+class DataConfig:
+    n_views_test: int = 50
+    n_points: int = 100000
+    image_hw: Sequence[int] = (480, 480)
+
+
+@dataclasses.dataclass
+class ModelConfig:
+    task: str = 'mv_det3d'
+    num_classes: int = 284
+    voxel_size: float = 0.01
+    input_capacity: int = 98304
+    backbone_capacities: Sequence[int] = (65536, 32768, 24576, 8192, 4096,
+                                          2048)
+    fpn_capacities: Sequence[int] = (24576, 8192, 4096, 2048)
+    resnet_depth: int = 50
+    mink_depth: int = 34
+    # test cfg (configs/detection/mv-det3d...py:58)
+    nms_pre: int = 1000
+    max_candidates: int = 1024
+    max_dets: int = 256
+    # 'reference' = yaw-truncated predictions as the published protocol;
+    # 'full9d' keeps the predicted pitch/roll
+    predict_protocol: str = 'reference'
+
+
+@dataclasses.dataclass
+class Config:
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    seed: int = 0
+
+
+def mv_det3d() -> Config:
+    """configs/detection/mv-det3d_8xb4_embodiedscan-3d-284class-9dof.py."""
+    return Config()
+
+
+PRESETS = {'mv_det3d': mv_det3d}
+
+
+def build_model(cfg: Config, device='cuda', img_dtype=torch.float32,
+                generator: torch.Generator | None = None):
+    """The detector of ``cfg``, initialized from ``generator`` (default: a
+    generator seeded with ``cfg.seed``), in eval mode on ``device``.
+
+    Raises when ``device`` is CUDA and no CUDA device is present; pass
+    ``device='cpu'`` to run the plain versions of the kernels. Turns off
+    TF32 for matrix products and cuDNN convolutions: the reference computes
+    in float32.
+    """
+    from ..models.detector import SparseFusionDetector, init_weights
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError('build_model: CUDA is not available; pass '
+                           "device='cpu' to run on the CPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    m = cfg.model
+    if m.task != 'mv_det3d':
+        raise NotImplementedError(f'task {m.task!r} is not ported yet')
+    model = SparseFusionDetector(
+        num_classes=m.num_classes, voxel_size=m.voxel_size,
+        input_capacity=m.input_capacity,
+        backbone_capacities=tuple(m.backbone_capacities),
+        fpn_capacities=tuple(m.fpn_capacities),
+        resnet_depth=m.resnet_depth, mink_depth=m.mink_depth,
+        nms_pre=m.nms_pre, max_candidates=m.max_candidates,
+        max_dets=m.max_dets, img_dtype=img_dtype,
+        predict_protocol=m.predict_protocol)
+    if generator is None:
+        generator = torch.Generator().manual_seed(cfg.seed)
+    init_weights(model, generator)
+    return model.to(device).eval()

@@ -1,0 +1,90 @@
+"""Multi-view sparse-fusion 3D detector, serving path (port of
+``embodiedscan_tpu/models/detector.py``).
+
+Batch layout (static shapes, tensors on the model's device):
+    points:      (B, P, 3) world-frame xyz (also the input features)
+    points_mask: (B, P) bool
+    imgs:        (B, V, H, W, 3) normalized images
+    proj:        (B, V, 4, 4) intrinsic @ extrinsic per view
+    aug_inv:     (B, 4, 4) inverse 3D augmentation (identity at test time)
+"""
+
+import math
+
+import torch
+from torch import nn
+
+from .fcaf3d import _CLS_BIAS, FCAF3DHead
+from .sparse_nn import SparseConv
+from .trunk import STRIDES, SparseFusionTrunk
+
+
+class SparseFusionDetector(nn.Module):
+    """Embodied Perceptron: multi-view 3D detection variant."""
+
+    def __init__(self, num_classes: int = 284, voxel_size: float = 0.01,
+                 input_capacity: int = 98304,
+                 backbone_capacities=(65536, 32768, 24576, 8192, 4096, 2048),
+                 fpn_capacities=(24576, 8192, 4096, 2048), max_dets: int = 256,
+                 nms_pre: int = 1000, max_candidates: int = 1024,
+                 resnet_depth: int = 50, mink_depth: int = 34,
+                 img_dtype: torch.dtype = torch.float32,
+                 bbox_mode: str = 'euler9d',
+                 predict_protocol: str = 'reference'):
+        super().__init__()
+        self.trunk = SparseFusionTrunk(
+            voxel_size=voxel_size, input_capacity=input_capacity,
+            backbone_capacities=tuple(backbone_capacities),
+            resnet_depth=resnet_depth, mink_depth=mink_depth,
+            img_dtype=img_dtype)
+        self.bbox_head = FCAF3DHead(
+            num_classes=num_classes, in_channels=self.trunk.out_channels,
+            voxel_size=voxel_size, strides=STRIDES,
+            fpn_capacities=tuple(fpn_capacities), nms_pre=nms_pre,
+            max_candidates=max_candidates, max_dets=max_dets,
+            bbox_mode=bbox_mode, predict_protocol=predict_protocol)
+
+    @torch.no_grad()
+    def forward(self, batch: dict, mode: str = 'predict'):
+        if mode == 'loss':
+            raise NotImplementedError(
+                "mode='loss' (target assignment, losses) belongs to the "
+                'training slice of the port')
+        if mode not in ('feats', 'predict'):
+            raise ValueError(f'unknown mode {mode!r}')
+        outs = self.bbox_head(self.trunk(batch))
+        if mode == 'feats':
+            return outs
+        return self.bbox_head.predict(outs)
+
+
+def _normal_(t: torch.Tensor, std: float, g: torch.Generator) -> None:
+    with torch.no_grad():
+        t.copy_(torch.randn(t.shape, generator=g) * std)
+
+
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded initialization in the reference's spirit (He fan-out normal for
+    sparse kernels and sparse 1x1 layers, LeCun normal for the image convs,
+    N(0, 0.01) head projections with the prior-probability class bias).
+    Norm layers keep their identity statistics. Runs on CPU tensors."""
+    for mod in model.modules():
+        if isinstance(mod, SparseConv):
+            k, _, cout = mod.kernel.shape
+            _normal_(mod.kernel, math.sqrt(2.0 / (k * cout)), generator)
+        elif isinstance(mod, nn.Linear):
+            _normal_(mod.weight, math.sqrt(2.0 / mod.out_features), generator)
+        elif isinstance(mod, nn.Conv2d):
+            fan_in = mod.weight[0].numel()
+            _normal_(mod.weight, math.sqrt(1.0 / fan_in), generator)
+        elif isinstance(mod, FCAF3DHead):
+            for name, p in mod.named_parameters(recurse=False):
+                if name.endswith('_tconv'):
+                    _normal_(p, math.sqrt(2.0 / (8 * p.shape[-1])), generator)
+    for mod in model.modules():
+        if isinstance(mod, FCAF3DHead):
+            for lin in (mod.conv_center, mod.conv_reg, mod.conv_cls):
+                _normal_(lin.weight, 0.01, generator)
+            with torch.no_grad():
+                mod.conv_cls.bias.fill_(_CLS_BIAS)
+    return model

@@ -1,0 +1,206 @@
+"""FCAF3D sparse FPN + anchor-free 9-DoF detection head, inference path
+(port of ``embodiedscan_tpu/models/fcaf3d.py``: ``FCAF3DHead.__call__`` in
+eval mode and the flat-engine ``predict``).
+"""
+
+from typing import List, NamedTuple
+
+import numpy as np
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from ..geometry.nms import nms3d
+from ..geometry.rotations import (matrix_to_euler_zxy, ortho_6d_to_matrix,
+                                  rotation_3d_in_euler)
+from ..ops import sparse as S
+from .norm import MaskedBatchNorm
+from .sparse_nn import SparseConv, fpn_prune_scores, fpn_tables
+
+# bias init matching mmengine bias_init_with_prob(0.01)
+_CLS_BIAS = float(-np.log((1 - 0.01) / 0.01))
+
+
+class HeadOutputs(NamedTuple):
+    """Per-level head predictions, each a list over FPN levels: (B, N_l, ...)
+    tensors; points (B, N_l, 3) world coords; masks (B, N_l)."""
+    center: List[torch.Tensor]
+    reg: List[torch.Tensor]
+    cls: List[torch.Tensor]
+    points: List[torch.Tensor]
+    masks: List[torch.Tensor]
+
+
+def decode_bbox(points: torch.Tensor, reg: torch.Tensor) -> torch.Tensor:
+    """12-dim regression -> (.., 9) euler box.
+
+    reg = (d_xmin, d_xmax, d_ymin, d_ymax, d_zmin, d_zmax, 6D rotation).
+    """
+    rot = ortho_6d_to_matrix(reg[..., 6:9], reg[..., 9:12])
+    euler = matrix_to_euler_zxy(rot)
+    shift = torch.stack([(reg[..., 1] - reg[..., 0]) / 2,
+                         (reg[..., 3] - reg[..., 2]) / 2,
+                         (reg[..., 5] - reg[..., 4]) / 2], -1)
+    shift = rotation_3d_in_euler(shift[..., None, :], euler)[..., 0, :]
+    size = torch.stack([reg[..., 0] + reg[..., 1], reg[..., 2] + reg[..., 3],
+                        reg[..., 4] + reg[..., 5]], -1)
+    return torch.cat([points + shift, size, euler], -1)
+
+
+def decode_bbox_mode(points: torch.Tensor, reg: torch.Tensor,
+                     mode: str) -> torch.Tensor:
+    """Mode-dispatched regression decode to (.., 9) boxes; the port has the
+    rot-mat head's 'euler9d' (the reference's yaw heads are not ported)."""
+    if mode != 'euler9d':
+        raise NotImplementedError(f'bbox_mode {mode!r} is not ported')
+    return decode_bbox(points, reg)
+
+
+# regression channel count per bbox_mode
+REG_OUTS = {'euler9d': 12}
+
+
+class FCAF3DHead(nn.Module):
+    """Sparse FPN + head (reference FCAF3DHeadRotMat), inference only.
+
+    Args:
+        in_channels: per-level input channels (after image fusion).
+        fpn_capacities: static voxel capacity per FPN level (0 = finest).
+        strides: lattice stride of each level relative to the voxel grid.
+    """
+
+    def __init__(self, num_classes: int, in_channels=(128, 256, 512, 1024),
+                 out_channels: int = 128, bbox_mode: str = 'euler9d',
+                 voxel_size: float = 0.01, strides=(8, 16, 32, 64),
+                 fpn_capacities=(24576, 8192, 4096, 2048),
+                 pts_prune_threshold: int = 100000, nms_pre: int = 1000,
+                 iou_thr: float = 0.5, score_thr: float = 0.01,
+                 max_candidates: int = 1024, max_dets: int = 256,
+                 predict_protocol: str = 'reference'):
+        super().__init__()
+        if predict_protocol not in ('reference', 'full9d'):
+            raise ValueError(f'unknown predict_protocol {predict_protocol!r}')
+        if bbox_mode not in REG_OUTS:
+            raise NotImplementedError(f'bbox_mode {bbox_mode!r} is not ported')
+        self.num_classes = num_classes
+        self.in_channels = tuple(in_channels)
+        self.bbox_mode = bbox_mode
+        self.voxel_size = voxel_size
+        self.strides = tuple(strides)
+        self.fpn_capacities = tuple(fpn_capacities)
+        self.pts_prune_threshold = pts_prune_threshold
+        self.nms_pre = nms_pre
+        self.iou_thr = iou_thr
+        self.score_thr = score_thr
+        self.max_candidates = max_candidates
+        self.max_dets = max_dets
+        self.predict_protocol = predict_protocol
+        n = len(self.in_channels)
+        self.conv_center = nn.Linear(out_channels, 1, bias=False)
+        self.conv_reg = nn.Linear(out_channels, REG_OUTS[bbox_mode], bias=False)
+        self.conv_cls = nn.Linear(out_channels, num_classes)
+        self.scales = nn.Parameter(torch.ones(n))
+        for i in range(n):
+            cin = self.in_channels[i]
+            self.add_module(f'out_block_{i}_conv', SparseConv(cin,
+                                                              out_channels))
+            self.add_module(f'out_block_{i}_bn', MaskedBatchNorm(out_channels))
+            if i < n - 1:
+                name = f'up_block_{i + 1}'
+                self.register_parameter(f'{name}_tconv', nn.Parameter(
+                    torch.zeros(8, self.in_channels[i + 1], cin)))
+                self.add_module(f'{name}_bn1', MaskedBatchNorm(cin))
+                self.add_module(f'{name}_conv', SparseConv(cin, cin))
+                self.add_module(f'{name}_bn2', MaskedBatchNorm(cin))
+
+    def forward(self, inputs) -> HeadOutputs:
+        n_levels = len(inputs)
+        center_preds, reg_preds, cls_preds, points, masks = \
+            [], [], [], [], []
+        x = inputs[-1]
+        # (coords, scores, mask, 27-nbr table) of the coarser level; its
+        # table drives the finer level's coordinate tables (fpn_tables)
+        prune_level = None
+        for i in range(n_levels - 1, -1, -1):
+            if i < n_levels - 1:
+                name = f'up_block_{i + 1}'
+                up = S.generative_transpose2(x, getattr(self, f'{name}_tconv'))
+                pcoords, pscores, pm, pnbr = prune_level
+                nbr_u, lat_idx, corner_idx = fpn_tables(pnbr, pcoords, pm,
+                                                        inputs[i])
+                f = F.elu(getattr(self, f'{name}_bn1')(up.feats, up.mask))
+                f = getattr(self, f'{name}_conv')(f, up.mask, nbr_u)
+                f = F.elu(getattr(self, f'{name}_bn2')(f, up.mask))
+                up = S.SparseTensor(up.coords, f, up.mask)
+                x = S.scatter_sum_into(up, inputs[i], lat_idx)
+                score = fpn_prune_scores(pscores, pm, corner_idx, x.mask)
+                keep = min(self.pts_prune_threshold, self.fpn_capacities[i])
+                x = S.topk_select_b(x, score, keep)
+
+            nbr27 = S.neighbor_table_b(x, S.OFFSETS_3)
+            out = getattr(self, f'out_block_{i}_conv')(x.feats, x.mask, nbr27)
+            out = F.elu(getattr(self, f'out_block_{i}_bn')(out, x.mask))
+            center = self.conv_center(out)
+            cls = self.conv_cls(out)
+            reg_raw = self.conv_reg(out)
+            reg_dist = torch.clamp(torch.exp(self.scales[i] *
+                                             reg_raw[..., :6]), min=1e-3)
+            reg = torch.cat([reg_dist, reg_raw[..., 6:]], -1)
+            prune_level = (x.coords, cls.amax(-1), x.mask, nbr27)
+
+            world = x.coords.to(torch.float32) * (self.strides[i] *
+                                                  self.voxel_size)
+            center_preds.append(center)
+            reg_preds.append(reg)
+            cls_preds.append(cls)
+            points.append(world)
+            masks.append(x.mask)
+
+        return HeadOutputs(center_preds[::-1], reg_preds[::-1],
+                           cls_preds[::-1], points[::-1], masks[::-1])
+
+    def predict(self, outs: HeadOutputs) -> dict:
+        """Decode + multiclass NMS. Returns (B, D) padded detections.
+
+        Per-sample sorts (level top-k, candidate top-k) run as one flat
+        batched-key sort each (``topk_rows_b``); candidates arrive
+        score-descending, so NMS skips its own sort.
+        """
+        lvl_boxes, lvl_scores, lvl_masks = [], [], []
+        for center, reg, cls, pt, m in zip(outs.center, outs.reg, outs.cls,
+                                           outs.points, outs.masks):
+            scores = torch.sigmoid(cls) * torch.sigmoid(center)
+            scores = torch.where(m[..., None], scores, torch.zeros_like(scores))
+            k = min(self.nms_pre, scores.shape[1])
+            top = S.topk_rows_b(scores.amax(-1), m, k)
+            lvl_boxes.append(decode_bbox_mode(S._take_rows(pt, top),
+                                              S._take_rows(reg, top),
+                                              self.bbox_mode))
+            lvl_scores.append(S._take_rows(scores, top))
+            lvl_masks.append(S._take_rows(m, top))
+        boxes = torch.cat(lvl_boxes, dim=1)  # (B, T, 9)
+        scores = torch.cat(lvl_scores, dim=1)  # (B, T, C)
+        mask = torch.cat(lvl_masks, dim=1)  # (B, T)
+        if self.predict_protocol == 'reference':
+            # published protocol: yaw-only boxes through NMS and in the
+            # returned predictions
+            boxes = boxes.clone()
+            boxes[..., 7:9] = 0.0
+
+        b = scores.shape[0]
+        flat = torch.where(mask[..., None] & (scores > self.score_thr), scores,
+                           torch.zeros_like(scores)).reshape(b, -1)
+        kc = min(self.max_candidates, flat.shape[1])
+        cand_idx = S.topk_rows_b(flat, torch.ones_like(flat, dtype=torch.bool),
+                                 kc)
+        cand_scores = S._take_rows(flat, cand_idx)
+        pt_idx = torch.div(cand_idx, self.num_classes, rounding_mode='floor')
+        cand_labels = torch.remainder(cand_idx, self.num_classes)
+        cand_boxes = S._take_rows(boxes, pt_idx)
+        cand_mask = cand_scores > self.score_thr
+        keep = torch.stack([
+            nms3d(cand_boxes[i], cand_scores[i], cand_mask[i], self.iou_thr,
+                  cand_labels[i], presorted=True)[1] for i in range(b)])
+        d = min(self.max_dets, kc)
+        return dict(bboxes=cand_boxes[:, :d], scores=cand_scores[:, :d],
+                    labels=cand_labels[:, :d], mask=keep[:, :d])

@@ -1,0 +1,73 @@
+"""Masked normalization layers for sparse voxel features and the frozen 2D
+BatchNorm (port of ``embodiedscan_tpu/models/norm.py``).
+
+Parameter and buffer names (``scale``, ``bias``, ``mean``, ``var``) follow the
+reference's flax leaves, so weights carry over leaf for leaf. Only the
+inference path is ported: the batch norms use their running statistics.
+"""
+
+import torch
+from torch import nn
+
+
+class MaskedBatchNorm(nn.Module):
+    """BatchNorm over (B, N, C) masked features with running statistics."""
+
+    def __init__(self, channels: int, epsilon: float = 1e-5):
+        super().__init__()
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer('mean', torch.zeros(channels))
+        self.register_buffer('var', torch.ones(channels))
+
+    def forward(self, feats: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(
+                'MaskedBatchNorm: batch statistics come with the training '
+                'slice of the port; call model.eval()')
+        out = (feats - self.mean) * torch.rsqrt(self.var + self.epsilon)
+        out = out * self.scale + self.bias
+        return torch.where(mask[..., None], out,
+                           torch.zeros_like(out)).to(feats.dtype)
+
+
+class MaskedInstanceNorm(nn.Module):
+    """Per-sample, per-channel normalization over the valid voxels."""
+
+    def __init__(self, channels: int, epsilon: float = 1e-5):
+        super().__init__()
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, feats: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        m = mask[..., None].to(torch.float32)
+        f32 = feats.to(torch.float32)
+        cnt = torch.clamp(m.sum(dim=-2, keepdim=True), min=1.0)
+        mean = (f32 * m).sum(dim=-2, keepdim=True) / cnt
+        var = (torch.square(f32 - mean) * m).sum(dim=-2, keepdim=True) / cnt
+        out = (f32 - mean) * torch.rsqrt(var + self.epsilon)
+        out = out * self.scale + self.bias
+        return torch.where(mask[..., None], out,
+                           torch.zeros_like(out)).to(feats.dtype)
+
+
+class FrozenBatchNorm(nn.Module):
+    """Inference BatchNorm with loaded statistics over NCHW maps; computes in
+    float32 and returns the input's dtype."""
+
+    def __init__(self, channels: int, epsilon: float = 1e-5):
+        super().__init__()
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer('mean', torch.zeros(channels))
+        self.register_buffer('var', torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = (1, -1, 1, 1)
+        out = (x.float() - self.mean.view(shape)) * torch.rsqrt(
+            self.var.view(shape) + self.epsilon)
+        return (out * self.scale.view(shape) +
+                self.bias.view(shape)).to(x.dtype)

@@ -1,0 +1,72 @@
+"""Load the reference package's variables into the port's modules.
+
+The port's submodules carry the reference's flax names, so a flax leaf
+``a/b/c/leaf`` lands on ``model.get_submodule('a.b.c')``; only the layout of
+the leaf depends on the kind of module it lands on:
+
+================  ===============  ======================
+leaf kind         flax layout      port layout
+================  ===============  ======================
+sparse kernel     (K, Cin, Cout)   kept as is
+Dense kernel      (in, out)        (out, in) nn.Linear
+Conv kernel       HWIO             OIHW nn.Conv2d
+scale/bias/mean/  (C,)             copied
+var, head params
+================  ===============  ======================
+"""
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def _leaves(tree, prefix=()):
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _leaves(val, prefix + (key,))
+        else:
+            yield prefix + (key,), np.asarray(val)
+
+
+def _target(model: nn.Module, path):
+    """(tensor to fill, array transform) for one flax leaf path."""
+    mod = model.get_submodule('.'.join(path[:-1]))
+    leaf = path[-1]
+    if isinstance(mod, nn.Linear) and leaf == 'kernel':
+        return mod.weight, lambda a: a.T
+    if isinstance(mod, nn.Conv2d) and leaf == 'kernel':
+        return mod.weight, lambda a: a.transpose(3, 2, 0, 1)
+    tensor = getattr(mod, leaf, None)
+    if not isinstance(tensor, torch.Tensor):
+        raise KeyError(f'no port tensor for {"/".join(path)}')
+    return tensor, lambda a: a
+
+
+def load_jax_variables(model: nn.Module, params: dict,
+                       batch_stats: dict | None = None,
+                       strict: bool = True) -> nn.Module:
+    """Copy the reference's ``params`` and ``batch_stats`` trees (nested dicts
+    of numpy arrays) into ``model`` in place.
+
+    Every leaf must land on a port tensor of the converted shape; with
+    ``strict``, every parameter and buffer of the port must receive a leaf
+    (a partial tree, as a fine-tuning checkpoint holds, needs
+    ``strict=False``).
+    """
+    filled = set()
+    names = {id(t): n for n, t in list(model.named_parameters()) +
+             list(model.named_buffers())}
+    for tree in (params, batch_stats or {}):
+        for path, arr in _leaves(tree):
+            tensor, fn = _target(model, path)
+            val = torch.from_numpy(np.ascontiguousarray(fn(arr)))
+            if tuple(val.shape) != tuple(tensor.shape):
+                raise ValueError(f'{"/".join(path)}: shape {tuple(val.shape)} '
+                                 f'!= port {tuple(tensor.shape)}')
+            with torch.no_grad():
+                tensor.copy_(val.to(tensor.dtype))
+            filled.add(names[id(tensor)])
+    missing = sorted(set(names.values()) - filled)
+    if strict and missing:
+        raise KeyError(f'port tensors without a reference leaf: {missing}')
+    return model

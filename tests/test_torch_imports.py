@@ -1,0 +1,25 @@
+"""The port imports no JAX stack and nothing of the reference package."""
+
+import ast
+import pathlib
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'embodiedscan_tpu')
+FILES = sorted((ROOT / 'embodiedscan_torch').rglob('*.py')) + \
+    [ROOT / 'chip_smoke.py']
+
+
+def _imported(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize('path', FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_reference_imports(path):
+    bad = [m for m in _imported(path) if m.split('.')[0] in FORBIDDEN]
+    assert not bad, f'{path.name} imports {bad}'
