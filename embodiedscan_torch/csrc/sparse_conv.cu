@@ -13,35 +13,65 @@
 // because the TPU cannot gather rows cheaply. A GPU loads the rows
 // directly, so neither the band nor its fallback is carried over.
 //
-// Bound on this card: at the main path's shapes (Cin, Cout of 64-512) the
-// FP32 operations (2 * M * K * Cin * Cout against 67 TFLOP/s without tensor
-// cores) outweigh the gathered bytes (M * K * Cin * 4 B against 3.35 TB/s);
-// at the stem (Cin = 3) the index and output bytes dominate.
+// Bound on this card: at the main path's shapes (Cin, Cout of 64-1024) the
+// operations bound it. Computed at float32 accuracy on the tensor cores
+// (3xTF32, below) they cost 3 TF32 products each, against 495 TFLOP/s;
+// the gathered bytes (M * K * Cin * 4 B against 3.35 TB/s) weigh less. At
+// the stem (Cin = 3) the index and output bytes bound it.
 //
-// Design: one block of 256 threads computes a 64-row x 64-column output
-// tile. It loops over the K offsets and, within each, over Cin in chunks of
-// 16: the tile's 64 gathered input rows (zero where absent, masked or past
-// Cin) and the matching 16 x 64 slice of W[k] are staged in shared memory,
-// and each thread accumulates a 4 x 4 register micro-tile with FP32 FMAs.
-// An offset at which none of the tile's 64 rows has a neighbor is skipped.
-// No tensor cores: TF32 would change the numbers against the f32 reference.
-// Making this fast (bf16/TF32 wgmma, cp.async pipelining) is later work.
+// Only about a quarter of the dense M x K (row, offset) work of a request
+// hits a valid row: 24.6% by a CPU count, 26.5% as chip_smoke.py measures
+// it on the card (hit_share, weighted by Cin x Cout over the 44 calls of
+// one full-width request). A 64-row tile that skips the offsets none of its
+// rows has computes 32.3% (CPU count) / 33.3% (work_share). Sorting rows by
+// neighbor pattern would cut that only to 27.6%, so the design keeps the
+// row order and goes after the arithmetic rate and the occupancy instead.
+//
+// Design of the tensor-core route (sc_tc_fwd):
+// - Numbers: 3xTF32. Each operand is split into x_hi = tf32(x) and
+//   x_lo = tf32(x - x_hi) (cvt.rna) as its fragment is read from shared
+//   memory, and the FP32 accumulators take a_lo*b_hi + a_hi*b_lo +
+//   a_hi*b_hi, which keeps roughly the float32 result (single TF32 moves
+//   it by ~1e-3 relative). W is split as its fragments are read, not
+//   cached. The tensor cores' float32 accumulation truncates, which over
+//   K x Cin / 8 x 3 accumulations (up to 5184) drifts: each step's
+//   32-channel partial sum is therefore added into the accumulators with a
+//   float32 add that rounds to nearest.
+// - Math: mma.sync.m16n8k8 TF32; a block of 2 x BN/32 warps computes a
+//   64 x BN output tile, each warp a 32 x 32 piece.
+// - Gathers: a block first reads its rows' neighbor indices for its
+//   offsets into shared memory (-1 where absent, out of range or masked)
+//   and lists the offsets at which some row has a neighbor; the others are
+//   skipped. The (offset, 32-channel chunk) steps then run through a ring
+//   of 3 stages filled by cp.async.cg at 16 B per thread, absent rows
+//   zero-filled (src-size 0), so the next gathers are in flight while the
+//   tensor cores work.
+// - Occupancy: the wrapper picks BN and a split of the K offsets from the
+//   shape. A split block writes its partial sums to a workspace, and
+//   sc_reduce adds the splits in a fixed order plus the bias: no float
+//   atomics, so a call gives the same bits every time.
+//
+// The SIMT route (sc_simt_fwd, FP32 FMAs, 64 x 64 tiles) serves the shapes
+// whose rows are not 16-byte chunks: Cin < 8 (the stem's 3) or a Cin or
+// Cout that is not a multiple of 4.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace {
+
+// ---------------------------------------------------------------- SIMT route
 
 #define SC_BM 64
 #define SC_BN 64
 #define SC_BK 16
 #define SC_THREADS 256
 
-namespace {
-
 __global__ void __launch_bounds__(SC_THREADS)
-sparse_conv_fwd(const float* __restrict__ feats, const uint8_t* __restrict__ mask,
-                int64_t n, int cin, const int32_t* __restrict__ nbr, int64_t m,
-                int kk, const float* __restrict__ w, int cout,
-                const float* __restrict__ bias, float* __restrict__ out) {
+sc_simt_fwd(const float* __restrict__ feats, const uint8_t* __restrict__ mask,
+            int64_t n, int cin, const int32_t* __restrict__ nbr, int64_t m,
+            int kk, const float* __restrict__ w, int cout,
+            const float* __restrict__ bias, float* __restrict__ out) {
   __shared__ float as[SC_BK][SC_BM];  // gathered rows, transposed
   __shared__ float bs[SC_BK][SC_BN];  // W[k] slice
   __shared__ int64_t rows[SC_BM];     // source row per tile row, -1 = zero
@@ -73,25 +103,21 @@ sparse_conv_fwd(const float* __restrict__ feats, const uint8_t* __restrict__ mas
     if (!__syncthreads_or(valid)) continue;  // no neighbor at this offset
 
     for (int c0 = 0; c0 < cin; c0 += SC_BK) {
-      // A: 64 rows x 16 channels, 4 consecutive channels per thread
-      {
+      {  // A: 64 rows x 16 channels, 4 consecutive channels per thread
         const int r = tid / 4;
         const int cc = (tid % 4) * 4;
         const int64_t src = rows[r];
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const int c = c0 + cc + q;
-          as[cc + q][r] =
-              (src >= 0 && c < cin) ? feats[src * cin + c] : 0.f;
+          as[cc + q][r] = (src >= 0 && c < cin) ? feats[src * cin + c] : 0.f;
         }
       }
-      // B: 16 channels x 64 outputs, 4 consecutive outputs per thread
-      {
+      {  // B: 16 channels x 64 outputs, 4 consecutive outputs per thread
         const int c = tid / 16;
         const int jj = (tid % 16) * 4;
         const int gc = c0 + c;
-        const float* wrow =
-            w + (static_cast<int64_t>(k) * cin + gc) * cout;
+        const float* wrow = w + (static_cast<int64_t>(k) * cin + gc) * cout;
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const int gj = n0 + jj + q;
@@ -131,21 +157,339 @@ sparse_conv_fwd(const float* __restrict__ feats, const uint8_t* __restrict__ mas
   }
 }
 
+// --------------------------------------------------------- tensor-core route
+
+constexpr int TC_BM = 64;      // output rows per block
+constexpr int TC_BK = 32;      // input channels per pipeline step
+constexpr int TC_STAGES = 3;   // depth of the cp.async ring
+constexpr int TC_MAXK = 27;    // offsets per split (the wrapper's limit)
+constexpr int TC_APAD = 4;     // row pads that keep fragment reads free of
+constexpr int TC_BPAD = 8;     // shared-memory bank conflicts
+
+template <int BN>
+struct TcShape {
+  static constexpr int kWarpsN = BN / 32;
+  static constexpr int kThreads = 64 * kWarpsN;  // 2 x kWarpsN warps
+  static constexpr int kAStride = TC_BK + TC_APAD;
+  static constexpr int kBStride = BN + TC_BPAD;
+  static constexpr int kAFloats = TC_BM * kAStride;
+  static constexpr int kBFloats = TC_BK * kBStride;
+  static constexpr size_t kSmem =
+      sizeof(float) * TC_STAGES * (kAFloats + kBFloats) +
+      sizeof(int) * (TC_MAXK * TC_BM + 2 * TC_MAXK + 1);
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte async copy; src_bytes = 0 zero-fills the destination
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// grid (ceil(m / 64), ceil(cout / BN), splits); split z covers the offsets
+// [z * per, min(kk, (z + 1) * per)). With ws == null (one split) it writes
+// out (+ bias); otherwise its partial sums to ws[z] (m x cout).
+template <int BN>
+__global__ void __launch_bounds__(TcShape<BN>::kThreads)
+sc_tc_fwd(const float* __restrict__ feats, const uint8_t* __restrict__ mask,
+          int64_t n, int cin, const int32_t* __restrict__ nbr, int64_t m,
+          int kk, int per, const float* __restrict__ w, int cout,
+          const float* __restrict__ bias, float* __restrict__ out,
+          float* __restrict__ ws) {
+  using S = TcShape<BN>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* a_s = reinterpret_cast<float*>(smem_raw);
+  float* b_s = a_s + TC_STAGES * S::kAFloats;
+  int* rows = reinterpret_cast<int*>(b_s + TC_STAGES * S::kBFloats);
+  int* hit = rows + TC_MAXK * TC_BM;  // per offset: some row has a neighbor
+  int* act = hit + TC_MAXK;           // the offsets that are computed
+  int* n_act = act + TC_MAXK;
+
+  const int tid = threadIdx.x;
+  const int64_t m0 = static_cast<int64_t>(blockIdx.x) * TC_BM;
+  const int n0 = blockIdx.y * BN;
+  const int k_lo = blockIdx.z * per;
+  const int nk = min(kk, k_lo + per) - k_lo;
+
+  // 1. the tile's source rows per offset, and which offsets to compute
+  for (int j = tid; j < nk; j += S::kThreads) hit[j] = 0;
+  __syncthreads();
+  for (int e = tid; e < TC_BM * nk; e += S::kThreads) {
+    const int r = e / nk, j = e - r * nk;
+    const int64_t gm = m0 + r;
+    int src = -1;
+    if (gm < m) {
+      const int idx = nbr[gm * kk + k_lo + j];
+      if (idx >= 0 && idx < n && mask[idx]) src = idx;
+    }
+    rows[j * TC_BM + r] = src;
+    if (src >= 0) hit[j] = 1;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int c = 0;
+    for (int j = 0; j < nk; ++j)
+      if (hit[j]) act[c++] = j;
+    *n_act = c;
+  }
+  __syncthreads();
+
+  const int n_chunks = (cin + TC_BK - 1) / TC_BK;
+  const int steps = *n_act * n_chunks;
+
+  // 2. stage one (offset, channel chunk) step into ring slot `slot`
+  auto load_step = [&](int step, int slot) {
+    const int a = step / n_chunks;
+    const int c0 = (step - a * n_chunks) * TC_BK;
+    const int j = act[a];
+    const int* rj = rows + j * TC_BM;
+    float* as = a_s + slot * S::kAFloats;
+    float* bs = b_s + slot * S::kBFloats;
+    // A: 64 rows x 32 channels = 512 chunks of 4 floats
+    for (int c = tid; c < TC_BM * (TC_BK / 4); c += S::kThreads) {
+      const int r = c / (TC_BK / 4), q = c % (TC_BK / 4);
+      const int src = rj[r];
+      const int ch = c0 + q * 4;
+      const bool ok = src >= 0 && ch < cin;
+      const float* g = ok ? feats + static_cast<int64_t>(src) * cin + ch : feats;
+      cp_async16(smem_addr(as + r * S::kAStride + q * 4), g, ok ? 16 : 0);
+    }
+    // B: 32 channels x BN outputs of W[k]
+    const float* wk = w + static_cast<int64_t>(k_lo + j) * cin * cout;
+    for (int c = tid; c < TC_BK * (BN / 4); c += S::kThreads) {
+      const int kr = c / (BN / 4), q = c % (BN / 4);
+      const int ch = c0 + kr, col = n0 + q * 4;
+      const bool ok = ch < cin && col < cout;
+      const float* g = ok ? wk + static_cast<int64_t>(ch) * cout + col : w;
+      cp_async16(smem_addr(bs + kr * S::kBStride + q * 4), g, ok ? 16 : 0);
+    }
+  };
+
+  // 3. the ring: wait for step s, refill the slot step s - 1 used, compute
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp / S::kWarpsN) * 32;  // warp's rows within the tile
+  const int wn = (warp % S::kWarpsN) * 32;  // warp's columns within the tile
+  float acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < TC_STAGES - 1; ++s) {
+    if (s < steps) load_step(s, s);
+    cp_async_commit();
+  }
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<TC_STAGES - 2>();
+    __syncthreads();
+    const int nxt = step + TC_STAGES - 1;
+    if (nxt < steps) load_step(nxt, nxt % TC_STAGES);
+    cp_async_commit();
+
+    const float* as = a_s + (step % TC_STAGES) * S::kAFloats;
+    const float* bs = b_s + (step % TC_STAGES) * S::kBFloats;
+    float part[2][4][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) part[i][j][q] = 0.f;
+#pragma unroll
+    for (int k8 = 0; k8 < TC_BK; k8 += 8) {
+      uint32_t ahi[2][4], alo[2][4], bhi[4][2], blo[4][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float* p = as + (wm + i * 16 + g) * S::kAStride + k8 + t;
+        split_tf32(p[0], ahi[i][0], alo[i][0]);
+        split_tf32(p[8 * S::kAStride], ahi[i][1], alo[i][1]);
+        split_tf32(p[4], ahi[i][2], alo[i][2]);
+        split_tf32(p[8 * S::kAStride + 4], ahi[i][3], alo[i][3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float* p = bs + (k8 + t) * S::kBStride + wn + j * 8 + g;
+        split_tf32(p[0], bhi[j][0], blo[j][0]);
+        split_tf32(p[4 * S::kBStride], bhi[j][1], blo[j][1]);
+      }
+      // small terms first, then the large one
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          mma_tf32(part[i][j], alo[i], bhi[j]);
+          mma_tf32(part[i][j], ahi[i], blo[j]);
+          mma_tf32(part[i][j], ahi[i], bhi[j]);
+        }
+    }
+    // the tensor cores' own float32 sums truncate; adding each step's
+    // 32-channel partial into the accumulators here rounds to nearest
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][j][q] += part[i][j][q];
+  }
+  cp_async_wait<0>();
+
+  // 4. epilogue: fragment (i, j) holds rows g, g + 8 and columns 2t, 2t + 1
+  float* dst = ws == nullptr ? out : ws + blockIdx.z * m * cout;
+  const bool add_bias = ws == nullptr && bias != nullptr;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = n0 + wn + j * 8 + 2 * t;
+      if (col >= cout) continue;
+      const float b0 = add_bias ? bias[col] : 0.f;
+      const float b1 = add_bias ? bias[col + 1] : 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int64_t row = m0 + wm + i * 16 + g + h * 8;
+        if (row < m)
+          *reinterpret_cast<float2*>(dst + row * cout + col) =
+              make_float2(acc[i][j][2 * h] + b0, acc[i][j][2 * h + 1] + b1);
+      }
+    }
+}
+
+// out[i] = sum over splits s in order of ws[s][i] (+ bias); 4 floats a thread
+__global__ void sc_reduce(const float4* __restrict__ ws, int splits,
+                          int64_t quads, int cout,
+                          const float* __restrict__ bias,
+                          float4* __restrict__ out) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= quads) return;
+  float4 s = ws[i];
+  for (int z = 1; z < splits; ++z) {
+    const float4 v = ws[z * quads + i];
+    s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
+  }
+  if (bias != nullptr) {
+    const int col = static_cast<int>((i * 4) % cout);
+    s.x += bias[col]; s.y += bias[col + 1];
+    s.z += bias[col + 2]; s.w += bias[col + 3];
+  }
+  out[i] = s;
+}
+
+template <int BN>
+int launch_tc(const float* feats, const uint8_t* mask, int64_t n, int cin,
+              const int32_t* nbr, int64_t m, int kk, int per, int splits,
+              const float* w, int cout, const float* bias, float* out,
+              float* ws, cudaStream_t s) {
+  using S = TcShape<BN>;
+  // above 48 KB of shared memory only by request, once per device
+  constexpr int kMaxDevices = 64;
+  static bool smem_set[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!smem_set[dev]) {
+    e = cudaFuncSetAttribute(sc_tc_fwd<BN>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(S::kSmem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_set[dev] = true;
+  }
+  dim3 grid(static_cast<unsigned>((m + TC_BM - 1) / TC_BM),
+            (cout + BN - 1) / BN, splits);
+  sc_tc_fwd<BN><<<grid, S::kThreads, S::kSmem, s>>>(
+      feats, mask, n, cin, nbr, m, kk, per, w, cout, bias, out,
+      splits > 1 ? ws : nullptr);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
+  const int64_t quads = m * cout / 4;
+  const int threads = 256;
+  sc_reduce<<<static_cast<unsigned>((quads + threads - 1) / threads), threads,
+              0, s>>>(reinterpret_cast<const float4*>(ws), splits, quads,
+                      cout, bias, reinterpret_cast<float4*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // feats: (n, cin) f32; mask: (n,) bool bytes; nbr: (m, kk) int32;
 // w: (kk, cin, cout) f32; bias: (cout,) f32 or null; out: (m, cout) f32.
 // All on the device, contiguous. Returns the launch's CUDA error (0 = none).
-extern "C" int es_sparse_conv(const float* feats, const uint8_t* mask,
-                              int64_t n, int cin, const int32_t* nbr, int64_t m,
-                              int kk, const float* w, int cout,
-                              const float* bias, float* out, void* stream) {
+extern "C" int es_sparse_conv_simt(const float* feats, const uint8_t* mask,
+                                   int64_t n, int cin, const int32_t* nbr,
+                                   int64_t m, int kk, const float* w, int cout,
+                                   const float* bias, float* out,
+                                   void* stream) {
   if (m <= 0 || cout <= 0) return 0;
   if (cin <= 0 || kk <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t mt = (m + SC_BM - 1) / SC_BM;
   if (mt > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid(static_cast<unsigned>(mt), (cout + SC_BN - 1) / SC_BN);
-  sparse_conv_fwd<<<grid, SC_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  sc_simt_fwd<<<grid, SC_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       feats, mask, n, cin, nbr, m, kk, w, cout, bias, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core route, same arguments plus the wrapper's plan: the block
+// tile's width bn (64 or 128), the offsets per split `per` and the number of
+// splits; ws holds splits x m x cout floats when splits > 1 (else null).
+// Takes cin % 4 == 0, cout % 4 == 0 and 16-byte aligned feats and w.
+extern "C" int es_sparse_conv_tc(const float* feats, const uint8_t* mask,
+                                 int64_t n, int cin, const int32_t* nbr,
+                                 int64_t m, int kk, const float* w, int cout,
+                                 const float* bias, float* out, int bn,
+                                 int per, int splits, float* ws,
+                                 void* stream) {
+  if (m <= 0 || cout <= 0) return 0;
+  if (cin <= 0 || kk <= 0 || cin % 4 || cout % 4 || per <= 0 ||
+      per > TC_MAXK || splits <= 0 || splits > 65535 ||
+      static_cast<int64_t>(splits - 1) * per >= kk ||
+      static_cast<int64_t>(splits) * per < kk || (splits > 1 && !ws) ||
+      (m + TC_BM - 1) / TC_BM > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bn == 64)
+    return launch_tc<64>(feats, mask, n, cin, nbr, m, kk, per, splits, w, cout,
+                         bias, out, ws, s);
+  if (bn == 128)
+    return launch_tc<128>(feats, mask, n, cin, nbr, m, kk, per, splits, w,
+                          cout, bias, out, ws, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

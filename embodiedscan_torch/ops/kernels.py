@@ -34,7 +34,9 @@ _L = ctypes.c_int64
 _SIGNATURES = {
     'es_join_scan_tile': [],
     'es_join_scan': [_P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
-    'es_sparse_conv': [_P, _P, _L, _I, _P, _L, _I, _P, _I, _P, _P, _P],
+    'es_sparse_conv_simt': [_P, _P, _L, _I, _P, _L, _I, _P, _I, _P, _P, _P],
+    'es_sparse_conv_tc': [_P, _P, _L, _I, _P, _L, _I, _P, _I, _P, _P, _I, _I,
+                          _I, _P, _P],
 }
 
 # seconds the last build took (0.0 when a cached library was loaded)
@@ -125,5 +127,8 @@ def check(err: int, name: str) -> None:
 
 
 def stream_handle(device) -> int:
-    """The raw handle of PyTorch's current stream on ``device``."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of PyTorch's current stream on ``device`` (a CUDA
+    device with an index, as a CUDA tensor's ``.device`` is). This is the
+    binding ``torch.cuda.current_stream(device).cuda_stream`` ends in,
+    without building a Stream object on every launch."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -1,10 +1,14 @@
 """Masked running-max scans of the merge join (kernel K1).
 
 ``join_scan`` is the port of ``embodiedscan_tpu/ops/pscan.py:join_scan``. On
-a CUDA tensor it launches the hand-written kernel ``csrc/join_scan.cu``; on
-a CPU tensor it runs :func:`_join_scan_plain`, the ``torch.cummax`` version
-of the same function (bit-exact: only integer max is involved).
+a CUDA tensor it launches the hand-written kernel ``csrc/join_scan.cu``: a
+single-pass scan with decoupled look-back, one kernel launch per call, after
+one memset of its look-back scratch when the input spans more than one tile.
+On a CPU tensor it runs :func:`_join_scan_plain`, the ``torch.cummax``
+version of the same function (bit-exact: only integer max is involved).
 """
+
+import functools
 
 import torch
 
@@ -33,18 +37,29 @@ def _join_scan_cuda(skey, saux, ranges, sbits):
     n = skey.shape[0]
     k = len(ranges)
     lib = kernels.library()
-    tile = lib.es_join_scan_tile()
-    nblocks = -(-n // tile)
-    tot = torch.empty(2 * k * nblocks, dtype=torch.int32, device=skey.device)
+    nblocks = -(-n // _tile_rows())
+    # look-back status words and the tile ticket; the kernel clears them
+    scratch = None
+    if nblocks > 1:
+        scratch = torch.empty(2 * k * nblocks + 1, dtype=torch.int64,
+                              device=skey.device)
     out = torch.empty((2 * k, n), dtype=torch.int32, device=skey.device)
     flat = [v for lohi in ranges for v in lohi]
     flat += [0, 0] * (MAX_RANGES - k)
     err = lib.es_join_scan(skey.data_ptr(), saux.data_ptr(), n, k, *flat,
-                           sbits, tot.data_ptr(), out.data_ptr(),
+                           sbits, None if scratch is None else
+                           scratch.data_ptr(), out.data_ptr(),
                            kernels.stream_handle(skey.device))
     kernels.check(err, 'es_join_scan')
     join_scan.launches += 1
-    return [(out[2 * r], out[2 * r + 1]) for r in range(k)]
+    rows = out.unbind(0)
+    return [(rows[2 * r], rows[2 * r + 1]) for r in range(k)]
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_rows():
+    """Rows per tile of the built kernel."""
+    return kernels.library().es_join_scan_tile()
 
 
 def join_scan(skey: torch.Tensor, saux: torch.Tensor, ranges,

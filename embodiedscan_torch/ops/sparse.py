@@ -8,7 +8,13 @@ unique and key-sorted within each sample (the engine invariant the merge
 join relies on).
 
 :func:`gather_matmul_conv` computes ``sum_k feats[nbr[:, k]] @ W[k]``. On a
-CUDA tensor it launches ``csrc/sparse_conv.cu``; on a CPU tensor it runs
+CUDA tensor it launches ``csrc/sparse_conv.cu`` by one of two routes that
+:func:`conv_plan` picks from the shape: ``tc``, tensor cores in 3xTF32
+(each float32 operand split into two TF32 parts, three products summed in
+float32, which keeps float32 accuracy), fed by 16-byte ``cp.async`` gathers
+and, for shapes with few output tiles, split over the K offsets with a
+fixed-order reduction; or ``simt``, float32 FMAs, for rows that are not
+16-byte chunks (Cin < 8, as at the stem). On a CPU tensor it runs
 :func:`_gather_matmul_conv_plain`.
 """
 
@@ -184,18 +190,108 @@ def _gather_matmul_conv_plain(feats, mask, nbr, weights, bias=None):
     return out
 
 
-def _gather_matmul_conv_cuda(feats, mask, nbr, weights, bias):
+# H100 SXM: streaming multiprocessors; a grid of fewer 64 x 64 output tiles
+# than two waves of them is split over the K offsets
+NUM_SMS = 132
+SPLIT_BELOW_TILES = 2 * NUM_SMS
+OFFSETS_PER_SPLIT = 3            # offsets per group of a split call
+TC_BM = 64                       # rows of a block tile
+TC_MAX_OFFSETS = 27              # offsets one tensor-core block can take
+WIDE_MIN_ROW_TILES = 64          # a split call takes 128-wide tiles from here
+WIDE_MAX_REDUCTION = 256 * 256   # an unsplit one below this Cin x Cout
+
+
+class ConvPlan(NamedTuple):
+    """How ``gather_matmul_conv`` runs one shape on the card.
+
+    Attributes:
+        route: ``'tc'`` (tensor cores, 3xTF32) or ``'simt'`` (FP32 FMAs).
+        bm, bn: the block's output tile (rows x columns).
+        splits: the number of K-offset groups computed by separate blocks
+            (1 = no split; else partial sums plus a reduction).
+        per_split: offsets per group (the last one may hold fewer).
+    """
+    route: str
+    bm: int
+    bn: int
+    splits: int
+    per_split: int
+
+
+def conv_plan(m: int, k: int, cin: int, cout: int) -> ConvPlan:
+    """The route, tile and split for an (M, K, Cin, Cout) call.
+
+    Chosen by shape only, never by a failed launch. The tensor-core route
+    stages rows as 16-byte chunks, so it takes Cin >= 8 with Cin and Cout
+    multiples of 4 and K <= 27; other shapes (the stem's Cin = 3) take the
+    SIMT route.
+
+    With at least two waves of 64 x 64 tiles the call is not split; its
+    tiles are 64 x 128 (each gathered row feeds twice the columns) when
+    that still gives two waves and Cin x Cout is below 256 x 256, else
+    64 x 64: on long reductions the few tiles dense with neighbors set
+    the time, and narrower tiles spread them over more blocks. Below two
+    waves (the coarse levels, where most tiles have no valid row and the
+    few busy ones would each loop over all K offsets) the K offsets are
+    split into groups of ``OFFSETS_PER_SPLIT``; the tiles are 64 x 128
+    when Cout >= 128 and there are at least ``WIDE_MIN_ROW_TILES`` row
+    tiles, else 64 x 64. The split workspace is then at most
+    9 x 264 x 64 x 64 floats (37 MiB). The thresholds are the ones the
+    main path's calls favoured on an H100 (``kernel_ab.py --plans``).
+    """
+    if cin < 8 or cin % 4 or cout % 4 or k > TC_MAX_OFFSETS:
+        return ConvPlan('simt', 64, 64, 1, k)
+    tiles_m = -(-m // TC_BM)
+    if tiles_m * -(-cout // 64) >= SPLIT_BELOW_TILES:
+        wide = cout >= 128 and cin * cout < WIDE_MAX_REDUCTION and \
+            tiles_m * -(-cout // 128) >= SPLIT_BELOW_TILES
+        return ConvPlan('tc', TC_BM, 128 if wide else 64, 1, k)
+    bn = 128 if cout >= 128 and tiles_m >= WIDE_MIN_ROW_TILES else 64
+    per = min(k, OFFSETS_PER_SPLIT)
+    return ConvPlan('tc', TC_BM, bn, -(-k // per), per)
+
+
+def _aligned16(t: torch.Tensor) -> bool:
+    return t.data_ptr() % 16 == 0
+
+
+def cuda_plan(feats, nbr, weights) -> ConvPlan:
+    """:func:`conv_plan` for these tensors: a tensor-core plan becomes the
+    SIMT one where feats or weights does not start at a 16-byte aligned
+    address (a view), since the tensor-core route reads 16-byte chunks."""
+    (m, k), cin, cout = nbr.shape, feats.shape[1], weights.shape[-1]
+    plan = conv_plan(m, k, cin, cout)
+    if plan.route == 'tc' and not (_aligned16(feats) and
+                                   _aligned16(weights)):
+        plan = ConvPlan('simt', 64, 64, 1, k)
+    return plan
+
+
+def _gather_matmul_conv_cuda(feats, mask, nbr, weights, bias, plan=None):
     n, cin = feats.shape
     m, k = nbr.shape
     cout = weights.shape[-1]
+    if plan is None:
+        plan = cuda_plan(feats, nbr, weights)
     out = torch.empty((m, cout), dtype=torch.float32, device=feats.device)
     lib = kernels.library()
-    err = lib.es_sparse_conv(
-        feats.data_ptr(), mask.data_ptr(), n, cin, nbr.data_ptr(), m, k,
-        weights.data_ptr(), cout, None if bias is None else bias.data_ptr(),
-        out.data_ptr(), kernels.stream_handle(feats.device))
-    kernels.check(err, 'es_sparse_conv')
-    gather_matmul_conv.launches += 1
+    common = (feats.data_ptr(), mask.data_ptr(), n, cin, nbr.data_ptr(), m, k,
+              weights.data_ptr(), cout,
+              None if bias is None else bias.data_ptr(), out.data_ptr())
+    stream = kernels.stream_handle(feats.device)
+    if plan.route == 'tc':
+        ws = None
+        if plan.splits > 1:
+            ws = torch.empty((plan.splits, m, cout), dtype=torch.float32,
+                             device=feats.device)
+        err = lib.es_sparse_conv_tc(
+            *common, plan.bn, plan.per_split, plan.splits,
+            None if ws is None else ws.data_ptr(), stream)
+        kernels.check(err, 'es_sparse_conv_tc')
+    else:
+        err = lib.es_sparse_conv_simt(*common, stream)
+        kernels.check(err, 'es_sparse_conv_simt')
+    gather_matmul_conv.launches[plan.route] += 1
     return out
 
 
@@ -214,6 +310,15 @@ def gather_matmul_conv(feats: torch.Tensor, mask: torch.Tensor,
 
     Returns:
         (M, Cout) float32 (the caller masks with the output mask).
+
+    On the card the route, tile and split come from :func:`conv_plan`. The
+    tensor-core route computes in 3xTF32 (``a_lo*b_hi + a_hi*b_lo +
+    a_hi*b_hi`` with TF32 parts ``x_hi = tf32(x)``, ``x_lo = tf32(x -
+    x_hi)``, float32 accumulators): float32 accuracy, within 1e-4 x
+    max|out| of the plain version, and the same bits on every call (split
+    partial sums are added in a fixed order, no float atomics). It reads
+    feats and weights in 16-byte chunks; where either does not start at a
+    16-byte aligned address the call takes the SIMT route.
     """
     if feats.dim() != 2 or mask.shape != feats.shape[:1] or nbr.dim() != 2 \
             or weights.dim() != 3 or weights.shape[:2] != (nbr.shape[1],
@@ -243,7 +348,8 @@ def gather_matmul_conv(feats: torch.Tensor, mask: torch.Tensor,
     return _gather_matmul_conv_plain(feats, mask, nbr, weights, bias)
 
 
-gather_matmul_conv.launches = 0  # kernel launches (CUDA path only)
+# kernel launches by route (CUDA path only)
+gather_matmul_conv.launches = {'tc': 0, 'simt': 0}
 
 
 def center_child_index(st: SparseTensor, dmap: DownsampleMap) -> torch.Tensor:

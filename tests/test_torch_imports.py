@@ -8,7 +8,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'embodiedscan_tpu')
 FILES = sorted((ROOT / 'embodiedscan_torch').rglob('*.py')) + \
-    [ROOT / 'chip_smoke.py']
+    [ROOT / 'chip_smoke.py', ROOT / 'kernel_ab.py']
 
 
 def _imported(path):

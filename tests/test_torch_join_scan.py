@@ -41,7 +41,12 @@ def _assert_equal(want, got):
         np.testing.assert_array_equal(gr, wr)
 
 
-@pytest.mark.parametrize('n,k,sbits', PSCAN_CASES)
+# the card's kernel scans tiles of 2048 rows: one tile, and one tile plus a
+# row (the first input that looks back), as chip_smoke.py runs them
+TILE_EDGE_CASES = [(2048, 2, 0), (2049, 3, (1 << 20) - 1)]
+
+
+@pytest.mark.parametrize('n,k,sbits', PSCAN_CASES + TILE_EDGE_CASES)
 def test_plain_matches_lax(n, k, sbits):
     skey, saux, ranges = _random_case(np.random.RandomState(n + k), n, k)
     want = jP._join_scan_lax(jnp.asarray(skey), jnp.asarray(saux), ranges,
