@@ -7,33 +7,42 @@ Run from the repository root on a machine with one CUDA card:
 Phases (one line each; any failure exits non-zero before the last line):
   1. device and build: the card's name and power limit, then the build of
      the hand-written kernels from embodiedscan_torch/csrc;
-  2. main path: the full-width mv_det3d detector (284 classes,
+  2. serving path: the full-width mv_det3d detector (284 classes,
      MinkResNet-34 + ResNet-50/16, shipped capacities) serves one warm-up
      and three synthetic requests of 100k points and 50 views of 480x480;
      launch counts are reset before each request and read after it; then
      the host-clock time of each stage of one request;
-  3. kernel parity and times: every kernel call of the warm-up request is
-     replayed on its recorded inputs against the kernel's plain PyTorch
-     version (join scan bit-exact, sparse conv within 1e-4 x max|ref| and
+  3. training path: the same detector in training mode takes one warm-up
+     and three timed train steps (loss, backward, clip, AdamW) on a scene of
+     100k points, 20 views of 480x480 and 128 GT boxes, with launch counts
+     reset before each step and read after it; then the forward, backward
+     and optimizer times of one step;
+  4. kernel parity and times: every kernel call of the warm-up request and
+     of the warm-up step's backward is replayed on its recorded inputs
+     against the kernel's plain PyTorch version (join scan bit-exact,
+     sparse conv and weight gradient within 1e-4 x max|ref| and
      bit-identical when run twice), with the kernel, plain and library
      times, the least time the card could take and, for the sparse conv,
      the plan (route, tile, split) and the share of the dense work that
      hits and that the kernel computes; after every timing, the profiler
      counts each call's CUDA launches and device time and traces one
-     request (device busy time and idle share);
-  4. edge shapes: the sparse conv at Cin = 3, K = 1, ragged M, Cout 64 /
+     request and one train step (device busy time and idle share);
+  5. edge shapes: the sparse conv at Cin = 3, K = 1, ragged M, Cout 64 /
      128 / 512, all-absent and all-masked tables, a misaligned view, split
-     against unsplit; the join scan at the reference's unit-test cases,
-     one tile, one tile plus one row and ~2M rows;
-  5. end-to-end parity: a small detector on cuda (kernels) and on cpu
-     (plain versions) with the same weights;
-  6. one JSON line with the kernels, then the result line.
+     against unsplit; the weight gradient at C = 3, K = 1, ragged R,
+     C 64 / 128 / 512, all-absent and all-masked tables, a misaligned view,
+     split rows against unsplit; the join scan at the reference's
+     unit-test cases, one tile, one tile plus one row and ~4M rows;
+  6. end-to-end parity: a small detector on cuda (kernels) and on cpu
+     (plain versions) with the same weights, serving and one train step;
+  7. one JSON line with the kernels, then the result line.
 Per-call details go to chiprun_out/chip_smoke_calls.json.
 
-``python3 chip_smoke.py --kernels-only`` runs phases 1 and 4 and stops
+``python3 chip_smoke.py --kernels-only`` runs phases 1 and 5 and stops
 (no result line): the quickest check that the kernels build and agree.
 """
 
+import functools
 import json
 import os
 import subprocess
@@ -48,10 +57,29 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12
-# wrapper calls per request: K2 by route (the stem's Cin = 3 takes SIMT)
+# wrapper calls per request: K2 by route (the stem's Cin = 3 takes SIMT);
+# serving runs no backward kernel
 EXPECTED_LAUNCHES = {'sparse_conv_tc': 43, 'sparse_conv_simt': 1,
+                     'sparse_dgrad_tc': 0, 'sparse_dgrad_simt': 0,
+                     'sparse_wgrad_tc': 0, 'sparse_wgrad_simt': 0,
                      'join_scan': 12}
-CONV_GATE = 1e-4  # K2: max|kernel - plain| <= CONV_GATE x max|plain|
+# wrapper calls per train step: the 44 forward convs; K2 again for the
+# input gradient of the 35 submanifold and 4 strided convs (the stem's
+# input needs none, the 4 K = 1 downsamples take index_add_); K3 for the
+# weight gradient of all 44 (the stem's Cin = 3 on SIMT); K1's 12 joins,
+# the stages' now with their transpose queries
+EXPECTED_TRAIN_LAUNCHES = {'sparse_conv_tc': 43, 'sparse_conv_simt': 1,
+                           'sparse_dgrad_tc': 39, 'sparse_dgrad_simt': 0,
+                           'sparse_wgrad_tc': 43, 'sparse_wgrad_simt': 1,
+                           'join_scan': 12}
+CONV_GATE = 1e-4  # K2, K3: max|kernel - plain| <= CONV_GATE x max|plain|
+SPLIT_GATE = 1e-6  # K3 split rows vs unsplit: max|d| <= SPLIT_GATE x max
+# CPU vs CUDA train step: every gradient leaf and batch statistic within
+# GRAD_GATE x its max|cpu| (3xTF32 kernels, cuDNN and atomic sums in
+# another order, through ~90 layers forward and back). On an H100 the
+# shipped kernels' worst leaf is 9.95e-5 and, with K2's and K3's products
+# cut to single TF32, 0.473 (``kernel_ab.py --tf32-control``)
+GRAD_GATE = 3e-4
 OUT_DIR = 'chiprun_out'
 
 
@@ -88,6 +116,48 @@ def make_request(p=100000, v=50, hw=480, seed=0):
     )
 
 
+def make_batch(b, p, v, hw, g, num_classes, seed=0):
+    """A numpy copy of the reference's ``bench.py:make_batch``: the same
+    room cloud, cameras, GT boxes and labels from the same seed."""
+    rng = np.random.RandomState(seed)
+    u = rng.uniform(0, 8, (p, 2)).astype(np.float32)
+    which = rng.randint(0, 3, p)
+    pts = np.zeros((p, 3), np.float32)
+    pts[which == 0] = np.stack([u[which == 0, 0], u[which == 0, 1],
+                                np.zeros((which == 0).sum())], -1)
+    pts[which == 1] = np.stack([u[which == 1, 0],
+                                np.zeros((which == 1).sum()),
+                                u[which == 1, 1] * 3 / 8], -1)
+    pts[which == 2] = np.stack([np.zeros((which == 2).sum()),
+                                u[which == 2, 0],
+                                u[which == 2, 1] * 3 / 8], -1)
+    pts = np.tile(pts[None], (b, 1, 1)) + rng.randn(b, p, 3).astype(
+        np.float32) * 0.01
+    k = np.array([[500.0, 0, hw / 2, 0], [0, 500.0, hw / 2, 0], [0, 0, 1, 0],
+                  [0, 0, 0, 1]], np.float32)
+    exts = []
+    for i in range(v):
+        ext = np.eye(4, dtype=np.float32)
+        ext[:3, 3] = [-4.0 + 0.1 * i, -4.0, 8.0]
+        exts.append(k @ ext)
+    boxes = np.concatenate([
+        rng.uniform(0.5, 7.5, (b, g, 2)),
+        rng.uniform(0.2, 2.0, (b, g, 1)),
+        rng.uniform(0.2, 1.5, (b, g, 3)),
+        rng.uniform(-0.5, 0.5, (b, g, 3)),
+    ], -1).astype(np.float32)
+    return dict(
+        points=pts.astype(np.float32),
+        points_mask=np.ones((b, p), bool),
+        imgs=rng.randn(b, v, hw, hw, 3).astype(np.float32),
+        proj=np.tile(np.stack(exts)[None], (b, 1, 1, 1)).astype(np.float32),
+        aug_inv=np.tile(np.eye(4, dtype=np.float32), (b, 1, 1)),
+        gt_boxes=boxes,
+        gt_labels=rng.randint(0, num_classes, (b, g)).astype(np.int32),
+        gt_mask=np.ones((b, g), bool),
+    )
+
+
 def to_device(batch, device):
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
@@ -111,33 +181,73 @@ def cuda_ms(fn, reps=5):
 
 class Recorder:
     """Records the inputs of every kernel call (and of the plain versions
-    that CPU tensors take) while active; the launch counts are untouched."""
+    that CPU tensors take) while active; the launch counts are untouched.
 
-    NAMES = {'conv': ('_gather_matmul_conv_cuda', '_gather_matmul_conv_plain'),
-             'scan': ('_join_scan_cuda', '_join_scan_plain')}
+    ``conv``: K2's forward calls (feats, mask, nbr, weights, bias);
+    ``dgrad``: K2's input-gradient calls (dout, out_mask, table, weights_t,
+    None); ``wgrad``: K3's calls (x, x_mask, idx, y, y_mask); ``scan``:
+    K1's calls. A name the checkout lacks (an earlier one, timed by
+    kernel_ab.py) is not patched.
+    """
 
     def __init__(self, S, P):
-        self.mods = {'conv': S, 'scan': P}
-        self.conv, self.scan = [], []
-        self.orig = {}
+        self.S, self.P = S, P
+        self.conv, self.dgrad, self.wgrad, self.scan = [], [], [], []
+        self.orig = []
+        self.in_dgrad = False
+
+    def _patch(self, mod, name, make):
+        fn = getattr(mod, name, None)
+        if fn is not None:
+            self.orig.append((mod, name, fn))
+            # wraps() shares the wrapper's attributes (launch counts) too
+            setattr(mod, name, functools.wraps(fn)(make(fn)))
+
+    @staticmethod
+    def _logging(log_of):
+        def make(fn):
+            def wrapped(*args):
+                log_of().append(args[:5])
+                return fn(*args)
+            return wrapped
+        return make
 
     def __enter__(self):
-        for kind, names in self.NAMES.items():
-            mod, log_ = self.mods[kind], getattr(self, kind)
-            for name in names:
-                fn = getattr(mod, name)
-                self.orig[(kind, name)] = fn
+        def k2_log():
+            return self.dgrad if self.in_dgrad else self.conv
 
-                def wrapped(*args, _fn=fn, _log=log_):
-                    _log.append(args)
-                    return _fn(*args)
+        def dgrad(fn):
+            def wrapped(*args):
+                self.in_dgrad = True
+                out = fn(*args)
+                self.in_dgrad = False
+                return out
+            return wrapped
 
-                setattr(mod, name, wrapped)
+        for name in ('_gather_matmul_conv_cuda', '_gather_matmul_conv_plain'):
+            self._patch(self.S, name, self._logging(k2_log))
+        self._patch(self.S, 'conv_dgrad', dgrad)
+        for name in ('_conv_wgrad_cuda', '_conv_wgrad_plain'):
+            self._patch(self.S, name, self._logging(lambda: self.wgrad))
+        for name in ('_join_scan_cuda', '_join_scan_plain'):
+            self._patch(self.P, name, self._logging(lambda: self.scan))
         return self
 
     def __exit__(self, *exc):
-        for (kind, name), fn in self.orig.items():
-            setattr(self.mods[kind], name, fn)
+        for mod, name, fn in self.orig:
+            setattr(mod, name, fn)
+
+    def to_host(self):
+        """Moves every recorded tensor to host memory: the device then holds
+        nothing of the recorded run (replays copy one call back at a
+        time)."""
+        for log_ in (self.conv, self.dgrad, self.wgrad, self.scan):
+            log_[:] = [_on(args, 'cpu') for args in log_]
+
+
+def _on(args, device):
+    return tuple(a.to(device) if isinstance(a, torch.Tensor) else a
+                 for a in args)
 
 
 def phase_build():
@@ -198,10 +308,8 @@ def phase_main_path(device):
         if preds['bboxes'].shape != (1, cfg.model.max_dets, 9):
             raise RuntimeError(f'bboxes shape {tuple(preds["bboxes"].shape)}')
         kept.append(int(preds['mask'].sum()))
-        for name, want in EXPECTED_LAUNCHES.items():
-            if counts[name] != want:
-                raise RuntimeError(f'request {i}: {name} launched '
-                                   f'{counts[name]} times, expected {want}')
+        check_counts(counts, EXPECTED_LAUNCHES, f'request {i}')
+        for name in totals:
             totals[name] += counts[name]
         log(f'[main] request {i}: {lat[-1] * 1e3:.1f} ms, peak '
             f'{mem[-1]:.2f} GiB, kept {kept[-1]} of '
@@ -219,14 +327,26 @@ def phase_main_path(device):
 
 def reset_counts(S, P):
     S.gather_matmul_conv.launches = {'tc': 0, 'simt': 0}
+    S.conv_dgrad.launches = {'tc': 0, 'simt': 0}
+    S.conv_wgrad.launches = {'tc': 0, 'simt': 0}
     P.join_scan.launches = 0
 
 
 def read_counts(S, P):
-    routes = S.gather_matmul_conv.launches
-    return {'sparse_conv_tc': routes['tc'],
-            'sparse_conv_simt': routes['simt'],
-            'join_scan': P.join_scan.launches}
+    counts = {'join_scan': P.join_scan.launches}
+    for name, fn in (('sparse_conv', S.gather_matmul_conv),
+                     ('sparse_dgrad', S.conv_dgrad),
+                     ('sparse_wgrad', S.conv_wgrad)):
+        for route, n in fn.launches.items():
+            counts[f'{name}_{route}'] = n
+    return counts
+
+
+def check_counts(counts, want, what):
+    for name, n in want.items():
+        if counts[name] != n:
+            raise RuntimeError(f'{what}: {name} launched {counts[name]} '
+                               f'times, expected {n}')
 
 
 def _self_device_us(event):
@@ -282,16 +402,104 @@ def stage_times(model, batch):
     return dict(stages_ms=stages)
 
 
-@torch.no_grad()
-def profile_request(model, batch):
-    """One request under torch.profiler: device busy time and idle share,
-    device time by op."""
+def phase_train(device, cfg=None):
+    """The training path at full width: one recorded warm-up step, then
+    three timed ones (host clock, each ending in a synchronize), each
+    with its peak memory and its launch counts against
+    EXPECTED_TRAIN_LAUNCHES; then one step split into forward, backward
+    and optimizer."""
+    from embodiedscan_torch.configs.base import build_train, mv_det3d
+    from embodiedscan_torch.ops import pscan as P
+    from embodiedscan_torch.ops import sparse as S
+    from embodiedscan_torch.train.state import train_step
+    cfg = cfg or mv_det3d()
+    t0 = time.perf_counter()
+    model, opt = build_train(cfg, device=device)
+    d = cfg.data
+    batch = to_device(make_batch(1, d.n_points, d.n_views_train,
+                                 d.image_hw[0], d.n_gt,
+                                 cfg.model.num_classes), device)
+    log(f'[train] built mv_det3d and AdamW on {device} in '
+        f'{time.perf_counter() - t0:.1f} s; batch b=1, '
+        f'{d.n_points} points, {d.n_views_train} views, {d.n_gt} GT boxes')
+    reset_counts(S, P)
+    with Recorder(S, P) as rec:  # warm-up step: record backward inputs
+        t0 = time.perf_counter()
+        metrics = train_step(model, opt, batch)
+        torch.cuda.synchronize()
+    check_counts(read_counts(S, P), EXPECTED_TRAIN_LAUNCHES, 'warm-up step')
+    rec.conv, rec.scan = [], []  # the serving replay covers K1 and K2 fwd
+    rec.to_host()
+    log(f'[train] warm-up step {time.perf_counter() - t0:.2f} s, '
+        f'{len(rec.dgrad)} dgrad and {len(rec.wgrad)} wgrad calls recorded')
+    history = [metrics]
+    step_ms, mem = [], []
+    totals = dict.fromkeys(EXPECTED_TRAIN_LAUNCHES, 0)
+    for i in range(3):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(S, P)
+        t0 = time.perf_counter()
+        metrics = train_step(model, opt, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts(S, P)
+        mem.append(torch.cuda.max_memory_allocated() / 2**30)
+        check_counts(counts, EXPECTED_TRAIN_LAUNCHES, f'train step {i}')
+        for name in totals:
+            totals[name] += counts[name]
+        vals = {k: float(v) for k, v in metrics.items()}
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise RuntimeError(f'train step {i}: non-finite losses {vals}')
+        history.append(metrics)
+        log(f'[train] step {i}: {step_ms[-1]:.1f} ms, peak {mem[-1]:.2f} '
+            f'GiB, ' + ', '.join(f'{k} {v:.6g}' for k, v in vals.items()) +
+            f', launches {counts}')
+    totals_seen = [float(m['loss_total']) for m in history]
+    if len(set(totals_seen)) != len(totals_seen):
+        raise RuntimeError(f'loss_total did not change between steps: '
+                           f'{totals_seen}')
+    split = step_split(model, opt, batch, S, P)
+    log(f'[train] step ms {[round(t, 3) for t in step_ms]}, peak GiB '
+        f'{max(mem):.3f}; one step split: ' + ', '.join(
+            f'{k} {v:.2f} ms' for k, v in split.items()))
+    stats = dict(step_ms=step_ms, peak_gib=mem, split_ms=split,
+                 losses=[{k: float(v) for k, v in m.items()}
+                         for m in history])
+    return rec, totals, stats, model, opt, batch
+
+
+def step_split(model, opt, batch, S, P):
+    """Host-clock forward, backward and optimizer ms of one train step
+    (each part ending in a synchronize); its launches are checked too."""
+    reset_counts(S, P)
+    opt.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = model(batch, mode='loss')
+    total = sum(losses.values())
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    total.backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    opt.step()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    check_counts(read_counts(S, P), EXPECTED_TRAIN_LAUNCHES, 'split step')
+    return dict(forward=(t1 - t0) * 1e3, backward=(t2 - t1) * 1e3,
+                optimizer=(t3 - t2) * 1e3)
+
+
+def profile_run(fn, what):
+    """One run of ``fn`` under torch.profiler: device busy time and idle
+    share, device time by op."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model(batch, mode='predict')
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     # device-side entries only (kernels, copies): the host-side aten
@@ -301,7 +509,7 @@ def profile_request(model, batch):
            if str(e.device_type).endswith('CUDA') and _self_device_us(e) > 0]
     ops.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in ops)
-    log(f'[breakdown] profiled request {wall:.1f} ms wall, device busy '
+    log(f'[breakdown] profiled {what} {wall:.1f} ms wall, device busy '
         f'{busy:.1f} ms (idle share {1 - busy / wall:.3f}); top ops: ' +
         '; '.join(f'{k[:90]} {t:.2f} ms x{c}' for k, t, c in ops[:8]))
     return dict(profiled_wall_ms=wall, device_busy_ms=busy,
@@ -368,71 +576,156 @@ def _check_conv(S, feats, mask, nbr, w, bias, what, plan=None):
     return got, err, scale
 
 
+def _check_wgrad(S, x, xm, idx, y, ym, what, plan=None):
+    """K3 vs its plain version within the gate, and the same bits twice;
+    returns (out, max|d|, max|ref|)."""
+    ref = S._conv_wgrad_plain(x, xm, idx, y, ym)
+    got = S._conv_wgrad_cuda(x, xm, idx, y, ym, plan)
+    again = S._conv_wgrad_cuda(x, xm, idx, y, ym, plan)
+    err = float((got - ref).abs().max()) if ref.numel() else 0.0
+    scale = float(ref.abs().max()) if ref.numel() else 0.0
+    shape = f'{tuple(idx.shape)} x {x.shape[1]} x {y.shape[1]}'
+    if not err <= CONV_GATE * max(scale, 1e-30):
+        raise RuntimeError(f'sparse_wgrad {what} {shape}: max|d| {err} > '
+                           f'{CONV_GATE} x {scale}')
+    if not torch.equal(got, again):
+        raise RuntimeError(f'sparse_wgrad {what} {shape}: two runs differ')
+    return got, err, scale
+
+
+def _wgrad_bound(x, xm, idx, y, ym):
+    """(bytes, flops, hits) of a K3 call: inputs read once, G written once;
+    FLOPs over the (row, offset) pairs whose x row and gathered y row are
+    both valid."""
+    r, cx = x.shape
+    k, cy = idx.shape[1], y.shape[1]
+    safe = torch.where(idx >= 0, idx, torch.zeros_like(idx)).long()
+    hits = int(((idx >= 0) & xm[:, None] & ym[safe]).sum())
+    nbytes = (x.numel() * 4 + xm.numel() + idx.numel() * 4 + y.numel() * 4 +
+              ym.numel() + k * cx * cy * 4)
+    return nbytes, 2.0 * cx * cy * hits, hits
+
+
+def _bound(nbytes, flops):
+    """(bound ms, by what, FP32 bound ms): bytes at the HBM rate against
+    3xTF32 operations (3 TF32 products each) at the TF32 peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 3 * flops / TF32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            'bytes' if t_bytes >= t_ops else 'operations',
+            max(t_bytes, flops / FP32_FLOPS) * 1e3)
+
+
+def _conv_call(S, feats, mask, nbr, w, bias, what, run):
+    """One K2 call (forward, or dgrad with ``run`` = conv_dgrad): checked,
+    then timed beside its plain version and the library gather-matmul."""
+    plan = S.cuda_plan(feats, nbr, w)
+    _, err, scale = _check_conv(S, feats, mask, nbr, w, bias, what)
+    padded = torch.cat([torch.where(mask[:, None], feats,
+                                    torch.zeros_like(feats)),
+                        feats.new_zeros(1, feats.shape[1])])
+    idx = torch.where(nbr >= 0, nbr, torch.full_like(nbr, feats.shape[0]))
+    kcin = w.shape[0] * w.shape[1]
+    w2 = w.reshape(kcin, w.shape[2])
+    nbytes, flops, hits = _conv_bound(feats, mask, nbr, w, bias)
+    bound, by, bound32 = _bound(nbytes, flops)
+    m, k = nbr.shape
+    return dict(
+        m=m, k=k, cin=w.shape[1], cout=w.shape[2], n=feats.shape[0],
+        route=plan.route, tile=[plan.bm, plan.bn], splits=plan.splits,
+        per_split=plan.per_split, hit_share=hits / (m * k),
+        work_share=_work_share(mask, nbr, plan.bm), max_abs_err=err,
+        max_abs_ref=scale, deterministic=True, ms=cuda_ms(run),
+        plain_ms=cuda_ms(lambda: S._gather_matmul_conv_plain(
+            feats, mask, nbr, w, bias)),
+        library_ms=cuda_ms(lambda: padded[idx].reshape(-1, kcin) @ w2),
+        bytes=nbytes, flops=flops, bound_ms=bound, bound_by=by,
+        bound_fp32_ms=bound32)
+
+
+def _wgrad_call(S, x, xm, idx, y, ym):
+    """One K3 call: checked, then timed beside its plain version and the
+    library product of x^T with the gathered y rows."""
+    plan = S.cuda_wgrad_plan(x, idx, y)
+    _, err, scale = _check_wgrad(S, x, xm, idx, y, ym, 'main')
+    r, k, cy = x.shape[0], idx.shape[1], y.shape[1]
+    xs = torch.where(xm[:, None], x, torch.zeros_like(x))
+    ypad = torch.cat([torch.where(ym[:, None], y, torch.zeros_like(y)),
+                      y.new_zeros(1, cy)])
+    gi = torch.where(idx >= 0, idx, torch.full_like(idx, y.shape[0])).long()
+    nbytes, flops, hits = _wgrad_bound(x, xm, idx, y, ym)
+    bound, by, bound32 = _bound(nbytes, flops)
+    return dict(
+        r=r, k=k, cx=x.shape[1], cy=cy, ny=y.shape[0], route=plan.route,
+        chunks=plan.chunks, chunk_rows=plan.chunk_rows,
+        hit_share=hits / max(r * k, 1), max_abs_err=err, max_abs_ref=scale,
+        deterministic=True, ms=cuda_ms(lambda: S.conv_wgrad(x, xm, idx, y,
+                                                            ym)),
+        plain_ms=cuda_ms(lambda: S._conv_wgrad_plain(x, xm, idx, y, ym)),
+        library_ms=cuda_ms(lambda: xs.T @ ypad[gi].reshape(r, k * cy)),
+        bytes=nbytes, flops=flops, bound_ms=bound, bound_by=by,
+        bound_fp32_ms=bound32)
+
+
 @torch.no_grad()
-def phase_kernels(rec, device):
+def phase_kernels(rec, train_rec, device):
+    """Every recorded call of the serving request (K2 forward, K1) and of
+    the warm-up step's backward (K2 dgrad, K3) on the card, one call's
+    inputs on the device at a time; the profiler only after all timings."""
     from embodiedscan_torch.ops import pscan as P
     from embodiedscan_torch.ops import sparse as S
-    calls = {'sparse_conv': [], 'join_scan': []}
-    # sparse conv: every call of the warm-up request on its own inputs
-    for feats, mask, nbr, w, *rest in rec.conv:
-        bias = rest[0] if rest else None
-        plan = S.cuda_plan(feats, nbr, w)
-        _, err, scale = _check_conv(S, feats, mask, nbr, w, bias, 'main')
-        padded = torch.cat([torch.where(mask[:, None], feats,
-                                        torch.zeros_like(feats)),
-                            feats.new_zeros(1, feats.shape[1])])
-        idx = torch.where(nbr >= 0, nbr, torch.full_like(nbr, feats.shape[0]))
-        kcin = w.shape[0] * w.shape[1]
-        w2 = w.reshape(kcin, w.shape[2])
-        nbytes, flops, hits = _conv_bound(feats, mask, nbr, w, bias)
-        t_bytes = nbytes / HBM_BYTES_PER_S
-        t_ops = 3 * flops / TF32_FLOPS
-        m, k = nbr.shape
-        calls['sparse_conv'].append(dict(
-            m=m, k=k, cin=w.shape[1], cout=w.shape[2], n=feats.shape[0],
-            route=plan.route, tile=[plan.bm, plan.bn], splits=plan.splits,
-            per_split=plan.per_split,
-            hit_share=hits / (m * k), work_share=_work_share(mask, nbr,
-                                                             plan.bm),
-            max_abs_err=err, max_abs_ref=scale, deterministic=True,
-            ms=cuda_ms(lambda: S.gather_matmul_conv(feats, mask, nbr, w,
-                                                    bias)),
-            plain_ms=cuda_ms(lambda: S._gather_matmul_conv_plain(
-                feats, mask, nbr, w, bias)),
-            library_ms=cuda_ms(lambda: padded[idx].reshape(-1, kcin) @ w2),
-            bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops) * 1e3,
-            bound_by='bytes' if t_bytes >= t_ops else 'operations',
-            bound_fp32_ms=max(t_bytes, flops / FP32_FLOPS) * 1e3))
-    # join scan: every call of the warm-up request
-    for skey, saux, ranges, sbits in rec.scan:
-        calls['join_scan'].append(_scan_call(P, skey, saux, ranges, sbits,
-                                             time_it=True))
+    runs = {
+        'sparse_conv': (rec.conv, lambda a: S.gather_matmul_conv(*a)),
+        'sparse_dgrad': (train_rec.dgrad, lambda a: S.conv_dgrad(*a[:4])),
+        'sparse_wgrad': (train_rec.wgrad, lambda a: S.conv_wgrad(*a)),
+        'join_scan': (rec.scan, lambda a: P.join_scan(*a)),
+    }
+    calls = {name: [] for name in runs}
+    for name, (recs, run) in runs.items():
+        for args in recs:
+            a = _on(args, device)
+            if name == 'join_scan':
+                row = _scan_call(P, *a, time_it=True)
+            elif name == 'sparse_wgrad':
+                row = _wgrad_call(S, *a)
+            else:
+                row = _conv_call(S, *a, name, lambda: run(a))
+            calls[name].append(row)
     # launches and device time per call, after every timing (see cuda_ms)
-    for r, (feats, mask, nbr, w, *rest) in zip(calls['sparse_conv'],
-                                               rec.conv):
-        bias = rest[0] if rest else None
-        r['cuda_launches'], r['device_ms'] = device_profile(
-            lambda: S.gather_matmul_conv(feats, mask, nbr, w, bias))
-    for r, (skey, saux, ranges, sbits) in zip(calls['join_scan'], rec.scan):
-        r['cuda_launches'], r['device_ms'] = device_profile(
-            lambda: P.join_scan(skey, saux, ranges, sbits))
+    for name, (recs, run) in runs.items():
+        for row, args in zip(calls[name], recs):
+            a = _on(args, device)
+            row['cuda_launches'], row['device_ms'] = device_profile(
+                lambda: run(a))
     for name, rows in calls.items():
         log(f'[kernels] {name}: {len(rows)} main-path calls checked, '
             f'kernel {sum(r["ms"] for r in rows):.3f} ms, plain '
             f'{sum(r["plain_ms"] for r in rows):.3f} ms, library '
             f'{sum(r["library_ms"] for r in rows):.3f} ms, bound '
-            f'{sum(r["bound_ms"] for r in rows):.3f} ms per request; '
-            f'max|d| {max(r["max_abs_err"] for r in rows)}; CUDA launches '
+            f'{sum(r["bound_ms"] for r in rows):.3f} ms per '
+            f'{"request" if name in ("sparse_conv", "join_scan") else "step"}'
+            f'; max|d| {max(r["max_abs_err"] for r in rows)}; CUDA launches '
             f'{sum(r["cuda_launches"] for r in rows)}, device-only '
             f'{sum(r["device_ms"] for r in rows):.3f} ms')
-    for r in calls['sparse_conv']:
-        log(f'[kernels] conv {r["m"]}x{r["k"]} {r["cin"]}->{r["cout"]} '
-            f'{r["route"]} {r["tile"][0]}x{r["tile"][1]} split '
-            f'{r["splits"]}x{r["per_split"]}: {r["ms"]:.4f} ms (device '
-            f'{r["device_ms"]:.4f}, bound {r["bound_ms"]:.4f}, fp32 bound '
-            f'{r["bound_fp32_ms"]:.4f}, library {r["library_ms"]:.4f}), hit '
-            f'{r["hit_share"]:.3f} work {r["work_share"]:.3f}, launches '
-            f'{r["cuda_launches"]}, max|d|/max|ref| '
+    for name in ('sparse_conv', 'sparse_dgrad'):
+        for r in calls[name]:
+            log(f'[kernels] {name} {r["m"]}x{r["k"]} {r["cin"]}->{r["cout"]} '
+                f'{r["route"]} {r["tile"][0]}x{r["tile"][1]} split '
+                f'{r["splits"]}x{r["per_split"]}: {r["ms"]:.4f} ms (device '
+                f'{r["device_ms"]:.4f}, bound {r["bound_ms"]:.4f}, fp32 '
+                f'bound {r["bound_fp32_ms"]:.4f}, library '
+                f'{r["library_ms"]:.4f}), hit {r["hit_share"]:.3f} work '
+                f'{r["work_share"]:.3f}, launches {r["cuda_launches"]}, '
+                f'max|d|/max|ref| '
+                f'{r["max_abs_err"] / max(r["max_abs_ref"], 1e-30):.2e}')
+    for r in calls['sparse_wgrad']:
+        log(f'[kernels] sparse_wgrad {r["r"]}x{r["k"]} {r["cx"]}x{r["cy"]} '
+            f'{r["route"]} chunks {r["chunks"]}x{r["chunk_rows"]}: '
+            f'{r["ms"]:.4f} ms (device {r["device_ms"]:.4f}, bound '
+            f'{r["bound_ms"]:.4f}, fp32 bound {r["bound_fp32_ms"]:.4f}, '
+            f'plain {r["plain_ms"]:.4f}, library {r["library_ms"]:.4f}), '
+            f'hit {r["hit_share"]:.3f}, launches {r["cuda_launches"]}, '
+            f'max|d|/max|ref| '
             f'{r["max_abs_err"] / max(r["max_abs_ref"], 1e-30):.2e}')
     for r in calls['join_scan']:
         log(f'[kernels] join scan n={r["n"]} k={r["k"]}: {r["ms"]:.4f} ms '
@@ -478,6 +771,19 @@ def _conv_case(g, n, m, k, cin, cout, hit=0.3, bias=True, device='cuda'):
     w = torch.randn(k, cin, cout, generator=g, device=device) * cin ** -0.5
     b = torch.randn(cout, generator=g, device=device) if bias else None
     return feats, mask, nbr, w, b
+
+
+def _wgrad_case(g, r, ny, k, cx, cy, hit=0.3, device='cuda'):
+    """Random K3 inputs: ~``hit`` of the (row, offset) pairs point at a y
+    row, 10% of the x and y rows are masked."""
+    x = torch.randn(r, cx, generator=g, device=device)
+    xm = torch.rand(r, generator=g, device=device) > 0.1
+    y = torch.randn(ny, cy, generator=g, device=device)
+    ym = torch.rand(ny, generator=g, device=device) > 0.1
+    idx = torch.randint(0, ny, (r, k), generator=g, device=device,
+                        dtype=torch.int32)
+    absent = torch.rand(r, k, generator=g, device=device) > hit
+    return x, xm, torch.where(absent, torch.full_like(idx, -1), idx), y, ym
 
 
 @torch.no_grad()
@@ -539,6 +845,62 @@ def phase_edges(device):
                            f'{scale}')
     checked.append(f'split {plan.splits}x{plan.per_split} vs unsplit '
                    f'(max|d| {d:.3g})')
+    # K3: the stem's C = 3 (SIMT, either side), K = 1, ragged R, C of 64,
+    # 128 and 512, all-absent and all-masked tables, a misaligned view,
+    # split rows against unsplit
+    def wgrad(what, *shape, route, hit=0.3):
+        x, xm, idx, y, ym = _wgrad_case(g, *shape, hit=hit, device=device)
+        plan = S.cuda_wgrad_plan(x, idx, y)
+        if plan.route != route:
+            raise RuntimeError(f'wgrad {what}: route {plan.route}, want '
+                               f'{route}')
+        _, err, scale = _check_wgrad(S, x, xm, idx, y, ym, what)
+        checked.append(f'wgrad {what} ({plan.route}, chunks {plan.chunks}, '
+                       f'max|d|/max|ref| {err / scale:.1e})')
+        return x, xm, idx, y, ym
+
+    wgrad('cy3', 5000, 6000, 27, 64, 3, route='simt')
+    wgrad('cx3', 6000, 5000, 27, 3, 64, route='simt')
+    wgrad('k1', 9000, 9000, 1, 64, 128, route='tc')
+    wgrad('ragged_r', 1001, 3000, 27, 64, 64, route='tc')
+    wgrad('c128', 8192, 8192, 27, 128, 128, route='tc')
+    wgrad('c512', 2048, 2048, 27, 512, 512, route='tc')
+    wgrad('c64x512', 4096, 2048, 27, 64, 512, route='tc')
+    wgrad('c512x128', 2048, 4096, 27, 512, 128, route='tc')
+    for what in ('all_absent', 'all_masked_x', 'all_masked_y'):
+        x, xm, idx, y, ym = _wgrad_case(g, 2000, 1500, 27, 64, 128,
+                                        device=device)
+        if what == 'all_absent':
+            idx = torch.full_like(idx, -1)
+        elif what == 'all_masked_x':
+            xm = torch.zeros_like(xm)
+        else:
+            ym = torch.zeros_like(ym)
+        got, _, _ = _check_wgrad(S, x, xm, idx, y, ym, what)
+        if got.any():
+            raise RuntimeError(f'sparse_wgrad {what}: output is not zero')
+        checked.append(f'wgrad {what}')
+    x, xm, idx, y, ym = _wgrad_case(g, 3000, 3000, 27, 64, 64, device=device)
+    flat = torch.empty(x.numel() + 1, device=device)
+    view = flat[1:].view_as(x).copy_(x)
+    if S.cuda_wgrad_plan(view, idx, y).route != 'simt':
+        raise RuntimeError('wgrad: misaligned view did not take SIMT')
+    _check_wgrad(S, view, xm, idx, y, ym, 'misaligned')
+    checked.append('wgrad misaligned (simt)')
+    x, xm, idx, y, ym = _wgrad_case(g, 8192, 8192, 27, 64, 64,
+                                    device=device)
+    plan = S.cuda_wgrad_plan(x, idx, y)
+    if plan.chunks == 1:
+        raise RuntimeError('wgrad: the split case is not split')
+    one = plan._replace(chunk_rows=-(-x.shape[0] // 32) * 32, chunks=1)
+    a, _, scale = _check_wgrad(S, x, xm, idx, y, ym, 'split', plan)
+    c, _, _ = _check_wgrad(S, x, xm, idx, y, ym, 'unsplit', one)
+    d = float((a - c).abs().max())
+    if not d <= SPLIT_GATE * scale:
+        raise RuntimeError(f'wgrad split vs unsplit: max|d| {d} > '
+                           f'{SPLIT_GATE} x {scale}')
+    checked.append(f'wgrad split {plan.chunks}x{plan.chunk_rows} vs unsplit '
+                   f'(max|d|/max|ref| {d / scale:.2e})')
     # join scan: the reference's unit-test cases, one tile, one tile plus
     # one row, and a stem-sized call with many tiles
     tile = S.kernels.library().es_join_scan_tile()
@@ -556,23 +918,19 @@ def phase_edges(device):
                        for i in range(k))
         _scan_call(P, skey, saux, ranges, sbits, time_it=False)
         checked.append(f'join_scan n={n} k={k}')
-    log('[edges] kernel == plain (join scan bit-exact, sparse conv within '
-        f'{CONV_GATE} x max|ref| and the same bits twice): ' +
+    log('[edges] kernel == plain (join scan bit-exact, sparse conv and '
+        f'weight gradient within {CONV_GATE} x max|ref| and the same bits '
+        'twice): ' +
         '; '.join(checked))
 
 
 @torch.no_grad()
 def phase_e2e_parity(device):
     """A small detector on ``device`` and on cpu with the same weights."""
-    from embodiedscan_torch.configs.base import build_model, mv_det3d
+    from embodiedscan_torch.configs.base import build_model
     from embodiedscan_torch.ops import pscan as P
     from embodiedscan_torch.ops import sparse as S
-    cfg = mv_det3d()
-    m = cfg.model
-    m.num_classes, m.voxel_size, m.input_capacity = 18, 0.04, 4096
-    m.backbone_capacities = (4096, 2048, 2048, 1024, 512, 256)
-    m.fpn_capacities = (1024, 512, 256, 128)
-    m.nms_pre, m.max_candidates, m.max_dets = 128, 128, 32
+    cfg = _parity_cfg()
     cpu = build_model(cfg, device='cpu')
     with torch.no_grad():
         cpu.bbox_head.conv_cls.bias.zero_()
@@ -618,24 +976,129 @@ def _close(a, b, what):
     return excess
 
 
+def _parity_cfg():
+    """The small mv_det3d of the parity phases: shipped depths and widths,
+    capacities cut for a 6000-point scene."""
+    from embodiedscan_torch.configs.base import mv_det3d
+    cfg = mv_det3d()
+    m = cfg.model
+    m.num_classes, m.voxel_size, m.input_capacity = 18, 0.04, 4096
+    m.backbone_capacities = (4096, 2048, 2048, 1024, 512, 256)
+    m.fpn_capacities = (1024, 512, 256, 128)
+    m.nms_pre, m.max_candidates, m.max_dets = 128, 128, 32
+    return cfg
+
+
+def train_parity(device):
+    """One train step of the small detector on ``device`` (kernels) and on
+    cpu (plain versions) from the same weights and batch. Raises unless the
+    integer tables are identical; returns the cpu and cuda metrics and, per
+    kind (losses, grads, batch stats), the worst max|d|/max|cpu| over its
+    leaves with that leaf's path."""
+    from embodiedscan_torch.configs.base import build_model
+    from embodiedscan_torch.ops import pscan as P
+    from embodiedscan_torch.ops import sparse as S
+    from embodiedscan_torch.train.state import make_optimizer, train_step
+    from embodiedscan_torch.utils.convert_weights import export_jax_tree
+    cfg = _parity_cfg()
+    cpu = build_model(cfg, device='cpu').train()
+    gpu = build_model(cfg, device=device).train()
+    gpu.load_state_dict(cpu.state_dict())
+    batch = make_batch(1, 6000, 4, 96, 16, cfg.model.num_classes, seed=7)
+    out = {}
+    for name, model, dev in (('cpu', cpu, 'cpu'), ('cuda', gpu, device)):
+        with Recorder(S, P) as rec:
+            metrics = train_step(model, make_optimizer(model, cfg),
+                                 to_device(batch, dev))
+        out[name] = (rec, {k: float(v) for k, v in metrics.items()},
+                     export_jax_tree(model, 'grads'),
+                     export_jax_tree(model, 'buffers'))
+    (rc, mc, gc, bc), (rg, mg, gg, bg) = out['cpu'], out['cuda']
+    tables = [(a[2], b[2]) for kind in ('conv', 'dgrad', 'wgrad')
+              for a, b in zip(getattr(rc, kind), getattr(rg, kind))]
+    if any(len(getattr(rc, k)) != len(getattr(rg, k)) or not getattr(rc, k)
+           for k in ('conv', 'dgrad', 'wgrad')):
+        raise RuntimeError('cpu and cuda train steps made different calls')
+    for a, b in tables:
+        if not torch.equal(a, b.cpu()):
+            raise RuntimeError('train step tables differ between cpu and '
+                               'cuda')
+    worst = {}
+    for what, c, g in (('losses', mc, mg), ('grads', gc, gg),
+                       ('batch stats', bc, bg)):
+        worst[what] = (0.0, '')
+        for path, a in _tree_leaves(c):
+            b = _tree_get(g, path)
+            scale = max(float(np.abs(a).max()), 1e-30)
+            ratio = float(np.abs(np.asarray(a) - np.asarray(b)).max()) / scale
+            if not np.isfinite(ratio) or ratio >= worst[what][0]:
+                worst[what] = (ratio, '/'.join(path))
+    return len(tables), mc, mg, worst
+
+
+def phase_train_parity(device):
+    """:func:`train_parity`: losses, every gradient leaf the optimizer used
+    and the batch statistics after the step within GRAD_GATE x max|cpu| of
+    each leaf."""
+    n_tables, mc, mg, worst = train_parity(device)
+    for what, (ratio, path) in worst.items():
+        if not np.isfinite(ratio) or ratio > GRAD_GATE:
+            raise RuntimeError(f'train step {what} {path}: max|d|/max|cpu| '
+                               f'{ratio} > {GRAD_GATE}')
+    log(f'[parity] train step cpu vs cuda: {n_tables} tables identical '
+        f'(forward, dgrad, wgrad), loss_total {mc["loss_total"]:.6g} vs '
+        f'{mg["loss_total"]:.6g}; worst max|d|/max|cpu| per leaf: ' +
+        ', '.join(f'{k} {v:.2e} ({p})' for k, (v, p) in worst.items()) +
+        f' (gate {GRAD_GATE})')
+
+
+def _tree_leaves(tree, prefix=()):
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _tree_leaves(val, prefix + (key,))
+        else:
+            yield prefix + (key,), val
+
+
+def _tree_get(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
 def kernel_line(calls, totals):
+    """The kernels line: the serving path's K2 forward and K1 rows, the
+    training path's K2 dgrad and K3 rows; launches from the main paths'
+    timed runs, every other number from this run's replays."""
     rows = []
     conv = ('embodiedscan_torch/csrc/sparse_conv.cu',
             'embodiedscan_tpu/experimental/pallas_conv.py:62')
-    meta = {  # kernel -> (route, source, replaces, its calls)
-        'sparse_conv_tc': ('cuda', *conv, [
-            r for r in calls['sparse_conv'] if r['route'] == 'tc']),
-        'sparse_conv_simt': ('cuda', *conv, [
-            r for r in calls['sparse_conv'] if r['route'] == 'simt']),
-        'join_scan': ('cuda', 'embodiedscan_torch/csrc/join_scan.cu',
+    # the JAX package computes a sparse conv's gradients in XLA, in the
+    # custom VJPs _subm_bwd and _strided_bwd (no Pallas kernel)
+    bwd = 'embodiedscan_tpu/ops/sparse.py:354,413'
+    wgrad = 'embodiedscan_torch/csrc/sparse_conv_wgrad.cu'
+    meta = {  # kernel -> (source, replaces, its calls)
+        'sparse_conv_tc': (*conv, [r for r in calls['sparse_conv']
+                                   if r['route'] == 'tc']),
+        'sparse_conv_simt': (*conv, [r for r in calls['sparse_conv']
+                                     if r['route'] == 'simt']),
+        'join_scan': ('embodiedscan_torch/csrc/join_scan.cu',
                       'embodiedscan_tpu/ops/pscan.py:101',
                       calls['join_scan']),
+        'sparse_dgrad_tc': (conv[0], bwd, [r for r in calls['sparse_dgrad']
+                                           if r['route'] == 'tc']),
+        'sparse_wgrad_tc': (wgrad, bwd, [r for r in calls['sparse_wgrad']
+                                         if r['route'] == 'tc']),
+        'sparse_wgrad_simt': (wgrad, bwd, [r for r in calls['sparse_wgrad']
+                                           if r['route'] == 'simt']),
     }
-    for name, (route, source, replaces, rs) in meta.items():
+    for name, (source, replaces, rs) in meta.items():
+        if not rs or not totals[name]:
+            raise RuntimeError(f'{name}: no call on its main path')
         bound = sum(r['bound_ms'] for r in rs)
         by_bytes = sum(r['bound_ms'] for r in rs if r['bound_by'] == 'bytes')
         rows.append(dict(
-            name=name, route=route, source=source, replaces=replaces,
+            name=name, route='cuda', source=source, replaces=replaces,
             launches=totals[name],
             max_abs_err=max(r['max_abs_err'] for r in rs),
             ms=sum(r['ms'] for r in rs),
@@ -657,15 +1120,28 @@ def main():
         return 0
     torch.manual_seed(0)
     rec, totals, main_stats, model, batch = phase_main_path('cuda')
-    calls = phase_kernels(rec, 'cuda')
-    main_stats.update(profile_request(model, batch))
-    del rec, model, batch
+    rec.to_host()
+    train_rec, train_totals, train_stats, tmodel, opt, tbatch = \
+        phase_train('cuda')
+    # event timings first, every profiler session after them (see cuda_ms)
+    calls = phase_kernels(rec, train_rec, 'cuda')
+    with torch.no_grad():
+        main_stats.update(profile_run(
+            lambda: model(batch, mode='predict'), 'request'))
+    from embodiedscan_torch.train.state import train_step
+    train_stats.update(profile_run(lambda: train_step(tmodel, opt, tbatch),
+                                   'train step'))
+    del rec, train_rec, model, batch, tmodel, opt, tbatch
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, 'chip_smoke_calls.json'), 'w') as f:
-        json.dump(dict(card=card, main=main_stats, calls=calls), f, indent=1)
+        json.dump(dict(card=card, main=main_stats, train=train_stats,
+                       calls=calls), f, indent=1)
     phase_edges('cuda')
     phase_e2e_parity('cuda')
+    phase_train_parity('cuda')
     log(f'[done] {time.perf_counter() - t_start:.1f} s')
+    totals.update({k: v for k, v in train_totals.items()
+                   if k.startswith(('sparse_dgrad', 'sparse_wgrad'))})
     print(kernel_line(calls, totals))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -9,9 +9,23 @@ import torch
 
 @dataclasses.dataclass
 class DataConfig:
+    n_views_train: int = 20
     n_views_test: int = 50
     n_points: int = 100000
     image_hw: Sequence[int] = (480, 480)
+    n_gt: int = 128  # padded ground-truth boxes per training scene
+
+
+@dataclasses.dataclass
+class ScheduleConfig:
+    """AdamW + global-norm clip + MultiStepLR
+    (configs/detection/mv-det3d...py:215-231); an epoch is
+    ``steps_per_epoch`` updates."""
+    lr: float = 1e-3
+    weight_decay: float = 1e-4
+    clip_norm: float = 10.0
+    milestones: Sequence[int] = (8, 11)
+    steps_per_epoch: int = 1000
 
 
 @dataclasses.dataclass
@@ -38,6 +52,8 @@ class ModelConfig:
 class Config:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    schedule: ScheduleConfig = dataclasses.field(
+        default_factory=ScheduleConfig)
     seed: int = 0
 
 
@@ -82,3 +98,11 @@ def build_model(cfg: Config, device='cuda', img_dtype=torch.float32,
         generator = torch.Generator().manual_seed(cfg.seed)
     init_weights(model, generator)
     return model.to(device).eval()
+
+
+def build_train(cfg: Config, device='cuda'):
+    """(model in training mode, its optimizer): :func:`build_model`, then
+    ``train.state.make_optimizer`` over every parameter."""
+    from ..train.state import make_optimizer
+    model = build_model(cfg, device=device).train()
+    return model, make_optimizer(model, cfg)

@@ -1,10 +1,15 @@
-// Sparse gather-GEMM convolution, forward (Hopper, sm_90a).
+// Sparse gather-GEMM convolution (Hopper, sm_90a).
 //
 //   out[m, :] = sum_k feats_safe[nbr[m, k], :] @ W[k] (+ bias)
 //
 // feats_safe is feats with the rows whose mask is false read as zero; an
 // index of -1 (or outside [0, n)) contributes nothing. Inputs, accumulation
 // and output are float32.
+//
+// The same contract computes a conv's input gradient (ops/sparse.py:
+// conv_dgrad): dout gathered over the mirrored table of a submanifold conv,
+// or over the transpose table of a strided one, times the transposed
+// weights.
 //
 // Replaces the Pallas TPU kernel embodiedscan_tpu/experimental/pallas_conv.py
 // (banded_conv_pallas / _kernel), whose contract is the engine's conv core
@@ -28,12 +33,10 @@
 // row order and goes after the arithmetic rate and the occupancy instead.
 //
 // Design of the tensor-core route (sc_tc_fwd):
-// - Numbers: 3xTF32. Each operand is split into x_hi = tf32(x) and
-//   x_lo = tf32(x - x_hi) (cvt.rna) as its fragment is read from shared
-//   memory, and the FP32 accumulators take a_lo*b_hi + a_hi*b_lo +
-//   a_hi*b_hi, which keeps roughly the float32 result (single TF32 moves
-//   it by ~1e-3 relative). W is split as its fragments are read, not
-//   cached. The tensor cores' float32 accumulation truncates, which over
+// - Numbers: 3xTF32 (sparse_mma.cuh). Each operand is split into its TF32
+//   parts as its fragment is read from shared memory; W is split as its
+//   fragments are read, not cached. The tensor cores' float32 accumulation
+//   truncates, which over
 //   K x Cin / 8 x 3 accumulations (up to 5184) drifts: each step's
 //   32-channel partial sum is therefore added into the accumulators with a
 //   float32 add that rounds to nearest.
@@ -57,6 +60,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sparse_mma.cuh"
 
 namespace {
 
@@ -178,47 +183,6 @@ struct TcShape {
       sizeof(float) * TC_STAGES * (kAFloats + kBFloats) +
       sizeof(int) * (TC_MAXK * TC_BM + 2 * TC_MAXK + 1);
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; src_bytes = 0 zero-fills the destination
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // grid (ceil(m / 64), ceil(cout / BN), splits); split z covers the offsets
 // [z * per, min(kk, (z + 1) * per)). With ws == null (one split) it writes
@@ -350,15 +314,11 @@ sc_tc_fwd(const float* __restrict__ feats, const uint8_t* __restrict__ mask,
         split_tf32(p[0], bhi[j][0], blo[j][0]);
         split_tf32(p[4 * S::kBStride], bhi[j][1], blo[j][1]);
       }
-      // small terms first, then the large one
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          mma_tf32(part[i][j], alo[i], bhi[j]);
-          mma_tf32(part[i][j], ahi[i], blo[j]);
-          mma_tf32(part[i][j], ahi[i], bhi[j]);
-        }
+        for (int j = 0; j < 4; ++j)
+          mma_3xtf32(part[i][j], ahi[i], alo[i], bhi[j], blo[j]);
     }
     // the tensor cores' own float32 sums truncate; adding each step's
     // 32-channel partial into the accumulators here rounds to nearest

@@ -7,7 +7,7 @@ and a gravity-centered origin.
 import numpy as np
 import torch
 
-from .rotations import rotation_3d_in_euler
+from .rotations import euler_zxy_to_matrix, rotation_3d_in_euler
 
 # Corner order of the reference:
 # (x0y0z0, x0y0z1, x0y1z1, x0y1z0, x1y0z0, x1y0z1, x1y1z1, x1y1z0).
@@ -30,3 +30,18 @@ def corners(boxes: torch.Tensor) -> torch.Tensor:
 def volume(boxes: torch.Tensor) -> torch.Tensor:
     """(..., 9) -> (...) box volumes."""
     return boxes[..., 3] * boxes[..., 4] * boxes[..., 5]
+
+
+def face_distances(points: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+    """(N, 3) points x (M, 9) gravity-centered boxes -> (N, M, 6) distances
+    to the faces (dx_min, dx_max, dy_min, dy_max, dz_min, dz_max), all
+    positive iff the point is inside the box. The shift is rotated by the
+    negated angles, as the reference does."""
+    shift = points[:, None, :] - boxes[None, :, :3]  # (N, M, 3)
+    rot = euler_zxy_to_matrix(-boxes[..., 6:9])  # (M, 3, 3)
+    local = torch.einsum('nmj,mkj->nmk', shift, rot)
+    half = boxes[None, :, 3:6] / 2
+    d_min = local + half
+    d_max = half - local
+    return torch.stack([d_min[..., 0], d_max[..., 0], d_min[..., 1],
+                        d_max[..., 1], d_min[..., 2], d_max[..., 2]], -1)

@@ -1,4 +1,4 @@
-"""Multi-view sparse-fusion 3D detector, serving path (port of
+"""Multi-view sparse-fusion 3D detector (port of
 ``embodiedscan_tpu/models/detector.py``).
 
 Batch layout (static shapes, tensors on the model's device):
@@ -7,6 +7,8 @@ Batch layout (static shapes, tensors on the model's device):
     imgs:        (B, V, H, W, 3) normalized images
     proj:        (B, V, 4, 4) intrinsic @ extrinsic per view
     aug_inv:     (B, 4, 4) inverse 3D augmentation (identity at test time)
+    gt_boxes/gt_labels/gt_mask: (B, G, 9)/(B, G)/(B, G) padded ground
+                 truth (mode='loss' only)
 """
 
 import math
@@ -44,18 +46,21 @@ class SparseFusionDetector(nn.Module):
             max_candidates=max_candidates, max_dets=max_dets,
             bbox_mode=bbox_mode, predict_protocol=predict_protocol)
 
-    @torch.no_grad()
     def forward(self, batch: dict, mode: str = 'predict'):
+        """``'loss'`` (with autograd; needs gt_boxes, gt_labels, gt_mask)
+        returns {loss_center, loss_bbox, loss_cls}; ``'feats'`` and
+        ``'predict'`` run without autograd."""
         if mode == 'loss':
-            raise NotImplementedError(
-                "mode='loss' (target assignment, losses) belongs to the "
-                'training slice of the port')
+            outs = self.bbox_head(self.trunk(batch))
+            return self.bbox_head.loss(outs, batch['gt_boxes'],
+                                       batch['gt_labels'], batch['gt_mask'])
         if mode not in ('feats', 'predict'):
             raise ValueError(f'unknown mode {mode!r}')
-        outs = self.bbox_head(self.trunk(batch))
-        if mode == 'feats':
-            return outs
-        return self.bbox_head.predict(outs)
+        with torch.no_grad():
+            outs = self.bbox_head(self.trunk(batch))
+            if mode == 'feats':
+                return outs
+            return self.bbox_head.predict(outs)
 
 
 def _normal_(t: torch.Tensor, std: float, g: torch.Generator) -> None:

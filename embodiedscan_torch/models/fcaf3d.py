@@ -1,6 +1,6 @@
-"""FCAF3D sparse FPN + anchor-free 9-DoF detection head, inference path
-(port of ``embodiedscan_tpu/models/fcaf3d.py``: ``FCAF3DHead.__call__`` in
-eval mode and the flat-engine ``predict``).
+"""FCAF3D sparse FPN + anchor-free 9-DoF detection head (port of
+``embodiedscan_tpu/models/fcaf3d.py``: ``FCAF3DHead.__call__``, the target
+assigner and ``loss`` of the rot-mat head, and the flat-engine ``predict``).
 """
 
 from typing import List, NamedTuple
@@ -10,10 +10,12 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..geometry import boxes as gbox
 from ..geometry.nms import nms3d
 from ..geometry.rotations import (matrix_to_euler_zxy, ortho_6d_to_matrix,
                                   rotation_3d_in_euler)
 from ..ops import sparse as S
+from .losses import bbox_cd_loss, bce_with_logits, sigmoid_focal_loss
 from .norm import MaskedBatchNorm
 from .sparse_nn import SparseConv, fpn_prune_scores, fpn_tables
 
@@ -58,10 +60,79 @@ def decode_bbox_mode(points: torch.Tensor, reg: torch.Tensor,
 
 # regression channel count per bbox_mode
 REG_OUTS = {'euler9d': 12}
+# training: the reference head's pts_assign_threshold and
+# pts_center_threshold, and the weights of its 4 decoupled box-loss groups
+# (center, size, rotation, all)
+ASSIGN_THRESHOLD = 27
+CENTER_THRESHOLD = 18
+DECOUPLE_WEIGHTS = (0.2, 0.2, 0.2, 0.4)
+
+
+def assign_targets(points: torch.Tensor, levels: torch.Tensor,
+                   pmask: torch.Tensor, gt_boxes: torch.Tensor,
+                   gt_labels: torch.Tensor, gt_mask: torch.Tensor,
+                   n_levels: int, assign_thr: int, center_thr: int):
+    """FCAF3D target assignment for one sample.
+
+    Args:
+        points: (P, 3) world coords of all level locations concatenated.
+        levels: (P,) level index per location.
+        pmask: (P,) location validity.
+        gt_boxes: (G, 9) euler boxes (gravity-centered).
+        gt_labels: (G,) int labels; gt_mask: (G,) validity.
+
+    Returns:
+        (center_t (P,), bbox_t (P, 9), cls_t (P,)): cls_t is -1 for
+        background or invalid locations.
+    """
+    float_max = 1e8
+    p = points.shape[0]
+    fd = gbox.face_distances(points, gt_boxes)  # (P, G, 6)
+    inside = (fd.amin(-1) > 0) & pmask[:, None] & gt_mask[None, :]
+
+    level_onehot = levels[:, None] == torch.arange(n_levels,
+                                                   device=levels.device)
+    n_pos = torch.einsum('pl,pg->lg', level_onehot.to(torch.float32),
+                         inside.to(torch.float32))  # (L, G)
+    lower = n_pos < assign_thr
+    lower_index = torch.clamp(torch.argmax(lower.to(torch.int32), 0) - 1,
+                              min=0)
+    all_upper = (~lower).all(0)
+    best_level = torch.where(all_upper, torch.full_like(lower_index,
+                                                        n_levels - 1),
+                             lower_index)  # (G,)
+    level_cond = best_level[None, :] == levels[:, None]
+
+    x, y, z = fd[..., 0:2], fd[..., 2:4], fd[..., 4:6]
+    centerness = torch.sqrt(torch.clamp(
+        x.amin(-1) / torch.clamp(x.amax(-1), min=1e-12) *
+        y.amin(-1) / torch.clamp(y.amax(-1), min=1e-12) *
+        z.amin(-1) / torch.clamp(z.amax(-1), min=1e-12), min=0))
+    centerness = torch.where(inside & level_cond, centerness,
+                             torch.full_like(centerness, -1.0))
+
+    # the kth-largest centerness per gt, duplicates counted
+    kth = min(center_thr + 1, p)
+    top_centerness = torch.topk(centerness.T, kth, dim=-1).values[..., -1]
+    topk_cond = centerness > top_centerness[None, :]
+
+    volumes = gbox.volume(gt_boxes)[None, :].expand_as(centerness)
+    volumes = torch.where(inside & level_cond & topk_cond & gt_mask[None, :],
+                          volumes, torch.full_like(volumes, float_max))
+    min_vol = volumes.amin(-1)
+    min_inds = torch.argmin(volumes, -1)
+
+    center_t = centerness.gather(1, min_inds[:, None])[:, 0]
+    bbox_t = gt_boxes[min_inds]
+    cls_t = torch.where(min_vol >= float_max, torch.full_like(min_inds, -1),
+                        gt_labels[min_inds].long())
+    cls_t = torch.where(pmask, cls_t, torch.full_like(cls_t, -1))
+    return center_t, bbox_t, cls_t
 
 
 class FCAF3DHead(nn.Module):
-    """Sparse FPN + head (reference FCAF3DHeadRotMat), inference only.
+    """Sparse FPN + head (reference FCAF3DHeadRotMat); the MaskedBatchNorms
+    use batch statistics in training mode.
 
     Args:
         in_channels: per-level input channels (after image fusion).
@@ -143,8 +214,9 @@ class FCAF3DHead(nn.Module):
             center = self.conv_center(out)
             cls = self.conv_cls(out)
             reg_raw = self.conv_reg(out)
-            reg_dist = torch.clamp(torch.exp(self.scales[i] *
-                                             reg_raw[..., :6]), min=1e-3)
+            # maximum, not clamp: a gradient splits at a tie, as jnp.clip's
+            reg_dist = torch.exp(self.scales[i] * reg_raw[..., :6])
+            reg_dist = torch.maximum(reg_dist, reg_dist.new_tensor(1e-3))
             reg = torch.cat([reg_dist, reg_raw[..., 6:]], -1)
             prune_level = (x.coords, cls.amax(-1), x.mask, nbr27)
 
@@ -158,6 +230,52 @@ class FCAF3DHead(nn.Module):
 
         return HeadOutputs(center_preds[::-1], reg_preds[::-1],
                            cls_preds[::-1], points[::-1], masks[::-1])
+
+    def loss(self, outs: HeadOutputs, gt_boxes: torch.Tensor,
+             gt_labels: torch.Tensor, gt_mask: torch.Tensor) -> dict:
+        """Batch loss of the rot-mat head: focal classification,
+        centerness BCE and the decoupled 4-group corner chamfer (l1, g8).
+        gt_*: (B, G, ...) padded ground truth."""
+        levels = torch.cat([
+            torch.full((p.shape[1],), i, dtype=torch.int64, device=p.device)
+            for i, p in enumerate(outs.points)])
+        pts = torch.cat(outs.points, 1)  # (B, P, 3)
+        pmask = torch.cat(outs.masks, 1)
+        center = torch.cat(outs.center, 1)[..., 0]
+        reg = torch.cat(outs.reg, 1)
+        cls = torch.cat(outs.cls, 1)
+        b = pts.shape[0]
+        with torch.no_grad():
+            targets = [assign_targets(
+                pts[i], levels, pmask[i], gt_boxes[i], gt_labels[i],
+                gt_mask[i], len(outs.points), ASSIGN_THRESHOLD,
+                CENTER_THRESHOLD) for i in range(b)]
+        center_t, bbox_t, cls_t = (torch.stack(t) for t in zip(*targets))
+        pos = cls_t >= 0
+        # the batch mean of the positives (the reference's reduce_mean)
+        n_pos_avg = torch.clamp(pos.sum(1).to(torch.float32).mean(), min=1.0)
+        # benign regression row for non-positive locations: unit distances
+        # and the identity 6D rotation, so decode_bbox never sees
+        # atan2(0, 0), whose gradient would poison the masked chamfer sum
+        benign = reg.new_tensor([1.0] * 6 + [1, 0, 0, 0, 1, 0])
+        c_l, b_l, cl_l = [], [], []
+        for i in range(b):
+            cl_l.append(sigmoid_focal_loss(cls[i], cls_t[i], pmask[i],
+                                           self.num_classes, n_pos_avg))
+            c_l.append(torch.nan_to_num(bce_with_logits(
+                center[i], center_t[i], pos[i], n_pos_avg)))
+            reg_safe = torch.where(pos[i][:, None], reg[i], benign)
+            dec = decode_bbox(pts[i], reg_safe)
+            tgt = bbox_t[i]
+            groups = [torch.cat([dec[:, :3], tgt[:, 3:]], -1),
+                      torch.cat([tgt[:, :3], dec[:, 3:6], tgt[:, 6:]], -1),
+                      torch.cat([tgt[:, :6], dec[:, 6:]], -1), dec]
+            b_l.append(torch.nan_to_num(sum(
+                w * bbox_cd_loss(g, tgt, pos[i])
+                for w, g in zip(DECOUPLE_WEIGHTS, groups))))
+        return dict(loss_center=torch.stack(c_l).mean(),
+                    loss_bbox=torch.stack(b_l).mean(),
+                    loss_cls=torch.stack(cl_l).mean())
 
     def predict(self, outs: HeadOutputs) -> dict:
         """Decode + multiclass NMS. Returns (B, D) padded detections.

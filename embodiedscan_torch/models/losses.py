@@ -1,0 +1,93 @@
+"""Detection losses, masked over static shapes (port of the FCAF3D parts of
+``embodiedscan_tpu/models/losses.py``).
+
+Where a value has ties on valid rows, the ops are spelled as JAX
+differentiates them: ``torch.maximum`` and ``torch.amin`` split a gradient
+equally among tied elements, as ``jnp.maximum`` / ``jnp.min`` do
+(``torch.clamp`` and ``torch.min(dim)`` would pass it whole to one).
+"""
+
+import numpy as np
+import torch
+
+from ..geometry.rotations import euler_zxy_to_matrix
+
+_EPS = float(np.finfo(np.float32).eps)
+
+
+def _abs(x: torch.Tensor) -> torch.Tensor:
+    """|x| with JAX's gradient: +1 at 0 (``torch.abs`` gives 0 there)."""
+    return torch.where(x >= 0, x, -x)
+
+
+def sigmoid_focal_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       valid: torch.Tensor, num_classes: int,
+                       avg_factor: torch.Tensor, gamma: float = 2.0,
+                       alpha: float = 0.25) -> torch.Tensor:
+    """Masked multi-class sigmoid focal loss summed over classes.
+
+    Args:
+        logits: (..., P, C).
+        labels: (..., P) int, class index or -1 for background.
+        valid: (..., P) rows to include.
+        avg_factor: scalar normalizer.
+    """
+    onehot = labels[..., None] == torch.arange(num_classes,
+                                               device=labels.device)
+    p = torch.sigmoid(logits)
+    pt = torch.where(onehot, p, 1 - p)
+    alpha_t = torch.where(onehot, alpha, 1 - alpha)
+    ce = -torch.log(torch.maximum(pt, pt.new_tensor(1e-12)))
+    loss = alpha_t * torch.pow(1 - pt, gamma) * ce
+    loss = torch.where(valid[..., None], loss, torch.zeros_like(loss))
+    return loss.sum() / (avg_factor + _EPS)
+
+
+def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
+                    valid: torch.Tensor,
+                    avg_factor: torch.Tensor) -> torch.Tensor:
+    """Masked binary cross entropy with soft targets."""
+    loss = torch.maximum(logits, logits.new_tensor(0.0)) - logits * targets \
+        + torch.log1p(torch.exp(-_abs(logits)))
+    loss = torch.where(valid, loss, torch.zeros_like(loss))
+    return loss.sum() / (avg_factor + _EPS)
+
+
+# Corner signs of the reference's CD-loss bbox_to_corners
+_CD_CORNERS = np.stack([
+    np.array([1, 1, 1, 1, -1, -1, -1, -1], np.float32),
+    np.array([1, 1, -1, -1, 1, 1, -1, -1], np.float32),
+    np.array([1, -1, 1, -1, 1, -1, 1, -1], np.float32),
+], axis=-1)  # (8, 3)
+
+
+def bbox_to_corners(bbox: torch.Tensor) -> torch.Tensor:
+    """(N, 9) euler boxes -> (N, 8, 3) corners (the CD-loss layout)."""
+    rot = euler_zxy_to_matrix(bbox[:, 6:9])
+    half = bbox[:, None, 3:6] / 2
+    local = torch.as_tensor(_CD_CORNERS, device=bbox.device) * half
+    rotated = (local[:, :, None, :] * rot[:, None, :, :]).sum(-1)
+    return bbox[:, None, :3] + rotated
+
+
+def _corner_chamfer(src_c: torch.Tensor, dst_c: torch.Tensor) -> torch.Tensor:
+    """Per-box one-directional L1 chamfer over corners: (N, 8, 3) -> (N, 8)."""
+    diff = src_c[:, :, None, :] - dst_c[:, None, :, :]
+    return _abs(diff).sum(-1).amin(dim=2)
+
+
+def bbox_cd_loss(src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor,
+                 reduction: str = 'mean') -> torch.Tensor:
+    """Corner chamfer distance between box sets (masked rows excluded), in
+    the head's mode: L1 over all 8 corners (the reference's ``l1``,
+    ``g8``).
+
+    ``reduction='mean'`` averages over valid boxes x corners; ``'none'``
+    returns (N, 8).
+    """
+    per = _corner_chamfer(bbox_to_corners(src), bbox_to_corners(dst))
+    per = torch.where(valid[:, None], per, torch.zeros_like(per))
+    if reduction == 'none':
+        return per
+    denom = torch.clamp(valid.to(per.dtype).sum() * per.shape[1], min=1.0)
+    return per.sum() / denom

@@ -2,8 +2,11 @@
 BatchNorm (port of ``embodiedscan_tpu/models/norm.py``).
 
 Parameter and buffer names (``scale``, ``bias``, ``mean``, ``var``) follow the
-reference's flax leaves, so weights carry over leaf for leaf. Only the
-inference path is ported: the batch norms use their running statistics.
+reference's flax leaves, so weights carry over leaf for leaf.
+``MaskedBatchNorm`` normalizes with batch statistics in training mode and
+with its running statistics in eval mode; ``FrozenBatchNorm`` always uses
+its loaded statistics, while its ``scale`` and ``bias`` are parameters that
+a train step updates, as in the reference.
 """
 
 import torch
@@ -11,7 +14,11 @@ from torch import nn
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over (B, N, C) masked features with running statistics."""
+    """BatchNorm over (B, N, C) masked features: batch statistics over the
+    valid rows in training mode (updating the running ones), the running
+    statistics in eval mode."""
+
+    MOMENTUM = 0.9  # flax's: running <- 0.9 * running + 0.1 * batch
 
     def __init__(self, channels: int, epsilon: float = 1e-5):
         super().__init__()
@@ -22,11 +29,20 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer('var', torch.ones(channels))
 
     def forward(self, feats: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        mean, var = self.mean, self.var
         if self.training:
-            raise NotImplementedError(
-                'MaskedBatchNorm: batch statistics come with the training '
-                'slice of the port; call model.eval()')
-        out = (feats - self.mean) * torch.rsqrt(self.var + self.epsilon)
+            # batch statistics over every valid row of the (B, N, C) tensor,
+            # biased variance; the running update is flax's momentum 0.9
+            m = mask[..., None].to(torch.float32)
+            cnt = torch.clamp(m.sum(), min=1.0)
+            f32 = feats.to(torch.float32)
+            dims = tuple(range(f32.dim() - 1))
+            mean = (f32 * m).sum(dim=dims) / cnt
+            var = (torch.square(f32 - mean) * m).sum(dim=dims) / cnt
+            with torch.no_grad():
+                self.mean.mul_(self.MOMENTUM).add_((1 - self.MOMENTUM) * mean)
+                self.var.mul_(self.MOMENTUM).add_((1 - self.MOMENTUM) * var)
+        out = (feats - mean) * torch.rsqrt(var + self.epsilon)
         out = out * self.scale + self.bias
         return torch.where(mask[..., None], out,
                            torch.zeros_like(out)).to(feats.dtype)

@@ -30,22 +30,50 @@ class SparseConv(nn.Module):
         else:
             self.register_parameter('bias', None)
 
-    def forward(self, feats, mask, nbr, out_mask=None):
+    def forward(self, feats, mask, nbr, out_mask=None, t_nbr=None):
+        """Conv over a (B, M, K) table into ``out_mask``'s rows (the input
+        rows when None). With autograd on, the route follows the
+        reference's: a 27-table without ``out_mask`` is submanifold, a
+        strided conv given its (B, N, K) transpose table ``t_nbr`` goes
+        through it, any other table is generic (see ops/sparse.py)."""
         # the batch is flattened into the row space: tables hold
         # within-sample rows, so absolute rows are nbr + sample * N
         bsz, n, cin = feats.shape
-        m, kk = nbr.shape[1:]
-        offs = torch.arange(bsz, dtype=nbr.dtype, device=nbr.device)[
-            :, None, None] * n
-        fnbr = torch.where(nbr >= 0, nbr + offs,
-                           torch.full_like(nbr, -1)).reshape(bsz * m, kk)
-        out = S.gather_matmul_conv(feats.reshape(bsz * n, cin).contiguous(),
-                                   mask.reshape(bsz * n).contiguous(),
-                                   fnbr.contiguous(), self.kernel, self.bias)
-        out = out.reshape(bsz, m, self.features)
+        m = nbr.shape[1]
+        ff = feats.reshape(bsz * n, cin).contiguous()
+        fm = mask.reshape(bsz * n).contiguous()
+        fnbr = _flat_table(nbr, n)
         om = mask if out_mask is None else out_mask
+        if not (torch.is_grad_enabled() and (feats.requires_grad or
+                                             self.kernel.requires_grad)):
+            out = S.gather_matmul_conv(ff, fm, fnbr, self.kernel, self.bias)
+        else:
+            if out_mask is None and self.kernel.shape[0] == 27:
+                out = S.subm_gather_conv(ff, fm, fnbr, self.kernel)
+            elif t_nbr is not None:
+                # t_nbr indexes the coarse output rows: its offsets use m
+                out = S.strided_gather_conv(
+                    ff, fm, fnbr, _flat_table(t_nbr, m), self.kernel,
+                    om.reshape(-1).contiguous())
+            else:
+                out = S.generic_gather_conv(ff, fm, fnbr, self.kernel,
+                                            om.reshape(-1).contiguous())
+            if self.bias is not None:
+                out = out + self.bias
+        out = out.reshape(bsz, m, self.features)
         return torch.where(om[..., None], out,
                            torch.zeros_like(out)).to(feats.dtype)
+
+
+def _flat_table(table: torch.Tensor, rows: int) -> torch.Tensor:
+    """(B, M, K) within-sample rows of a table with ``rows`` rows per sample
+    -> (B * M, K) absolute rows (-1 stays -1)."""
+    bsz, m, kk = table.shape
+    offs = torch.arange(bsz, dtype=table.dtype, device=table.device)[
+        :, None, None] * rows
+    return torch.where(table >= 0, table + offs,
+                       torch.full_like(table, -1)).reshape(bsz * m,
+                                                           kk).contiguous()
 
 
 def strided_queries(st: S.SparseTensor, dmap: S.DownsampleMap,
@@ -60,19 +88,23 @@ def strided_queries(st: S.SparseTensor, dmap: S.DownsampleMap,
     return lookup_merge_b(st.coords, st.mask, q, qm).reshape(b, m, k)
 
 
-def stage_tables(st: S.SparseTensor, dmap: S.DownsampleMap):
-    """Fused (strided, submanifold) tables of one ResNet stage, in one join.
+def stage_tables(st: S.SparseTensor, dmap: S.DownsampleMap,
+                 with_transpose: bool = False):
+    """Fused (strided, submanifold[, transpose]) tables of one ResNet stage,
+    in one join.
 
     The strided conv gathers fine rows at ``2*o + k``; every later
     submanifold conv of the stage gathers coarse rows at ``o + k`` (the
-    center column is the identity and is not queried). Returns
-    (s_idx (B, M, 27), n_idx (B, M, 27)).
+    center column is the identity and is not queried); with
+    ``with_transpose`` (training) the strided conv's backward gathers the
+    coarse row at ``(j - k) / 2`` for each fine row j where that is whole.
+    Returns (s_idx (B, M, 27), n_idx (B, M, 27), t_idx (B, N, 27) or None).
     """
     cix = S._center_offset(S.OFFSETS_3)
     dev = st.coords.device
     offs = torch.as_tensor(S.OFFSETS_3, device=dev)
     noffs = torch.as_tensor(np.delete(S.OFFSETS_3, cix, axis=0), device=dev)
-    b = st.coords.shape[0]
+    b, n = st.coords.shape[:2]
     m = dmap.coords.shape[1]
     ko = offs.shape[0]
     sq = (dmap.coords[:, :, None, :] * 2 + offs[None, None]).reshape(
@@ -81,13 +113,21 @@ def stage_tables(st: S.SparseTensor, dmap: S.DownsampleMap):
         b, m * (ko - 1), 3)
     qm = dmap.mask.repeat_interleave(ko, dim=1)
     nqm = dmap.mask.repeat_interleave(ko - 1, dim=1)
-    res = lookup_merge_multi_b([(st.coords, st.mask, sq, qm),
-                                (dmap.coords, dmap.mask, nq, nqm)])
+    pairs = [(st.coords, st.mask, sq, qm), (dmap.coords, dmap.mask, nq, nqm)]
+    if with_transpose:
+        tq = st.coords[:, :, None, :] - offs[None, None]  # (B, N, 27, 3)
+        even = (torch.remainder(tq, 2) == 0).all(-1).reshape(b, n * ko)
+        tqm = st.mask.repeat_interleave(ko, dim=1) & even
+        pairs.append((dmap.coords, dmap.mask,
+                      torch.div(tq, 2, rounding_mode='floor').reshape(
+                          b, n * ko, 3), tqm))
+    res = lookup_merge_multi_b(pairs)
     s_idx = res[0].reshape(b, m, ko)
     n26 = res[1].reshape(b, m, ko - 1)
     ident = S._identity_column(dmap.mask)
     n_idx = torch.cat([n26[..., :cix], ident[..., None], n26[..., cix:]], -1)
-    return s_idx, n_idx
+    t_idx = res[2].reshape(b, n, ko) if with_transpose else None
+    return s_idx, n_idx, t_idx
 
 
 def _fpn_code_tables():
@@ -248,10 +288,13 @@ class SparseStage(nn.Module):
 
     def forward(self, st: S.SparseTensor) -> S.SparseTensor:
         dmap = S.downsample_coords_b(st, self.capacity)
-        s_nbr, nbr = stage_tables(st, dmap)
+        # the transpose table of the strided conv's backward: training only
+        s_nbr, nbr, t_nbr = stage_tables(st, dmap,
+                                         with_transpose=self.training)
         om = dmap.mask
         if self.block == 'basic':
-            out = self.SparseConv_0(st.feats, st.mask, s_nbr, out_mask=om)
+            out = self.SparseConv_0(st.feats, st.mask, s_nbr, out_mask=om,
+                                    t_nbr=t_nbr)
             out = F.relu(self.MaskedBatchNorm_0(out, om))
             out = self.MaskedBatchNorm_1(self.SparseConv_1(out, om, nbr), om)
             down_conv, down_bn = self.SparseConv_2, self.MaskedBatchNorm_2
@@ -259,7 +302,8 @@ class SparseStage(nn.Module):
             out = self.MaskedBatchNorm_0(self.b0_conv1(st.feats), st.mask)
             out = F.relu(torch.where(st.mask[..., None], out,
                                      torch.zeros_like(out)))
-            out = self.SparseConv_0(out, st.mask, s_nbr, out_mask=om)
+            out = self.SparseConv_0(out, st.mask, s_nbr, out_mask=om,
+                                    t_nbr=t_nbr)
             out = F.relu(self.MaskedBatchNorm_1(out, om))
             out = self.MaskedBatchNorm_2(self.b0_conv3(out), om)
             down_conv, down_bn = self.SparseConv_1, self.MaskedBatchNorm_3

@@ -37,6 +37,10 @@ _SIGNATURES = {
     'es_sparse_conv_simt': [_P, _P, _L, _I, _P, _L, _I, _P, _I, _P, _P, _P],
     'es_sparse_conv_tc': [_P, _P, _L, _I, _P, _L, _I, _P, _I, _P, _P, _I, _I,
                           _I, _P, _P],
+    'es_sparse_wgrad_tc': [_P, _P, _L, _I, _P, _I, _P, _P, _L, _I, _P, _I, _I,
+                           _P, _P],
+    'es_sparse_wgrad_simt': [_P, _P, _L, _I, _P, _I, _P, _P, _L, _I, _P, _I,
+                             _I, _P, _P],
 }
 
 # seconds the last build took (0.0 when a cached library was loaded)
@@ -62,7 +66,7 @@ def _sources():
 
 def _digest(sources) -> str:
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(CSRC.glob('*.cuh')):  # headers count too
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

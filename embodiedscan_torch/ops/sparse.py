@@ -16,6 +16,13 @@ and, for shapes with few output tiles, split over the K offsets with a
 fixed-order reduction; or ``simt``, float32 FMAs, for rows that are not
 16-byte chunks (Cin < 8, as at the stem). On a CPU tensor it runs
 :func:`_gather_matmul_conv_plain`.
+
+Training differentiates the conv by three ``torch.autograd.Function`` s, one
+per route of ``SparseConv`` (submanifold, strided with its transpose table,
+any other table). Their input gradients run through the same kernel K2
+(:func:`conv_dgrad`, or ``index_add_`` for the generic route), their weight
+gradients through kernel K3 (``csrc/sparse_conv_wgrad.cu``,
+:func:`conv_wgrad`).
 """
 
 from typing import NamedTuple
@@ -291,8 +298,48 @@ def _gather_matmul_conv_cuda(feats, mask, nbr, weights, bias, plan=None):
     else:
         err = lib.es_sparse_conv_simt(*common, stream)
         kernels.check(err, 'es_sparse_conv_simt')
-    gather_matmul_conv.launches[plan.route] += 1
     return out
+
+
+def _check_device(name, tensors):
+    """The device the inputs share: raises on mixed devices, on CUDA inputs
+    that are not contiguous and on a device that is neither CPU nor CUDA."""
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f'{name}: inputs on different devices')
+    if dev.type == 'cuda':
+        if not all(t.is_contiguous() for t in tensors):
+            raise ValueError(f'{name}: the kernel takes contiguous inputs')
+    elif dev.type != 'cpu':
+        raise ValueError(f'{name}: unsupported device {dev}')
+    return dev
+
+
+def _k2(feats, mask, nbr, weights, bias, launches, name):
+    """Checks K2's inputs, then launches it on a CUDA tensor (counting the
+    launch by route in ``launches``) or runs its plain version on a CPU
+    tensor."""
+    if feats.dim() != 2 or mask.shape != feats.shape[:1] or nbr.dim() != 2 \
+            or weights.dim() != 3 or weights.shape[:2] != (nbr.shape[1],
+                                                           feats.shape[1]):
+        raise ValueError(
+            f'{name}: shapes feats (N, Cin), mask (N,), nbr (M, K), '
+            f'weights (K, Cin, Cout); got {tuple(feats.shape)}, '
+            f'{tuple(mask.shape)}, {tuple(nbr.shape)}, {tuple(weights.shape)}')
+    if bias is not None and bias.shape != weights.shape[2:]:
+        raise ValueError(f'{name}: bias {tuple(bias.shape)}')
+    if feats.dtype != torch.float32 or weights.dtype != torch.float32 or \
+            mask.dtype != torch.bool or nbr.dtype != torch.int32 or \
+            (bias is not None and bias.dtype != torch.float32):
+        raise TypeError(f'{name} takes float32 feats/weights/bias, bool mask '
+                        'and int32 nbr')
+    tensors = [feats, mask, nbr, weights] + ([] if bias is None else [bias])
+    if _check_device(name, tensors).type == 'cuda':
+        plan = cuda_plan(feats, nbr, weights)
+        out = _gather_matmul_conv_cuda(feats, mask, nbr, weights, bias, plan)
+        launches[plan.route] += 1
+        return out
+    return _gather_matmul_conv_plain(feats, mask, nbr, weights, bias)
 
 
 def gather_matmul_conv(feats: torch.Tensor, mask: torch.Tensor,
@@ -320,36 +367,258 @@ def gather_matmul_conv(feats: torch.Tensor, mask: torch.Tensor,
     feats and weights in 16-byte chunks; where either does not start at a
     16-byte aligned address the call takes the SIMT route.
     """
-    if feats.dim() != 2 or mask.shape != feats.shape[:1] or nbr.dim() != 2 \
-            or weights.dim() != 3 or weights.shape[:2] != (nbr.shape[1],
-                                                           feats.shape[1]):
-        raise ValueError(
-            'gather_matmul_conv: shapes feats (N, Cin), mask (N,), nbr (M, K), '
-            f'weights (K, Cin, Cout); got {tuple(feats.shape)}, '
-            f'{tuple(mask.shape)}, {tuple(nbr.shape)}, {tuple(weights.shape)}')
-    if bias is not None and bias.shape != weights.shape[2:]:
-        raise ValueError(f'gather_matmul_conv: bias {tuple(bias.shape)}')
-    if feats.dtype != torch.float32 or weights.dtype != torch.float32 or \
-            mask.dtype != torch.bool or nbr.dtype != torch.int32 or \
-            (bias is not None and bias.dtype != torch.float32):
-        raise TypeError('gather_matmul_conv takes float32 feats/weights/bias, '
-                        'bool mask and int32 nbr')
-    tensors = [feats, mask, nbr, weights] + ([] if bias is None else [bias])
-    if any(t.device != feats.device for t in tensors):
-        raise ValueError('gather_matmul_conv: inputs on different devices')
-    if feats.is_cuda:
-        if not all(t.is_contiguous() for t in tensors):
-            raise ValueError('gather_matmul_conv: the kernel takes contiguous '
-                             'inputs')
-        return _gather_matmul_conv_cuda(feats, mask, nbr, weights, bias)
-    if feats.device.type != 'cpu':
-        raise ValueError(f'gather_matmul_conv: unsupported device '
-                         f'{feats.device}')
-    return _gather_matmul_conv_plain(feats, mask, nbr, weights, bias)
+    return _k2(feats, mask, nbr, weights, bias, gather_matmul_conv.launches,
+               'gather_matmul_conv')
+
+
+def conv_dgrad(dout: torch.Tensor, out_mask: torch.Tensor,
+               table: torch.Tensor, weights_t: torch.Tensor) -> torch.Tensor:
+    """A sparse conv's input gradient through K2's contract:
+    ``sum_k dout[table[:, k]] @ weights_t[k]``, the rows of ``dout`` whose
+    ``out_mask`` is false read as zero. ``table`` is the mirrored table of a
+    submanifold conv (its own, with ``weights_t = W.flip(0)^T``) or the
+    transpose table of a strided one (``weights_t = W^T``). The same kernel
+    and plain version as :func:`gather_matmul_conv`; launches are counted
+    apart in ``conv_dgrad.launches``."""
+    return _k2(dout, out_mask, table, weights_t, None, conv_dgrad.launches,
+               'conv_dgrad')
 
 
 # kernel launches by route (CUDA path only)
 gather_matmul_conv.launches = {'tc': 0, 'simt': 0}
+conv_dgrad.launches = {'tc': 0, 'simt': 0}
+
+
+# --- K3: the weight gradient ------------------------------------------------
+
+WG_TILE = 64                 # channels of a tile of G, both ways
+WG_STEP = 32                 # input rows per step of a block
+WG_MAX_CHUNK_ROWS = 65536    # rows of one block (its step list's size)
+
+
+class WgradPlan(NamedTuple):
+    """How ``conv_wgrad`` runs one shape on the card.
+
+    Attributes:
+        route: ``'tc'`` (tensor cores, 3xTF32) or ``'simt'`` (FP32 FMAs).
+        chunk_rows: input rows per block (a multiple of 32).
+        chunks: row chunks (1 = no workspace; else partial sums plus a
+            fixed-order reduction).
+    """
+    route: str
+    chunk_rows: int
+    chunks: int
+
+
+def wgrad_plan(r: int, k: int, cx: int, cy: int) -> WgradPlan:
+    """The route and row chunks of an (R, K, Cx, Cy) weight-gradient call.
+
+    Chosen by shape only, never by a failed launch: the tensor-core route
+    stages rows as 16-byte chunks, so it takes Cx, Cy >= 8 and multiples of
+    4; other shapes (the stem's Cy = 3) take the SIMT route. The rows are
+    cut into only as many chunks as it takes to reach two waves of blocks
+    over the K x ceil(Cx / 64) x ceil(Cy / 64) tiles of G, and into chunks
+    of at most 65536 rows.
+    """
+    route = 'tc' if min(cx, cy) >= 8 and cx % 4 == 0 and cy % 4 == 0 \
+        else 'simt'
+    tiles = k * -(-cx // WG_TILE) * -(-cy // WG_TILE)
+    steps = max(1, -(-r // WG_STEP))
+    chunks = min(steps, max(-(-SPLIT_BELOW_TILES // tiles),
+                            -(-r // WG_MAX_CHUNK_ROWS)))
+    per = -(-steps // chunks)
+    return WgradPlan(route, per * WG_STEP, -(-steps // per))
+
+
+def cuda_wgrad_plan(x, idx, y) -> WgradPlan:
+    """:func:`wgrad_plan` for these tensors: the SIMT route where x or y
+    does not start at a 16-byte aligned address."""
+    plan = wgrad_plan(x.shape[0], idx.shape[1], x.shape[1], y.shape[1])
+    if plan.route == 'tc' and not (_aligned16(x) and _aligned16(y)):
+        plan = plan._replace(route='simt')
+    return plan
+
+
+def _conv_wgrad_plain(x, x_mask, idx, y, y_mask):
+    ny, cy = y.shape
+    safe_x = torch.where(x_mask[:, None], x, torch.zeros_like(x))
+    safe_y = torch.where(y_mask[:, None], y, torch.zeros_like(y))
+    padded = torch.cat([safe_y, safe_y.new_zeros(1, cy)])
+    gidx = torch.where(idx >= 0, idx, torch.full_like(idx, ny)).long()
+    return torch.stack([safe_x.T @ padded[gidx[:, j]]
+                        for j in range(idx.shape[1])])
+
+
+def _conv_wgrad_cuda(x, x_mask, idx, y, y_mask, plan=None):
+    r, cx = x.shape
+    k = idx.shape[1]
+    ny, cy = y.shape
+    if plan is None:
+        plan = cuda_wgrad_plan(x, idx, y)
+    out = torch.empty((k, cx, cy), dtype=torch.float32, device=x.device)
+    ws = None
+    if plan.chunks > 1:
+        ws = torch.empty((plan.chunks, k, cx, cy), dtype=torch.float32,
+                         device=x.device)
+    name = f'es_sparse_wgrad_{plan.route}'
+    err = getattr(kernels.library(), name)(
+        x.data_ptr(), x_mask.data_ptr(), r, cx, idx.data_ptr(), k,
+        y.data_ptr(), y_mask.data_ptr(), ny, cy, out.data_ptr(),
+        plan.chunk_rows, plan.chunks, None if ws is None else ws.data_ptr(),
+        kernels.stream_handle(x.device))
+    kernels.check(err, name)
+    return out
+
+
+def conv_wgrad(x: torch.Tensor, x_mask: torch.Tensor, idx: torch.Tensor,
+               y: torch.Tensor, y_mask: torch.Tensor) -> torch.Tensor:
+    """Kernel K3: ``G[k] = sum_r x[r]^T @ y[idx[r, k]]``, (K, Cx, Cy).
+
+    Args:
+        x: (R, Cx) float32; rows with ``x_mask`` false read as zero.
+        x_mask: (R,) bool.
+        idx: (R, K) int32 rows of y (-1 = absent).
+        y: (Ny, Cy) float32; rows with ``y_mask`` false read as zero.
+        y_mask: (Ny,) bool.
+
+    Returns:
+        (K, Cx, Cy) float32. A sparse conv's weight gradient is
+        ``G.flip(0)`` with x = feats, y = dout over a submanifold table,
+        ``G`` over a strided conv's transpose table, and
+        ``G.transpose(1, 2)`` with x = dout, y = feats over any table.
+
+    On the card (``csrc/sparse_conv_wgrad.cu``) the route and row chunks
+    come from :func:`wgrad_plan`; the tensor-core route computes in 3xTF32
+    (float32 accuracy, within 1e-4 x max|G| of the plain version) and a
+    call gives the same bits every time (chunks are added in a fixed
+    order). On a CPU tensor it runs :func:`_conv_wgrad_plain`.
+    """
+    if x.dim() != 2 or x_mask.shape != x.shape[:1] or idx.dim() != 2 or \
+            idx.shape[0] != x.shape[0] or y.dim() != 2 or \
+            y_mask.shape != y.shape[:1]:
+        raise ValueError(
+            'conv_wgrad: shapes x (R, Cx), x_mask (R,), idx (R, K), '
+            f'y (Ny, Cy), y_mask (Ny,); got {tuple(x.shape)}, '
+            f'{tuple(x_mask.shape)}, {tuple(idx.shape)}, {tuple(y.shape)}, '
+            f'{tuple(y_mask.shape)}')
+    if x.dtype != torch.float32 or y.dtype != torch.float32 or \
+            x_mask.dtype != torch.bool or y_mask.dtype != torch.bool or \
+            idx.dtype != torch.int32:
+        raise TypeError('conv_wgrad takes float32 x/y, bool masks and int32 '
+                        'idx')
+    if _check_device('conv_wgrad', [x, x_mask, idx, y, y_mask]).type == \
+            'cuda':
+        plan = cuda_wgrad_plan(x, idx, y)
+        out = _conv_wgrad_cuda(x, x_mask, idx, y, y_mask, plan)
+        conv_wgrad.launches[plan.route] += 1
+        return out
+    return _conv_wgrad_plain(x, x_mask, idx, y, y_mask)
+
+
+conv_wgrad.launches = {'tc': 0, 'simt': 0}
+
+
+# --- autograd: the three routes of SparseConv -------------------------------
+#
+# Ports of the JAX package's custom VJPs (ops/sparse.py:subm_gather_conv,
+# strided_gather_conv) and of XLA's autodiff of gather_matmul_conv. Each
+# backward runs dfeats through K2 (or index_add_ for the generic route) and
+# dW through K3. The serving path calls gather_matmul_conv directly and
+# never builds these.
+
+
+def _masked_rows(t, mask):
+    return torch.where(mask[:, None], t, torch.zeros_like(t))
+
+
+class _SubmConv(torch.autograd.Function):
+    """Submanifold conv: ``nbr`` is the level's own mirror-symmetric
+    27-table (OFFSETS_3 is point-symmetric: offset K-1-k is -offset k), so
+    ``nbr[m, k] = i <=> nbr[i, K-1-k] = m``."""
+
+    @staticmethod
+    def forward(ctx, feats, mask, nbr, weights):
+        ctx.save_for_backward(feats, mask, nbr, weights)
+        return gather_matmul_conv(feats, mask, nbr, weights)
+
+    @staticmethod
+    def backward(ctx, dout):
+        feats, mask, nbr, weights = ctx.saved_tensors
+        dout = dout.contiguous()
+        dfeats = dw = None
+        if ctx.needs_input_grad[0]:
+            wt = weights.flip(0).transpose(1, 2).contiguous()
+            dfeats = _masked_rows(conv_dgrad(dout, mask, nbr, wt), mask)
+        if ctx.needs_input_grad[3]:
+            dw = conv_wgrad(feats, mask, nbr, dout, mask).flip(0)
+        return dfeats, None, None, dw
+
+
+class _StridedConv(torch.autograd.Function):
+    """Strided conv with its transpose table: ``t_nbr[j, k] = m <=>
+    nbr[m, k] = j`` (``t_nbr`` indexes the coarse output rows)."""
+
+    @staticmethod
+    def forward(ctx, feats, mask, nbr, t_nbr, weights, out_mask):
+        ctx.save_for_backward(feats, mask, t_nbr, weights, out_mask)
+        return gather_matmul_conv(feats, mask, nbr, weights)
+
+    @staticmethod
+    def backward(ctx, dout):
+        feats, mask, t_nbr, weights, out_mask = ctx.saved_tensors
+        dout = dout.contiguous()
+        dfeats = dw = None
+        if ctx.needs_input_grad[0]:
+            wt = weights.transpose(1, 2).contiguous()
+            dfeats = _masked_rows(conv_dgrad(dout, out_mask, t_nbr, wt), mask)
+        if ctx.needs_input_grad[4]:
+            dw = conv_wgrad(feats, mask, t_nbr, dout, out_mask)
+        return dfeats, None, None, None, dw, None
+
+
+class _GenericConv(torch.autograd.Function):
+    """Any other table (the stem, the K = 1 downsamples): dfeats by
+    ``index_add_``, as XLA's autodiff of the gather does."""
+
+    @staticmethod
+    def forward(ctx, feats, mask, nbr, weights, out_mask):
+        ctx.save_for_backward(feats, mask, nbr, weights, out_mask)
+        return gather_matmul_conv(feats, mask, nbr, weights)
+
+    @staticmethod
+    def backward(ctx, dout):
+        feats, mask, nbr, weights, out_mask = ctx.saved_tensors
+        dout = dout.contiguous()
+        dfeats = dw = None
+        if ctx.needs_input_grad[0]:
+            n = feats.shape[0]
+            acc = feats.new_zeros(n + 1, feats.shape[1])
+            for j in range(nbr.shape[1]):
+                rows = torch.where(nbr[:, j] >= 0, nbr[:, j],
+                                   torch.full_like(nbr[:, j], n)).long()
+                acc.index_add_(0, rows, dout @ weights[j].T)
+            dfeats = _masked_rows(acc[:n], mask)
+        if ctx.needs_input_grad[3]:
+            dw = conv_wgrad(dout, out_mask, nbr, feats, mask).transpose(1, 2)
+        return dfeats, None, None, dw, None
+
+
+def subm_gather_conv(feats, mask, nbr, weights):
+    """:func:`gather_matmul_conv` over a submanifold table, differentiable:
+    dfeats by K2 over the mirrored table, dW by K3."""
+    return _SubmConv.apply(feats, mask, nbr, weights)
+
+
+def strided_gather_conv(feats, mask, nbr, t_nbr, weights, out_mask):
+    """:func:`gather_matmul_conv` of a strided conv, differentiable through
+    its transpose table ``t_nbr`` (N, K): dfeats by K2, dW by K3."""
+    return _StridedConv.apply(feats, mask, nbr, t_nbr, weights, out_mask)
+
+
+def generic_gather_conv(feats, mask, nbr, weights, out_mask):
+    """:func:`gather_matmul_conv` over any table, differentiable: dfeats by
+    ``index_add_`` (skipped when feats needs no gradient), dW by K3."""
+    return _GenericConv.apply(feats, mask, nbr, weights, out_mask)
 
 
 def center_child_index(st: SparseTensor, dmap: DownsampleMap) -> torch.Tensor:

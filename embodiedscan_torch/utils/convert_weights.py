@@ -1,4 +1,5 @@
-"""Load the reference package's variables into the port's modules.
+"""Load the reference package's variables into the port's modules, and
+export the port's tensors as the reference's trees.
 
 The port's submodules carry the reference's flax names, so a flax leaf
 ``a/b/c/leaf`` lands on ``model.get_submodule('a.b.c')``; only the layout of
@@ -70,3 +71,37 @@ def load_jax_variables(model: nn.Module, params: dict,
     if strict and missing:
         raise KeyError(f'port tensors without a reference leaf: {missing}')
     return model
+
+
+def _leaf(mod: nn.Module, name: str, tensor: torch.Tensor):
+    """(flax leaf name, numpy array in the flax layout) of a port tensor."""
+    arr = tensor.detach().cpu().numpy()
+    if isinstance(mod, nn.Linear) and name == 'weight':
+        return 'kernel', arr.T
+    if isinstance(mod, nn.Conv2d) and name == 'weight':
+        return 'kernel', arr.transpose(2, 3, 1, 0)
+    return name, arr
+
+
+def export_jax_tree(model: nn.Module, tensors: str = 'params') -> dict:
+    """The inverse of :func:`load_jax_variables`: ``'params'`` (parameters),
+    ``'grads'`` (their ``.grad``; a parameter without one raises) or
+    ``'buffers'`` (the ``batch_stats``) as nested dicts of numpy arrays in
+    the flax layout (Dense kernels (in, out), Conv kernels HWIO)."""
+    if tensors not in ('params', 'grads', 'buffers'):
+        raise ValueError(f'tensors: {tensors!r}')
+    named = model.named_buffers() if tensors == 'buffers' else \
+        model.named_parameters()
+    tree = {}
+    for name, tensor in named:
+        *path, leaf = name.split('.')
+        if tensors == 'grads':
+            if tensor.grad is None:
+                raise ValueError(f'{name} has no gradient')
+            tensor = tensor.grad
+        key, arr = _leaf(model.get_submodule('.'.join(path)), leaf, tensor)
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[key] = arr
+    return tree

@@ -22,11 +22,23 @@ to the plain version within chip_smoke's gate.
 
 Prints the card, then one JSON line of per-request sums; the per-call
 numbers are appended to chiprun_out/kernel_ab.jsonl.
+
+    python3 kernel_ab.py --tf32-control [ROOT]
+
+is the control for chip_smoke's GRAD_GATE: chip_smoke's CPU-against-card
+train step (``chip_smoke.train_parity``) from ROOT as it is, then from a
+temporary copy of its ``embodiedscan_torch`` whose 3xTF32 product
+(``csrc/sparse_mma.cuh:mma_3xtf32``) keeps only the single-TF32 term, each
+in a process of its own. Prints one JSON line per tree with the worst
+max|d|/max|cpu| over the leaves of each kind.
 """
 
 import json
 import os
+import shutil
+import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -132,20 +144,57 @@ def plan_sums(conv):
     return out
 
 
+SINGLE_TF32 = ('  mma_tf32(d, alo, bhi);\n  mma_tf32(d, ahi, blo);\n'
+               '  mma_tf32(d, ahi, bhi);\n', '  mma_tf32(d, ahi, bhi);\n')
+
+
+def tf32_control(root):
+    """chip_smoke's train parity from ROOT and from a single-TF32 copy."""
+    with tempfile.TemporaryDirectory() as tmp:
+        shutil.copytree(os.path.join(root, 'embodiedscan_torch'),
+                        os.path.join(tmp, 'embodiedscan_torch'),
+                        ignore=shutil.ignore_patterns('_build',
+                                                      '__pycache__'))
+        header = os.path.join(tmp, 'embodiedscan_torch', 'csrc',
+                              'sparse_mma.cuh')
+        with open(header) as f:
+            text = f.read()
+        if text.count(SINGLE_TF32[0]) != 1:
+            raise RuntimeError('mma_3xtf32 body not found in sparse_mma.cuh')
+        with open(header, 'w') as f:
+            f.write(text.replace(*SINGLE_TF32))
+        for tree, path in (('as is', root), ('single TF32', tmp)):
+            out = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), '--train-parity',
+                 path], check=True, capture_output=True, text=True).stdout
+            print(json.dumps(dict(json.loads(out.splitlines()[-1]),
+                                  tree=tree)), flush=True)
+    return 0
+
+
 def main(argv):
     plans = '--plans' in argv
-    args = [a for a in argv if a != '--plans']
+    mode = next((a for a in argv if a in ('--tf32-control',
+                                          '--train-parity')), None)
+    args = [a for a in argv if a not in ('--plans', mode)]
     root = os.path.abspath(args[0] if args else os.path.dirname(
         os.path.abspath(__file__)))
     if not torch.cuda.is_available():
         print('kernel_ab: no CUDA device', file=sys.stderr)
         return 2
+    if mode == '--tf32-control':
+        return tf32_control(root)
     sys.path.insert(0, root)
     from embodiedscan_torch.ops import pscan as P
     from embodiedscan_torch.ops import sparse as S
     if not S.__file__.startswith(root):
         raise RuntimeError(f'embodiedscan_torch came from {S.__file__}')
     card = cs.phase_build()
+    if mode == '--train-parity':
+        _, _, _, worst = cs.train_parity('cuda')
+        print(json.dumps(dict(card=card, worst={
+            k: dict(ratio=r, leaf=p) for k, (r, p) in worst.items()})))
+        return 0
     rec, lat = serve(S, P)
     conv, scan = time_calls(S, P, rec, plans)
     result = dict(root=root, card=card, latency_ms=lat,

@@ -98,5 +98,17 @@ def test_build_model_entry_point():
     assert not torch.backends.cudnn.allow_tf32
     preds = model(to_torch(tiny_batch()), mode='predict')
     assert np.isfinite(preds['bboxes'].numpy()).all()
-    with pytest.raises(NotImplementedError):
-        model(to_torch(tiny_batch()), mode='loss')
+    # mode='loss' with padded ground truth: finite losses with a gradient
+    rng = np.random.RandomState(1)
+    batch = to_torch(tiny_batch())
+    batch.update(to_torch(dict(
+        gt_boxes=np.concatenate([rng.uniform(0.3, 1.7, (2, 4, 3)),
+                                 rng.uniform(0.2, 0.8, (2, 4, 3)),
+                                 rng.uniform(-0.3, 0.3, (2, 4, 3))],
+                                -1).astype(np.float32),
+        gt_labels=rng.randint(0, 5, (2, 4)).astype(np.int32),
+        gt_mask=np.ones((2, 4), bool))))
+    losses = model(batch, mode='loss')
+    assert set(losses) == {'loss_center', 'loss_bbox', 'loss_cls'}
+    for val in losses.values():
+        assert val.requires_grad and np.isfinite(float(val.detach()))

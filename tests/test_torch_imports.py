@@ -2,6 +2,8 @@
 
 import ast
 import pathlib
+import subprocess
+import sys
 
 import pytest
 
@@ -23,3 +25,16 @@ def _imported(path):
 def test_no_reference_imports(path):
     bad = [m for m in _imported(path) if m.split('.')[0] in FORBIDDEN]
     assert not bad, f'{path.name} imports {bad}'
+
+
+@pytest.mark.parametrize('module', [
+    'embodiedscan_torch.train.state', 'embodiedscan_torch.models.losses',
+    'embodiedscan_torch.models.detector', 'embodiedscan_torch.ops.sparse'])
+def test_module_is_checked_and_imports(module):
+    """The training slice's modules are among the files checked above and
+    import on a machine without JAX."""
+    path = ROOT / (module.replace('.', '/') + '.py')
+    assert path in FILES
+    code = (f'import sys; sys.modules.update(dict.fromkeys({FORBIDDEN!r}));'
+            f' import {module}')
+    subprocess.run([sys.executable, '-c', code], cwd=ROOT, check=True)
