@@ -21,18 +21,22 @@ Phases (one line each; any failure exits non-zero before the last line):
      of the warm-up step's backward is replayed on its recorded inputs
      against the kernel's plain PyTorch version (join scan bit-exact,
      sparse conv and weight gradient within 1e-4 x max|ref| and
-     bit-identical when run twice), with the kernel, plain and library
-     times, the least time the card could take and, for the sparse conv,
-     the plan (route, tile, split) and the share of the dense work that
-     hits and that the kernel computes; after every timing, the profiler
+     bit-identical when run twice, the weight gradient's pair lists
+     identical to the plain pair pass), with the kernel, plain and library
+     times, the least time the card could take, the plan (route, tile,
+     split or chunks) and the share of the dense work that hits and that
+     the kernel computes; after every timing, the profiler
      counts each call's CUDA launches and device time and traces one
      request and one train step (device busy time and idle share);
   5. edge shapes: the sparse conv at Cin = 3, K = 1, ragged M, Cout 64 /
      128 / 512, all-absent and all-masked tables, a misaligned view, split
-     against unsplit; the weight gradient at C = 3, K = 1, ragged R,
-     C 64 / 128 / 512, all-absent and all-masked tables, a misaligned view,
-     split rows against unsplit; the join scan at the reference's
-     unit-test cases, one tile, one tile plus one row and ~4M rows;
+     against unsplit; the weight gradient at C of 3, 4, 8 and 12, channels
+     that are not a multiple of the tile, C 128 to 1024, K = 1, ragged R,
+     R = 1, offsets of 0, 1, 31, 32 and 33 pairs, all-absent and
+     all-masked tables, a misaligned view, many pair chunks against one
+     (its pair lists held identical to the plain pair pass everywhere);
+     the join scan at the reference's unit-test cases, one tile, one tile
+     plus one row and ~4M rows;
   6. end-to-end parity: a small detector on cuda (kernels) and on cpu
      (plain versions) with the same weights, serving and one train step;
   7. one JSON line with the kernels, then the result line.
@@ -61,19 +65,19 @@ TF32_FLOPS = 495e12
 # serving runs no backward kernel
 EXPECTED_LAUNCHES = {'sparse_conv_tc': 43, 'sparse_conv_simt': 1,
                      'sparse_dgrad_tc': 0, 'sparse_dgrad_simt': 0,
-                     'sparse_wgrad_tc': 0, 'sparse_wgrad_simt': 0,
+                     'sparse_wgrad_tc': 0, 'sparse_wgrad_narrow': 0,
                      'join_scan': 12}
 # wrapper calls per train step: the 44 forward convs; K2 again for the
 # input gradient of the 35 submanifold and 4 strided convs (the stem's
 # input needs none, the 4 K = 1 downsamples take index_add_); K3 for the
-# weight gradient of all 44 (the stem's Cin = 3 on SIMT); K1's 12 joins,
-# the stages' now with their transpose queries
+# weight gradient of all 44 (the stem's Cy = 3 on the narrow route); K1's
+# 12 joins, the stages' now with their transpose queries
 EXPECTED_TRAIN_LAUNCHES = {'sparse_conv_tc': 43, 'sparse_conv_simt': 1,
                            'sparse_dgrad_tc': 39, 'sparse_dgrad_simt': 0,
-                           'sparse_wgrad_tc': 43, 'sparse_wgrad_simt': 1,
+                           'sparse_wgrad_tc': 43, 'sparse_wgrad_narrow': 1,
                            'join_scan': 12}
 CONV_GATE = 1e-4  # K2, K3: max|kernel - plain| <= CONV_GATE x max|plain|
-SPLIT_GATE = 1e-6  # K3 split rows vs unsplit: max|d| <= SPLIT_GATE x max
+SPLIT_GATE = 1e-6  # K3 many chunks vs one: max|d| <= SPLIT_GATE x max
 # CPU vs CUDA train step: every gradient leaf and batch statistic within
 # GRAD_GATE x its max|cpu| (3xTF32 kernels, cuDNN and atomic sums in
 # another order, through ~90 layers forward and back). On an H100 the
@@ -259,8 +263,9 @@ def phase_build():
     log(card)
     t0 = time.perf_counter()
     kernels.library()
+    # registers, spills, and the compiler's notes on serialized wgmma (C7xxx)
     regs = [ln.strip() for ln in kernels.build_log.splitlines()
-            if 'registers' in ln or 'spill' in ln]
+            if 'registers' in ln or 'spill' in ln or '(C7' in ln]
     log(f'[build] kernels built in {time.perf_counter() - t0:.1f} s '
         f'(nvcc {kernels.build_seconds:.1f} s): ' + ' | '.join(regs))
     return card
@@ -328,7 +333,7 @@ def phase_main_path(device):
 def reset_counts(S, P):
     S.gather_matmul_conv.launches = {'tc': 0, 'simt': 0}
     S.conv_dgrad.launches = {'tc': 0, 'simt': 0}
-    S.conv_wgrad.launches = {'tc': 0, 'simt': 0}
+    S.conv_wgrad.launches = {'tc': 0, 'narrow': 0}
     P.join_scan.launches = 0
 
 
@@ -577,20 +582,43 @@ def _check_conv(S, feats, mask, nbr, w, bias, what, plan=None):
 
 
 def _check_wgrad(S, x, xm, idx, y, ym, what, plan=None):
-    """K3 vs its plain version within the gate, and the same bits twice;
-    returns (out, max|d|, max|ref|)."""
+    """K3 vs its plain versions: the pair lists and counts of the call
+    identical to ``_wgrad_pairs_plain``, G within the gate of
+    ``_conv_wgrad_plain``, and the same bits twice; returns (G, max|d|,
+    max|ref|, counts)."""
+    plan = plan or S.cuda_wgrad_plan(x, idx, y)
+    shape = f'{tuple(idx.shape)} x {x.shape[1]} x {y.shape[1]}'
     ref = S._conv_wgrad_plain(x, xm, idx, y, ym)
-    got = S._conv_wgrad_cuda(x, xm, idx, y, ym, plan)
-    again = S._conv_wgrad_cuda(x, xm, idx, y, ym, plan)
+    want_pairs, want_counts = S._wgrad_pairs_plain(xm, idx, ym)
+    got, pairs, counts = S._wgrad_cuda(x, xm, idx, y, ym, plan, lists=True)
+    again, pairs2, counts2 = S._wgrad_cuda(x, xm, idx, y, ym, plan,
+                                           lists=True)
+    if not (torch.equal(counts, want_counts) and torch.equal(counts2,
+                                                             want_counts)):
+        raise RuntimeError(f'sparse_wgrad {what} {shape}: counts differ '
+                           'from the plain pair pass')
+    for k, n in enumerate(want_counts.tolist()):
+        if not (torch.equal(pairs[k, :n], want_pairs[k, :n]) and
+                torch.equal(pairs2[k, :n], want_pairs[k, :n])):
+            raise RuntimeError(f'sparse_wgrad {what} {shape}: pair list of '
+                               f'offset {k} differs from the plain one')
     err = float((got - ref).abs().max()) if ref.numel() else 0.0
     scale = float(ref.abs().max()) if ref.numel() else 0.0
-    shape = f'{tuple(idx.shape)} x {x.shape[1]} x {y.shape[1]}'
     if not err <= CONV_GATE * max(scale, 1e-30):
         raise RuntimeError(f'sparse_wgrad {what} {shape}: max|d| {err} > '
                            f'{CONV_GATE} x {scale}')
     if not torch.equal(got, again):
         raise RuntimeError(f'sparse_wgrad {what} {shape}: two runs differ')
-    return got, err, scale
+    return got, err, scale, want_counts
+
+
+def _wgrad_work_share(S, plan, counts, r, k):
+    """The pairs K3 computes over R x K: each chunk's pairs, rounded up to
+    a whole 32-pair step on the tensor-core route."""
+    step = S.WG_STEP if plan.route == 'tc' else 1
+    done = sum(-(-(p1 - p0) // step) * step for n in counts.tolist()
+               for p0, p1 in S.wgrad_chunk_bounds(n, plan.chunks))
+    return done / max(r * k, 1)
 
 
 def _wgrad_bound(x, xm, idx, y, ym):
@@ -647,7 +675,7 @@ def _wgrad_call(S, x, xm, idx, y, ym):
     """One K3 call: checked, then timed beside its plain version and the
     library product of x^T with the gathered y rows."""
     plan = S.cuda_wgrad_plan(x, idx, y)
-    _, err, scale = _check_wgrad(S, x, xm, idx, y, ym, 'main')
+    _, err, scale, counts = _check_wgrad(S, x, xm, idx, y, ym, 'main')
     r, k, cy = x.shape[0], idx.shape[1], y.shape[1]
     xs = torch.where(xm[:, None], x, torch.zeros_like(x))
     ypad = torch.cat([torch.where(ym[:, None], y, torch.zeros_like(y)),
@@ -657,8 +685,10 @@ def _wgrad_call(S, x, xm, idx, y, ym):
     bound, by, bound32 = _bound(nbytes, flops)
     return dict(
         r=r, k=k, cx=x.shape[1], cy=cy, ny=y.shape[0], route=plan.route,
-        chunks=plan.chunks, chunk_rows=plan.chunk_rows,
-        hit_share=hits / max(r * k, 1), max_abs_err=err, max_abs_ref=scale,
+        tile=[plan.bm, plan.bn], chunks=plan.chunks,
+        hit_share=hits / max(r * k, 1),
+        work_share=_wgrad_work_share(S, plan, counts, r, k),
+        max_abs_err=err, max_abs_ref=scale,
         deterministic=True, ms=cuda_ms(lambda: S.conv_wgrad(x, xm, idx, y,
                                                             ym)),
         plain_ms=cuda_ms(lambda: S._conv_wgrad_plain(x, xm, idx, y, ym)),
@@ -720,11 +750,13 @@ def phase_kernels(rec, train_rec, device):
                 f'{r["max_abs_err"] / max(r["max_abs_ref"], 1e-30):.2e}')
     for r in calls['sparse_wgrad']:
         log(f'[kernels] sparse_wgrad {r["r"]}x{r["k"]} {r["cx"]}x{r["cy"]} '
-            f'{r["route"]} chunks {r["chunks"]}x{r["chunk_rows"]}: '
+            f'{r["route"]} {r["tile"][0]}x{r["tile"][1]} chunks '
+            f'{r["chunks"]}: '
             f'{r["ms"]:.4f} ms (device {r["device_ms"]:.4f}, bound '
             f'{r["bound_ms"]:.4f}, fp32 bound {r["bound_fp32_ms"]:.4f}, '
             f'plain {r["plain_ms"]:.4f}, library {r["library_ms"]:.4f}), '
-            f'hit {r["hit_share"]:.3f}, launches {r["cuda_launches"]}, '
+            f'hit {r["hit_share"]:.3f} work {r["work_share"]:.3f}, '
+            f'launches {r["cuda_launches"]}, '
             f'max|d|/max|ref| '
             f'{r["max_abs_err"] / max(r["max_abs_ref"], 1e-30):.2e}')
     for r in calls['join_scan']:
@@ -845,62 +877,106 @@ def phase_edges(device):
                            f'{scale}')
     checked.append(f'split {plan.splits}x{plan.per_split} vs unsplit '
                    f'(max|d| {d:.3g})')
-    # K3: the stem's C = 3 (SIMT, either side), K = 1, ragged R, C of 64,
-    # 128 and 512, all-absent and all-masked tables, a misaligned view,
-    # split rows against unsplit
-    def wgrad(what, *shape, route, hit=0.3):
+    # K3: every check of _check_wgrad (pair lists, gate, bits) on each case
+    def wgrad(what, *shape, route, hit=0.3, edit=None):
         x, xm, idx, y, ym = _wgrad_case(g, *shape, hit=hit, device=device)
+        if edit is not None:
+            x, xm, idx, y, ym = edit(x, xm, idx, y, ym)
         plan = S.cuda_wgrad_plan(x, idx, y)
         if plan.route != route:
             raise RuntimeError(f'wgrad {what}: route {plan.route}, want '
                                f'{route}')
-        _, err, scale = _check_wgrad(S, x, xm, idx, y, ym, what)
-        checked.append(f'wgrad {what} ({plan.route}, chunks {plan.chunks}, '
-                       f'max|d|/max|ref| {err / scale:.1e})')
+        got, err, scale, counts = _check_wgrad(S, x, xm, idx, y, ym, what)
+        checked.append(f'wgrad {what} ({plan.route} {plan.bm}x{plan.bn}, '
+                       f'chunks {plan.chunks}, max|d|/max|ref| '
+                       f'{err / max(scale, 1e-30):.1e})')
+        return got, counts, (x, xm, idx, y, ym)
+
+    def set_counts(*x_):  # offsets 0-3 with 1, 31, 32 and 33 pairs
+        x, xm, idx, y, ym = x_
+        xm, ym = torch.ones_like(xm), torch.ones_like(ym)
+        idx[:, :4] = -1
+        for j, n in enumerate((1, 31, 32, 33)):
+            idx[:n, j] = torch.arange(n, dtype=idx.dtype, device=device)
         return x, xm, idx, y, ym
 
-    wgrad('cy3', 5000, 6000, 27, 64, 3, route='simt')
-    wgrad('cx3', 6000, 5000, 27, 3, 64, route='simt')
+    def empty_offset(*x_):
+        x, xm, idx, y, ym = x_
+        idx[:, 13] = -1
+        return x, xm, idx, y, ym
+
+    # the narrow route: C = 3 or 4 on either side
+    wgrad('cy3', 5000, 6000, 27, 64, 3, route='narrow')
+    wgrad('cx3', 6000, 5000, 27, 3, 64, route='narrow')
+    wgrad('cy4', 5000, 6000, 27, 64, 4, route='narrow')
+    wgrad('cx4', 6000, 5000, 27, 4, 64, route='narrow')
+    # tensor cores: C of 8 and 12, channels that are not a multiple of the
+    # tile, 128 to 1024, K = 1, ragged R and R = 1
+    wgrad('c8', 3000, 3000, 27, 8, 8, route='tc')
+    wgrad('c12x64', 3000, 3000, 27, 12, 64, route='tc')
+    wgrad('c200x136', 3000, 3000, 27, 200, 136, route='tc')
     wgrad('k1', 9000, 9000, 1, 64, 128, route='tc')
     wgrad('ragged_r', 1001, 3000, 27, 64, 64, route='tc')
+    wgrad('r1', 1, 3000, 27, 64, 64, route='tc', hit=1.0,
+          edit=lambda x, xm, *rest: (x, torch.ones_like(xm), *rest))
     wgrad('c128', 8192, 8192, 27, 128, 128, route='tc')
     wgrad('c512', 2048, 2048, 27, 512, 512, route='tc')
     wgrad('c64x512', 4096, 2048, 27, 64, 512, route='tc')
     wgrad('c512x128', 2048, 4096, 27, 512, 128, route='tc')
-    for what in ('all_absent', 'all_masked_x', 'all_masked_y'):
-        x, xm, idx, y, ym = _wgrad_case(g, 2000, 1500, 27, 64, 128,
-                                        device=device)
-        if what == 'all_absent':
-            idx = torch.full_like(idx, -1)
-        elif what == 'all_masked_x':
-            xm = torch.zeros_like(xm)
-        else:
-            ym = torch.zeros_like(ym)
-        got, _, _ = _check_wgrad(S, x, xm, idx, y, ym, what)
-        if got.any():
+    wgrad('c1024', 2048, 2048, 27, 1024, 1024, route='tc')
+    _, counts, _ = wgrad('counts_1_31_32_33', 3000, 3000, 27, 64, 64,
+                         route='tc', edit=set_counts)
+    if counts[:4].tolist() != [1, 31, 32, 33]:
+        raise RuntimeError(f'wgrad counts {counts[:4].tolist()}')
+    _, counts, _ = wgrad('one_offset_empty', 3000, 3000, 27, 64, 64,
+                         route='tc', edit=empty_offset)
+    if int(counts[13]) != 0:
+        raise RuntimeError('wgrad: offset 13 is not empty')
+    for what, route, c in (('all_absent', 'tc', 128),
+                           ('all_absent_narrow', 'narrow', 3),
+                           ('all_masked_x', 'tc', 128),
+                           ('all_masked_y', 'tc', 128)):
+        def clear(x, xm, idx, y, ym, what=what):
+            if what.startswith('all_absent'):
+                idx = torch.full_like(idx, -1)
+            elif what == 'all_masked_x':
+                xm = torch.zeros_like(xm)
+            else:
+                ym = torch.zeros_like(ym)
+            return x, xm, idx, y, ym
+        got, counts, _ = wgrad(what, 2000, 1500, 27, 64, c, route=route,
+                               edit=clear)
+        if got.any() or counts.any():
             raise RuntimeError(f'sparse_wgrad {what}: output is not zero')
-        checked.append(f'wgrad {what}')
+    # a view that is not 16-byte aligned takes the narrow route
     x, xm, idx, y, ym = _wgrad_case(g, 3000, 3000, 27, 64, 64, device=device)
     flat = torch.empty(x.numel() + 1, device=device)
     view = flat[1:].view_as(x).copy_(x)
-    if S.cuda_wgrad_plan(view, idx, y).route != 'simt':
-        raise RuntimeError('wgrad: misaligned view did not take SIMT')
+    if S.cuda_wgrad_plan(view, idx, y).route != 'narrow':
+        raise RuntimeError('wgrad: misaligned view did not take the narrow '
+                           'route')
     _check_wgrad(S, view, xm, idx, y, ym, 'misaligned')
-    checked.append('wgrad misaligned (simt)')
-    x, xm, idx, y, ym = _wgrad_case(g, 8192, 8192, 27, 64, 64,
-                                    device=device)
-    plan = S.cuda_wgrad_plan(x, idx, y)
-    if plan.chunks == 1:
-        raise RuntimeError('wgrad: the split case is not split')
-    one = plan._replace(chunk_rows=-(-x.shape[0] // 32) * 32, chunks=1)
-    a, _, scale = _check_wgrad(S, x, xm, idx, y, ym, 'split', plan)
-    c, _, _ = _check_wgrad(S, x, xm, idx, y, ym, 'unsplit', one)
-    d = float((a - c).abs().max())
-    if not d <= SPLIT_GATE * scale:
-        raise RuntimeError(f'wgrad split vs unsplit: max|d| {d} > '
-                           f'{SPLIT_GATE} x {scale}')
-    checked.append(f'wgrad split {plan.chunks}x{plan.chunk_rows} vs unsplit '
-                   f'(max|d|/max|ref| {d / scale:.2e})')
+    checked.append('wgrad misaligned (narrow)')
+    # many chunks against one: both within the gate, of each other too
+    for what, c in (('tc', 64), ('narrow', 3)):
+        x, xm, idx, y, ym = _wgrad_case(g, 8192, 8192, 27, 64, c,
+                                        device=device)
+        plan = S.cuda_wgrad_plan(x, idx, y)
+        _, counts = S._wgrad_pairs_plain(xm, idx, ym)
+        most = max(len(S.wgrad_chunk_bounds(n, plan.chunks))
+                   for n in counts.tolist())
+        if most < 4:
+            raise RuntimeError(f'wgrad {what}: the chunked case fills '
+                               f'{most} chunks')
+        a, _, scale, _ = _check_wgrad(S, x, xm, idx, y, ym, 'chunks', plan)
+        c1, _, _, _ = _check_wgrad(S, x, xm, idx, y, ym, 'one chunk',
+                                   plan._replace(chunks=1))
+        d = float((a - c1).abs().max())
+        if not d <= SPLIT_GATE * scale:
+            raise RuntimeError(f'wgrad {what} {plan.chunks} chunks vs one: '
+                               f'max|d| {d} > {SPLIT_GATE} x {scale}')
+        checked.append(f'wgrad {what} {plan.chunks} chunks (up to {most} '
+                       f'filled) vs one (max|d|/max|ref| {d / scale:.2e})')
     # join scan: the reference's unit-test cases, one tile, one tile plus
     # one row, and a stem-sized call with many tiles
     tile = S.kernels.library().es_join_scan_tile()
@@ -1089,8 +1165,9 @@ def kernel_line(calls, totals):
                                            if r['route'] == 'tc']),
         'sparse_wgrad_tc': (wgrad, bwd, [r for r in calls['sparse_wgrad']
                                          if r['route'] == 'tc']),
-        'sparse_wgrad_simt': (wgrad, bwd, [r for r in calls['sparse_wgrad']
-                                           if r['route'] == 'simt']),
+        'sparse_wgrad_narrow': (wgrad, bwd,
+                                [r for r in calls['sparse_wgrad']
+                                 if r['route'] == 'narrow']),
     }
     for name, (source, replaces, rs) in meta.items():
         if not rs or not totals[name]:

@@ -37,10 +37,8 @@ _SIGNATURES = {
     'es_sparse_conv_simt': [_P, _P, _L, _I, _P, _L, _I, _P, _I, _P, _P, _P],
     'es_sparse_conv_tc': [_P, _P, _L, _I, _P, _L, _I, _P, _I, _P, _P, _I, _I,
                           _I, _P, _P],
-    'es_sparse_wgrad_tc': [_P, _P, _L, _I, _P, _I, _P, _P, _L, _I, _P, _I, _I,
-                           _P, _P],
-    'es_sparse_wgrad_simt': [_P, _P, _L, _I, _P, _I, _P, _P, _L, _I, _P, _I,
-                             _I, _P, _P],
+    'es_sparse_wgrad': [_I, _P, _P, _L, _I, _P, _I, _P, _P, _L, _I, _I, _I,
+                        _I, _P, _P, _P, _P, _P],
 }
 
 # seconds the last build took (0.0 when a cached library was loaded)

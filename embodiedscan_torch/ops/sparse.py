@@ -25,6 +25,7 @@ gradients through kernel K3 (``csrc/sparse_conv_wgrad.cu``,
 :func:`conv_wgrad`).
 """
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -391,51 +392,109 @@ conv_dgrad.launches = {'tc': 0, 'simt': 0}
 
 # --- K3: the weight gradient ------------------------------------------------
 
-WG_TILE = 64                 # channels of a tile of G, both ways
-WG_STEP = 32                 # input rows per step of a block
-WG_MAX_CHUNK_ROWS = 65536    # rows of one block (its step list's size)
+WG_STEP = 32                 # pairs per step of a tensor-core block
+WG_MIN_CHUNK = 256           # least pairs of a chunk
+WG_WAVES = 6                 # waves of blocks a split call aims for
+WG_STAGES = 3                # slots of staged rows of a tensor-core block
+WG_MAX_WS_BYTES = 2**27      # the chunk partials' workspace, at most
+SMEM_PER_SM = 233472         # bytes of shared memory an SM gives its blocks
+SMEM_PER_BLOCK = 1024        # of which each resident block costs the runtime
+WN_WIDE, WN_NARROW = 64, 4   # the narrow route's tile of G
+WN_BLOCKS_PER_SM = 8         # narrow blocks (256 threads) resident on an SM
 
 
 class WgradPlan(NamedTuple):
     """How ``conv_wgrad`` runs one shape on the card.
 
     Attributes:
-        route: ``'tc'`` (tensor cores, 3xTF32) or ``'simt'`` (FP32 FMAs).
-        chunk_rows: input rows per block (a multiple of 32).
-        chunks: row chunks (1 = no workspace; else partial sums plus a
-            fixed-order reduction).
+        route: ``'tc'`` (tensor cores, 3xTF32) or ``'narrow'`` (FP32 FMAs).
+        bm, bn: the block's tile of G (x channels x y channels); on the
+            narrow route (64, 4) when y is the narrow side, (4, 64) when x
+            is.
+        chunks: pair chunks per offset (1 = no workspace; else partial sums
+            plus a fixed-order reduction).
     """
     route: str
-    chunk_rows: int
+    bm: int
+    bn: int
     chunks: int
 
 
-def wgrad_plan(r: int, k: int, cx: int, cy: int) -> WgradPlan:
-    """The route and row chunks of an (R, K, Cx, Cy) weight-gradient call.
+def wgrad_smem(bm: int, bn: int) -> int:
+    """Dynamic shared memory of a tensor-core block with a bm x bn tile of
+    G: 1 KB of alignment slack, two buffers of the TF32 hi and lo parts of
+    both operands (32 pairs each) and three slots of staged fp32 rows."""
+    return 1024 + 4 * (2 * 2 + WG_STAGES) * (bm + bn) * WG_STEP
 
-    Chosen by shape only, never by a failed launch: the tensor-core route
+
+@functools.lru_cache(maxsize=1024)
+def wgrad_plan(r: int, k: int, cx: int, cy: int) -> WgradPlan:
+    """The route, tile and pair chunks of an (R, K, Cx, Cy) weight-gradient
+    call.
+
+    Chosen by shape only, never by a failed launch. The tensor-core route
     stages rows as 16-byte chunks, so it takes Cx, Cy >= 8 and multiples of
-    4; other shapes (the stem's Cy = 3) take the SIMT route. The rows are
-    cut into only as many chunks as it takes to reach two waves of blocks
-    over the K x ceil(Cx / 64) x ceil(Cy / 64) tiles of G, and into chunks
-    of at most 65536 rows.
+    4; its tile of G is 128 on a side of at least 128 channels, else 64.
+    Other shapes (the stem's Cy = 3) take the narrow route, whose tile is
+    64 channels of the wider side by 4 of the narrower.
+
+    The pairs of each offset are cut into ``chunks`` only when the tiles
+    of G (x K) fill fewer than two waves of the blocks the card keeps
+    resident; then into as many as it takes for ``WG_WAVES`` waves, but no
+    more than R / ``WG_MIN_CHUNK`` (fuller chunks than an offset can have)
+    and no more than ``WG_MAX_WS_BYTES`` of partials allow. The device
+    then gives each chunk of offset k an equal share of its n_k pairs
+    (:func:`wgrad_chunk_bounds`). The thresholds are the ones the main
+    path's calls favoured on an H100 (``kernel_ab.py --train --plans``).
     """
-    route = 'tc' if min(cx, cy) >= 8 and cx % 4 == 0 and cy % 4 == 0 \
-        else 'simt'
-    tiles = k * -(-cx // WG_TILE) * -(-cy // WG_TILE)
-    steps = max(1, -(-r // WG_STEP))
-    chunks = min(steps, max(-(-SPLIT_BELOW_TILES // tiles),
-                            -(-r // WG_MAX_CHUNK_ROWS)))
-    per = -(-steps // chunks)
-    return WgradPlan(route, per * WG_STEP, -(-steps // per))
+    if min(cx, cy) < 8 or cx % 4 or cy % 4:
+        return _narrow_plan(r, k, cx, cy)
+    bm, bn = (128 if cx >= 128 else 64), (128 if cy >= 128 else 64)
+    per_sm = max(1, SMEM_PER_SM // (wgrad_smem(bm, bn) + SMEM_PER_BLOCK))
+    return WgradPlan('tc', bm, bn, _wgrad_chunks(r, k, cx, cy, bm, bn,
+                                                 NUM_SMS * per_sm))
+
+
+def _narrow_plan(r, k, cx, cy) -> WgradPlan:
+    bm, bn = (WN_WIDE, WN_NARROW) if cy <= cx else (WN_NARROW, WN_WIDE)
+    return WgradPlan('narrow', bm, bn, _wgrad_chunks(
+        r, k, cx, cy, bm, bn, NUM_SMS * WN_BLOCKS_PER_SM))
+
+
+def _wgrad_chunks(r, k, cx, cy, bm, bn, slots):
+    tiles = k * -(-cx // bm) * -(-cy // bn)
+    if tiles >= 2 * slots:
+        return 1
+    chunks = -(-WG_WAVES * slots // tiles)
+    return max(1, min(chunks, -(-r // WG_MIN_CHUNK),
+                      WG_MAX_WS_BYTES // (4 * k * cx * cy), 65535))
+
+
+def wgrad_chunk_pairs(n: int, chunks: int) -> int:
+    """c_k: the pairs of each chunk of an offset with n pairs, n / chunks
+    rounded up to a multiple of 32 and at least ``WG_MIN_CHUNK``."""
+    per = -(-n // chunks)
+    return max(-(-per // WG_STEP) * WG_STEP, WG_MIN_CHUNK)
+
+
+def wgrad_chunk_bounds(n: int, chunks: int) -> list:
+    """The pair ranges [p0, p1) of the chunks z = 0, 1, ... of an offset
+    with n pairs that hold pairs (one empty range when n = 0); the blocks of
+    later chunks exit. With one range the block writes G itself; else the
+    partials are added in this order."""
+    c = wgrad_chunk_pairs(n, chunks)
+    filled = 1 if n == 0 else -(-n // c)
+    return [(min(n, z * c), min(n, (z + 1) * c)) for z in range(filled)]
 
 
 def cuda_wgrad_plan(x, idx, y) -> WgradPlan:
-    """:func:`wgrad_plan` for these tensors: the SIMT route where x or y
+    """:func:`wgrad_plan` for these tensors: the narrow route where x or y
     does not start at a 16-byte aligned address."""
-    plan = wgrad_plan(x.shape[0], idx.shape[1], x.shape[1], y.shape[1])
+    r, k = idx.shape
+    cx, cy = x.shape[1], y.shape[1]
+    plan = wgrad_plan(r, k, cx, cy)
     if plan.route == 'tc' and not (_aligned16(x) and _aligned16(y)):
-        plan = plan._replace(route='simt')
+        plan = _narrow_plan(r, k, cx, cy)
     return plan
 
 
@@ -449,25 +508,63 @@ def _conv_wgrad_plain(x, x_mask, idx, y, y_mask):
                         for j in range(idx.shape[1])])
 
 
-def _conv_wgrad_cuda(x, x_mask, idx, y, y_mask, plan=None):
+def _wgrad_pairs_plain(x_mask, idx, y_mask):
+    """K3's pair lists: for each offset k the pairs (r, idx[r, k]) whose x
+    row and y row are both valid, in ascending r. Returns pairs (K, R, 2)
+    int32, offset k's first counts[k] rows filled and the rest -1, and
+    counts (K,) int32."""
+    r, k = idx.shape
+    ny = y_mask.shape[0]
+    hit = (idx >= 0) & (idx < ny) & x_mask[:, None]
+    hit &= y_mask[torch.where(hit, idx, torch.zeros_like(idx)).long()]
+    counts = hit.sum(0, dtype=torch.int32)
+    pairs = torch.full((k, r, 2), -1, dtype=torch.int32, device=idx.device)
+    for j in range(k):
+        rows = torch.nonzero(hit[:, j]).flatten()
+        pairs[j, :rows.numel(), 0] = rows.to(torch.int32)
+        pairs[j, :rows.numel(), 1] = idx[rows, j]
+    return pairs, counts
+
+
+def _wgrad_meta_words(r: int, k: int) -> int:
+    """int32 words of K3's per-call scratch: the counts, a ticket, and one
+    64-bit status word per offset and 256-row block of the pair pass."""
+    return ((k + 2) & ~1) + 2 * k * -(-r // 256)
+
+
+def _wgrad_cuda(x, x_mask, idx, y, y_mask, plan, lists=False):
+    """Launches K3 by ``plan``; returns G, and with ``lists`` also the pair
+    lists (K, R, 2) and counts (K,) the call computed."""
     r, cx = x.shape
     k = idx.shape[1]
     ny, cy = y.shape
+    dev = x.device
+    out = torch.empty((k, cx, cy), dtype=torch.float32, device=dev)
+    # one 4-byte buffer: the pair lists, the counts and scratch, then the
+    # chunk partials (with more than one chunk)
+    n_pairs, n_meta = 2 * k * r, _wgrad_meta_words(r, k)
+    n_ws = plan.chunks * k * cx * cy if plan.chunks > 1 else 0
+    buf = torch.empty(n_pairs + n_meta + n_ws, dtype=torch.int32, device=dev)
+    base = buf.data_ptr()
+    if out.numel():
+        err = kernels.library().es_sparse_wgrad(
+            int(plan.route == 'narrow'), x.data_ptr(), x_mask.data_ptr(), r,
+            cx, idx.data_ptr(), k, y.data_ptr(), y_mask.data_ptr(), ny, cy,
+            plan.bm, plan.bn, plan.chunks, base, base + 4 * n_pairs,
+            base + 4 * (n_pairs + n_meta) if n_ws else None, out.data_ptr(),
+            kernels.stream_handle(dev))
+        kernels.check(err, 'es_sparse_wgrad')
+    if not lists:
+        return out
+    counts = buf[n_pairs:n_pairs + k]
+    return out, buf[:n_pairs].view(k, r, 2), \
+        counts if out.numel() else counts.zero_()
+
+
+def _conv_wgrad_cuda(x, x_mask, idx, y, y_mask, plan=None):
     if plan is None:
         plan = cuda_wgrad_plan(x, idx, y)
-    out = torch.empty((k, cx, cy), dtype=torch.float32, device=x.device)
-    ws = None
-    if plan.chunks > 1:
-        ws = torch.empty((plan.chunks, k, cx, cy), dtype=torch.float32,
-                         device=x.device)
-    name = f'es_sparse_wgrad_{plan.route}'
-    err = getattr(kernels.library(), name)(
-        x.data_ptr(), x_mask.data_ptr(), r, cx, idx.data_ptr(), k,
-        y.data_ptr(), y_mask.data_ptr(), ny, cy, out.data_ptr(),
-        plan.chunk_rows, plan.chunks, None if ws is None else ws.data_ptr(),
-        kernels.stream_handle(x.device))
-    kernels.check(err, name)
-    return out
+    return _wgrad_cuda(x, x_mask, idx, y, y_mask, plan)
 
 
 def conv_wgrad(x: torch.Tensor, x_mask: torch.Tensor, idx: torch.Tensor,
@@ -487,11 +584,13 @@ def conv_wgrad(x: torch.Tensor, x_mask: torch.Tensor, idx: torch.Tensor,
         ``G`` over a strided conv's transpose table, and
         ``G.transpose(1, 2)`` with x = dout, y = feats over any table.
 
-    On the card (``csrc/sparse_conv_wgrad.cu``) the route and row chunks
-    come from :func:`wgrad_plan`; the tensor-core route computes in 3xTF32
-    (float32 accuracy, within 1e-4 x max|G| of the plain version) and a
-    call gives the same bits every time (chunks are added in a fixed
-    order). On a CPU tensor it runs :func:`_conv_wgrad_plain`.
+    On the card (``csrc/sparse_conv_wgrad.cu``) a pair pass first lists
+    each offset's hit pairs (:func:`_wgrad_pairs_plain` is its plain
+    version); the route, tile and pair chunks come from
+    :func:`wgrad_plan`. The tensor-core route computes in 3xTF32 (float32
+    accuracy, within 1e-4 x max|G| of the plain version) and a call gives
+    the same bits every time (chunks are added in a fixed order). On a CPU
+    tensor it runs :func:`_conv_wgrad_plain`.
     """
     if x.dim() != 2 or x_mask.shape != x.shape[:1] or idx.dim() != 2 or \
             idx.shape[0] != x.shape[0] or y.dim() != 2 or \
@@ -508,6 +607,9 @@ def conv_wgrad(x: torch.Tensor, x_mask: torch.Tensor, idx: torch.Tensor,
                         'idx')
     if _check_device('conv_wgrad', [x, x_mask, idx, y, y_mask]).type == \
             'cuda':
+        if x.shape[0] >= 2**31 or idx.shape[1] > 65535:
+            raise ValueError('conv_wgrad: the kernel takes R < 2^31 and '
+                             'K <= 65535')
         plan = cuda_wgrad_plan(x, idx, y)
         out = _conv_wgrad_cuda(x, x_mask, idx, y, y_mask, plan)
         conv_wgrad.launches[plan.route] += 1
@@ -515,7 +617,7 @@ def conv_wgrad(x: torch.Tensor, x_mask: torch.Tensor, idx: torch.Tensor,
     return _conv_wgrad_plain(x, x_mask, idx, y, y_mask)
 
 
-conv_wgrad.launches = {'tc': 0, 'simt': 0}
+conv_wgrad.launches = {'tc': 0, 'narrow': 0}
 
 
 # --- autograd: the three routes of SparseConv -------------------------------

@@ -23,13 +23,28 @@ to the plain version within chip_smoke's gate.
 Prints the card, then one JSON line of per-request sums; the per-call
 numbers are appended to chiprun_out/kernel_ab.jsonl.
 
+    python3 kernel_ab.py --train [--plans] [ROOT]
+
+does the same for the training path: one recorded warm-up train step of
+the full-width mv_det3d (chip_smoke's batch: 100k points, 20 views, 128 GT
+boxes), three timed steps (host clock, peak memory) and the forward /
+backward / optimizer split of one more, then every K3 call
+(``conv_wgrad``) and K2 input-gradient call (``conv_dgrad``) of the
+warm-up step timed as above, and its host cost (the time to enqueue one
+call, no synchronize), all before the profiler counts each call's launches
+and device time. It uses only ``build_train``, ``train_step``,
+``conv_wgrad``, ``conv_dgrad`` and ``cuda_wgrad_plan``, which every
+version of the training port has. ``--plans`` (the current tree only) also
+times each tensor-core K3 call at every pair-chunk count of
+``WG_PLAN_CHUNKS``, each held to the plain versions as chip_smoke holds it.
+
     python3 kernel_ab.py --tf32-control [ROOT]
 
 is the control for chip_smoke's GRAD_GATE: chip_smoke's CPU-against-card
-train step (``chip_smoke.train_parity``) from ROOT as it is, then from a
-temporary copy of its ``embodiedscan_torch`` whose 3xTF32 product
-(``csrc/sparse_mma.cuh:mma_3xtf32``) keeps only the single-TF32 term, each
-in a process of its own. Prints one JSON line per tree with the worst
+train step (``chip_smoke.train_parity``) from ROOT as it is, then from
+temporary copies of its ``embodiedscan_torch`` whose 3xTF32 products keep
+only the single-TF32 term: K2's (``csrc/sparse_mma.cuh:mma_3xtf32``) and
+K3's (``WG_TF32_TERMS``), then K3's alone; each in a process of its own. Prints one JSON line per tree with the worst
 max|d|/max|cpu| over the leaves of each kind.
 """
 
@@ -47,6 +62,8 @@ import torch
 import chip_smoke as cs
 
 REPS = {'sparse_conv': 5, 'join_scan': 20}
+WG_PLAN_CHUNKS = (1, 2, 4, 8, 16, 32, 64)
+WG_PLAN_MAX_WS = 2**30  # bytes of chunk partials a timed plan may take
 PLAN_WIDTHS = (64, 128)
 PLAN_OFFSETS = (27, 14, 9, 3)
 
@@ -124,9 +141,12 @@ def time_calls(S, P, rec, plans):
 
 
 def sums(rows):
-    return dict(calls=len(rows), ms=sum(r['ms'] for r in rows),
-                device_ms=sum(r['device_ms'] for r in rows),
-                launches=sum(r['launches'] for r in rows))
+    out = dict(calls=len(rows), ms=sum(r['ms'] for r in rows),
+               device_ms=sum(r['device_ms'] for r in rows),
+               launches=sum(r['launches'] for r in rows))
+    if rows and 'host_ms' in rows[0]:
+        out['host_ms'] = sum(r['host_ms'] for r in rows)
+    return out
 
 
 def plan_sums(conv):
@@ -144,26 +164,159 @@ def plan_sums(conv):
     return out
 
 
-SINGLE_TF32 = ('  mma_tf32(d, alo, bhi);\n  mma_tf32(d, ahi, blo);\n'
-               '  mma_tf32(d, ahi, bhi);\n', '  mma_tf32(d, ahi, bhi);\n')
+def train(S, P):
+    """One recorded warm-up train step, three timed ones (host clock and
+    peak memory each) and the forward / backward / optimizer split of one
+    more."""
+    from embodiedscan_torch.configs.base import build_train, mv_det3d
+    from embodiedscan_torch.train.state import train_step
+    cfg = mv_det3d()
+    torch.manual_seed(0)
+    model, opt = build_train(cfg, device='cuda')
+    d = cfg.data
+    batch = cs.to_device(cs.make_batch(1, d.n_points, d.n_views_train,
+                                       d.image_hw[0], d.n_gt,
+                                       cfg.model.num_classes), 'cuda')
+    with cs.Recorder(S, P) as rec:
+        train_step(model, opt, batch)
+        torch.cuda.synchronize()
+    rec.conv, rec.scan = [], []
+    step_ms, peak = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        train_step(model, opt, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        peak.append(torch.cuda.max_memory_allocated() / 2**30)
+    opt.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    t = [time.perf_counter()]
+    total = sum(model(batch, mode='loss').values())
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    total.backward()
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    opt.step()
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    split = dict(zip(('forward', 'backward', 'optimizer'),
+                     [(b - a) * 1e3 for a, b in zip(t, t[1:])]))
+    return rec, dict(step_ms=step_ms, peak_gib=max(peak), split_ms=split)
+
+
+def host_ms(fn, reps=20):
+    """Host time to enqueue one call of ``fn`` (mean over ``reps``
+    back-to-back calls with no synchronize between them): the wrapper's
+    Python and its launches, which a host-bound step pays in full."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def wgrad_plans(S, args):
+    """Each pair-chunk count of one tensor-core K3 call, checked and timed
+    (ms by CUDA events)."""
+    x, xm, idx, y, ym = args
+    base = S.cuda_wgrad_plan(x, idx, y)
+    rows = []
+    for chunks in sorted(set(WG_PLAN_CHUNKS + (base.chunks,))):
+        if chunks > 1 and 4 * chunks * idx.shape[1] * x.shape[1] * \
+                y.shape[1] > WG_PLAN_MAX_WS:
+            continue
+        plan = base._replace(chunks=chunks)
+        cs._check_wgrad(S, x, xm, idx, y, ym, 'plan', plan)
+        rows.append(dict(tile=[plan.bm, plan.bn], chunks=chunks,
+                         ms=cs.cuda_ms(lambda: S._wgrad_cuda(
+                             x, xm, idx, y, ym, plan),
+                             reps=REPS['sparse_conv'])))
+    return base, rows
+
+
+@torch.no_grad()
+def time_train_calls(S, rec, plans):
+    wgrad, dgrad = [], []
+    for a in rec.wgrad:
+        x, _, idx, y, _ = a
+        row = dict(r=idx.shape[0], k=idx.shape[1], cx=x.shape[1],
+                   cy=y.shape[1], route=S.cuda_wgrad_plan(x, idx, y).route,
+                   ms=cs.cuda_ms(lambda: S.conv_wgrad(*a),
+                                 reps=REPS['sparse_conv']),
+                   host_ms=host_ms(lambda: S.conv_wgrad(*a)))
+        if plans and row['route'] == 'tc':
+            base, row['plans'] = wgrad_plans(S, a)
+            row['plan'] = [base.bm, base.bn, base.chunks]
+        wgrad.append(row)
+    for a in rec.dgrad:
+        dout, _, table, wt = a[:4]
+        dgrad.append(dict(m=table.shape[0], k=table.shape[1],
+                          cin=dout.shape[1], cout=wt.shape[2],
+                          ms=cs.cuda_ms(lambda: S.conv_dgrad(*a[:4]),
+                                        reps=REPS['sparse_conv']),
+                          host_ms=host_ms(lambda: S.conv_dgrad(*a[:4]))))
+    # profiler sessions only after every event timing (see cs.cuda_ms)
+    for rows, recs, run in ((wgrad, rec.wgrad, S.conv_wgrad),
+                            (dgrad, rec.dgrad, S.conv_dgrad)):
+        for row, a in zip(rows, recs):
+            row['launches'], row['device_ms'] = cs.device_profile(
+                lambda: run(*a[:(5 if run is S.conv_wgrad else 4)]))
+    return wgrad, dgrad
+
+
+def wgrad_plan_sums(rows):
+    """Per step: the shipped rule's chunks, the best count of each call and
+    each fixed count wherever it was timed."""
+    rows = [r for r in rows if 'plans' in r]
+    out = dict(rule=sum(p['ms'] for r in rows for p in r['plans']
+                        if p['chunks'] == r['plan'][2]),
+               best=sum(min(p['ms'] for p in r['plans']) for r in rows))
+    for c in WG_PLAN_CHUNKS:
+        got = [next((p['ms'] for p in r['plans'] if p['chunks'] == c), None)
+               for r in rows]
+        if None not in got:
+            out[str(c)] = sum(got)
+    return out
+
+
+# the single-TF32 cut: (file under csrc, 3xTF32 text, single-TF32 text) for
+# K2's and the mma.sync products (sparse_mma.cuh) and K3's wgmma ones
+SINGLE_TF32 = (
+    ('sparse_mma.cuh', '  mma_tf32(d, alo, bhi);\n  mma_tf32(d, ahi, blo);\n'
+     '  mma_tf32(d, ahi, bhi);\n', '  mma_tf32(d, ahi, bhi);\n'),
+    ('sparse_conv_wgrad.cu', 'constexpr int WG_TF32_TERMS = 3;',
+     'constexpr int WG_TF32_TERMS = 1;'))
 
 
 def tf32_control(root):
-    """chip_smoke's train parity from ROOT and from a single-TF32 copy."""
+    """chip_smoke's train parity from ROOT, from a copy with every 3xTF32
+    product cut to single TF32 and from one with K3's products alone cut."""
+    trees = [('as is', root, ())]
     with tempfile.TemporaryDirectory() as tmp:
-        shutil.copytree(os.path.join(root, 'embodiedscan_torch'),
-                        os.path.join(tmp, 'embodiedscan_torch'),
-                        ignore=shutil.ignore_patterns('_build',
-                                                      '__pycache__'))
-        header = os.path.join(tmp, 'embodiedscan_torch', 'csrc',
-                              'sparse_mma.cuh')
-        with open(header) as f:
-            text = f.read()
-        if text.count(SINGLE_TF32[0]) != 1:
-            raise RuntimeError('mma_3xtf32 body not found in sparse_mma.cuh')
-        with open(header, 'w') as f:
-            f.write(text.replace(*SINGLE_TF32))
-        for tree, path in (('as is', root), ('single TF32', tmp)):
+        for tree, cut in (('single TF32', SINGLE_TF32),
+                          ('single TF32 in K3 only', SINGLE_TF32[1:])):
+            path = os.path.join(tmp, str(len(trees)))
+            shutil.copytree(os.path.join(root, 'embodiedscan_torch'),
+                            os.path.join(path, 'embodiedscan_torch'),
+                            ignore=shutil.ignore_patterns('_build',
+                                                          '__pycache__'))
+            for name, three, one in cut:
+                src = os.path.join(path, 'embodiedscan_torch', 'csrc', name)
+                with open(src) as f:
+                    text = f.read()
+                if text.count(three) != 1:
+                    raise RuntimeError(f'the 3xTF32 products not found in '
+                                       f'{name}')
+                with open(src, 'w') as f:
+                    f.write(text.replace(three, one))
+            trees.append((tree, path, cut))
+        for tree, path, _ in trees:
             out = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), '--train-parity',
                  path], check=True, capture_output=True, text=True).stdout
@@ -174,7 +327,7 @@ def tf32_control(root):
 
 def main(argv):
     plans = '--plans' in argv
-    mode = next((a for a in argv if a in ('--tf32-control',
+    mode = next((a for a in argv if a in ('--tf32-control', '--train',
                                           '--train-parity')), None)
     args = [a for a in argv if a not in ('--plans', mode)]
     root = os.path.abspath(args[0] if args else os.path.dirname(
@@ -194,6 +347,18 @@ def main(argv):
         _, _, _, worst = cs.train_parity('cuda')
         print(json.dumps(dict(card=card, worst={
             k: dict(ratio=r, leaf=p) for k, (r, p) in worst.items()})))
+        return 0
+    if mode == '--train':
+        rec, stats = train(S, P)
+        wgrad, dgrad = time_train_calls(S, rec, plans)
+        result = dict(root=root, card=card, mode='train', **stats,
+                      sparse_wgrad=sums(wgrad), sparse_dgrad=sums(dgrad))
+        if plans:
+            result['wgrad_plans'] = wgrad_plan_sums(wgrad)
+        os.makedirs(cs.OUT_DIR, exist_ok=True)
+        with open(os.path.join(cs.OUT_DIR, 'kernel_ab.jsonl'), 'a') as f:
+            f.write(json.dumps(dict(result, wgrad=wgrad, dgrad=dgrad)) + '\n')
+        print(json.dumps(result))
         return 0
     rec, lat = serve(S, P)
     conv, scan = time_calls(S, P, rec, plans)

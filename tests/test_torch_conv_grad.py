@@ -195,7 +195,7 @@ def test_sparse_conv_graph_holds_its_route(route):
         assert run[route]().grad_fn is None
 
 
-# --- K3's plain version and the card's chunked order ------------------------
+# --- K3's plain version, its plan and the card's chunked order ---------------
 
 
 def _dense_wgrad(x, x_mask, idx, y, y_mask):
@@ -270,34 +270,62 @@ TRAIN_WGRAD_SHAPES = {
 }
 
 
+def _slots(plan):
+    """Blocks of this plan the card keeps resident."""
+    if plan.route == 'narrow':
+        return tS.NUM_SMS * tS.WN_BLOCKS_PER_SM
+    per_sm = tS.SMEM_PER_SM // (tS.wgrad_smem(plan.bm, plan.bn) +
+                                tS.SMEM_PER_BLOCK)
+    return tS.NUM_SMS * max(1, per_sm)
+
+
 def test_wgrad_plan_on_the_train_step_shapes():
     assert sum(TRAIN_WGRAD_SHAPES.values()) == 44
     for r, k, cx, cy in TRAIN_WGRAD_SHAPES:
         plan = tS.wgrad_plan(r, k, cx, cy)
-        assert plan.route == ('simt' if cy == 3 else 'tc'), (r, k, cx, cy)
-        assert plan.chunk_rows % 32 == 0
-        assert plan.chunk_rows <= tS.WG_MAX_CHUNK_ROWS
-        # the chunks cover every row once
-        assert (plan.chunks - 1) * plan.chunk_rows < r <= \
-            plan.chunks * plan.chunk_rows
-        tiles = k * -(-cx // 64) * -(-cy // 64)
-        # only as many chunks as two waves need
-        assert plan.chunks == 1 or (plan.chunks - 1) * tiles < \
-            tS.SPLIT_BELOW_TILES
-        assert plan.chunks * k * cx * cy * 4 <= 64 * 2**20  # workspace
+        shape = (r, k, cx, cy)
+        if cy == 3:  # the stem: 64 x channels by the 3 y channels (of 4)
+            assert plan[:3] == ('narrow', 64, 4), shape
+        else:
+            assert plan[:3] == ('tc', 128 if cx >= 128 else 64,
+                                128 if cy >= 128 else 64), shape
+        # the 128 x 128 tile of two warpgroups fits the card's 227 KB
+        assert tS.wgrad_smem(plan.bm, plan.bn) <= 232448
+        # unsplit when the tiles of G fill two waves; else enough chunks for
+        # the wave target, unless fuller chunks than an offset can have or
+        # the workspace cap stop them first
+        tiles = k * -(-cx // plan.bm) * -(-cy // plan.bn)
+        assert 1 <= plan.chunks <= max(1, -(-r // tS.WG_MIN_CHUNK)), shape
+        assert plan.chunks == 1 or \
+            plan.chunks * k * cx * cy * 4 <= tS.WG_MAX_WS_BYTES, shape
+        if tiles >= 2 * _slots(plan):
+            assert plan.chunks == 1, shape
+        else:
+            assert tiles * plan.chunks >= tS.WG_WAVES * _slots(plan) or \
+                plan.chunks == -(-r // tS.WG_MIN_CHUNK) or \
+                (plan.chunks + 1) * k * cx * cy * 4 > tS.WG_MAX_WS_BYTES, \
+                shape
+    # the two big FPN-child calls are no longer one chunk
+    assert tS.wgrad_plan(32768, 27, 256, 256).chunks >= 4
+    assert tS.wgrad_plan(65536, 27, 128, 128).chunks >= 4
 
 
-@pytest.mark.parametrize('shape,route', [
-    ((100, 27, 64, 3), 'simt'), ((100, 27, 3, 64), 'simt'),
-    ((100, 27, 64, 6), 'simt'), ((100, 1, 8, 8), 'tc'),
-    ((100, 27, 12, 64), 'tc')])
-def test_wgrad_plan_routes_by_shape(shape, route):
-    assert tS.wgrad_plan(*shape).route == route
+@pytest.mark.parametrize('shape,tile', [
+    ((100, 27, 64, 3), ('narrow', 64, 4)),
+    ((100, 27, 3, 64), ('narrow', 4, 64)),
+    ((100, 27, 64, 6), ('narrow', 64, 4)),
+    ((100, 1, 8, 8), ('tc', 64, 64)),
+    ((100, 27, 12, 64), ('tc', 64, 64)),
+    ((100, 27, 256, 128), ('tc', 128, 128)),
+    ((100, 27, 1024, 64), ('tc', 128, 64))])
+def test_wgrad_plan_routes_by_shape(shape, tile):
+    assert tS.wgrad_plan(*shape)[:3] == tile
 
 
 def test_chunked_fixed_order_sum_matches_plain():
-    """The card's order: each row chunk's partial G, the chunks added in
-    order, against the plain version."""
+    """The card's order: each offset's compacted pairs cut into the plan's
+    chunks, each chunk's partial G, the chunks added in order, against the
+    plain version within 1e-6 x max|ref|."""
     rng = np.random.RandomState(7)
     r, k, cx, cy, ny = 3000, 27, 16, 16, 2500
     x = torch.from_numpy(rng.randn(r, cx).astype(np.float32))
@@ -308,31 +336,46 @@ def test_chunked_fixed_order_sum_matches_plain():
                                     rng.randint(0, ny, (r, k)),
                                     -1).astype(np.int32))
     plan = tS.wgrad_plan(r, k, cx, cy)
-    assert plan.chunks > 1
-    total = None
-    for c in range(plan.chunks):
-        sl = slice(c * plan.chunk_rows, (c + 1) * plan.chunk_rows)
-        part = tS._conv_wgrad_plain(x[sl], xm[sl], idx[sl], y, ym)
-        total = part if total is None else total + part
-    _close(total.numpy(), tS._conv_wgrad_plain(x, xm, idx, y, ym).numpy())
+    pairs, counts = tS._wgrad_pairs_plain(xm, idx, ym)
+    total = torch.zeros(k, cx, cy)
+    chunked = 0
+    for j in range(k):
+        bounds = tS.wgrad_chunk_bounds(int(counts[j]), plan.chunks)
+        chunked += len(bounds) > 1
+        for p0, p1 in bounds:
+            rows, cols = pairs[j, p0:p1, 0].long(), pairs[j, p0:p1, 1].long()
+            total[j] = total[j] + x[rows].T @ y[cols]
+    assert chunked
+    ref = tS._conv_wgrad_plain(x, xm, idx, y, ym).numpy()
+    np.testing.assert_allclose(total.numpy(), ref, rtol=0,
+                               atol=1e-6 * np.abs(ref).max())
 
 
 def test_wgrad_row_steps_in_3xtf32_hold_the_gate():
-    """K3's arithmetic on the CPU: 3xTF32 products over each 32-row step
-    (float32 accumulators, one k=8 slice at a time), each step's partial
-    added into the running sum in float32, over the 24576 rows of a
-    stage-1 call; within the card's gate of 1e-4 x max|ref| with a margin
-    of 20 against a float64 reference."""
+    """K3's arithmetic on the CPU: 3xTF32 products over each step of 32
+    compacted pairs (float32 accumulators, one k=8 slice at a time), each
+    step's partial added into the running sum in float32, over 24576 pairs
+    of one offset (a stage-1 call's); within the card's gate of 1e-4 x
+    max|ref| with a margin of 20 against a float64 reference."""
     from test_torch_sparse_conv import GATE, _mma_tf32
     rng = np.random.RandomState(3)
-    r, cx, cy = 24576, 64, 64
+    r, ny, cx, cy, n = 48000, 30000, 64, 64, 24576
     x = np.maximum(rng.randn(r, cx), 0).astype(np.float32)  # after a ReLU
-    y = rng.randn(r, cy).astype(np.float32)
-    ref = x.astype(np.float64).T @ y.astype(np.float64)
-    xt, ty = torch.from_numpy(x.T.copy()), torch.from_numpy(y)
+    y = rng.randn(ny, cy).astype(np.float32)
+    idx = np.where(rng.rand(r, 1) < 0.75, rng.randint(0, ny, (r, 1)),
+                   -1).astype(np.int32)
+    pairs, counts = tS._wgrad_pairs_plain(
+        torch.from_numpy(rng.rand(r) > 0.1), torch.from_numpy(idx),
+        torch.from_numpy(rng.rand(ny) > 0.1))
+    assert int(counts[0]) >= n
+    rows, cols = pairs[0, :n, 0].long(), pairs[0, :n, 1].long()
+    xs, ys = torch.from_numpy(x)[rows], torch.from_numpy(y)[cols]
+    ref = xs.double().T @ ys.double()
+    xt = xs.T.contiguous()
     passes = (('lo', 'hi'), ('hi', 'lo'), ('hi', 'hi'))
     acc = torch.zeros(cx, cy)
-    for r0 in range(0, r, 32):
-        acc = acc + _mma_tf32(xt[:, r0:r0 + 32], ty[r0:r0 + 32], passes)
-    err = np.abs(acc.numpy() - ref).max()
-    assert err <= GATE * np.abs(ref).max() / 20, (err, np.abs(ref).max())
+    for p0 in range(0, n, tS.WG_STEP):
+        acc = acc + _mma_tf32(xt[:, p0:p0 + 32], ys[p0:p0 + 32], passes)
+    err = float((acc.double() - ref).abs().max())
+    scale = float(ref.abs().max())
+    assert err <= GATE * scale / 20, (err, scale)
