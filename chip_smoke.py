@@ -12,13 +12,20 @@ Phases (one line each; any failure exits non-zero before the last line):
      and three synthetic requests of 100k points and 50 views of 480x480;
      launch counts are reset before each request and read after it; then
      the host-clock time of each stage of one request;
-  3. training path: the same detector in training mode takes one warm-up
+  3. grounding path: the full-width mv_grounding grounder (the same trunk,
+     the sparse neck, RoBERTa-base 12 x 768 over 256 tokens, 256 queries,
+     6 decoder layers) serves one warm-up and three requests of the same
+     scenes, each with a prompt tokenized by the port's SimpleTokenizer;
+     launch counts per request; then the host-clock time of each stage
+     (voxelize + trunk, neck, text encoder, query selection, decoder,
+     predict);
+  4. training path: the same detector in training mode takes one warm-up
      and three timed train steps (loss, backward, clip, AdamW) on a scene of
      100k points, 20 views of 480x480 and 128 GT boxes, with launch counts
      reset before each step and read after it; then the forward, backward
      and optimizer times of one step;
-  4. kernel parity and times: every kernel call of the warm-up request and
-     of the warm-up step's backward is replayed on its recorded inputs
+  5. kernel parity and times: every kernel call of both warm-up requests
+     and of the warm-up step's backward is replayed on its recorded inputs
      against the kernel's plain PyTorch version (join scan bit-exact,
      sparse conv and weight gradient within 1e-4 x max|ref| and
      bit-identical when run twice, the weight gradient's pair lists
@@ -27,8 +34,12 @@ Phases (one line each; any failure exits non-zero before the last line):
      split or chunks) and the share of the dense work that hits and that
      the kernel computes; after every timing, the profiler
      counts each call's CUDA launches and device time and traces one
-     request and one train step (device busy time and idle share);
-  5. edge shapes: the sparse conv at Cin = 3, K = 1, ragged M, Cout 64 /
+     request of each path and one train step (device busy time and idle
+     share);
+  6. eval: indoor_eval over the detector's requests and ground_eval over
+     the grounder's, against synthetic ground truth, with the IoU on the
+     card and on the cpu (metric dicts within 1e-6; times printed);
+  7. edge shapes: the sparse conv at Cin = 3, K = 1, ragged M, Cout 64 /
      128 / 512, all-absent and all-masked tables, a misaligned view, split
      against unsplit; the weight gradient at C of 3, 4, 8 and 12, channels
      that are not a multiple of the tile, C 128 to 1024, K = 1, ragged R,
@@ -37,12 +48,13 @@ Phases (one line each; any failure exits non-zero before the last line):
      (its pair lists held identical to the plain pair pass everywhere);
      the join scan at the reference's unit-test cases, one tile, one tile
      plus one row and ~4M rows;
-  6. end-to-end parity: a small detector on cuda (kernels) and on cpu
-     (plain versions) with the same weights, serving and one train step;
-  7. one JSON line with the kernels, then the result line.
+  8. end-to-end parity: a small detector and a small grounder (shipped
+     widths, cut capacities) on cuda (kernels) and on cpu (plain versions)
+     with the same weights, serving; the detector also one train step;
+  9. one JSON line with the kernels, then the result line.
 Per-call details go to chiprun_out/chip_smoke_calls.json.
 
-``python3 chip_smoke.py --kernels-only`` runs phases 1 and 5 and stops
+``python3 chip_smoke.py --kernels-only`` runs phases 1 and 7 and stops
 (no result line): the quickest check that the kernels build and agree.
 """
 
@@ -76,7 +88,15 @@ EXPECTED_TRAIN_LAUNCHES = {'sparse_conv_tc': 43, 'sparse_conv_simt': 1,
                            'sparse_dgrad_tc': 39, 'sparse_dgrad_simt': 0,
                            'sparse_wgrad_tc': 43, 'sparse_wgrad_narrow': 1,
                            'join_scan': 12}
+# wrapper calls per grounding request: the trunk's 37 convs and the neck's
+# 7 on K2 (the stem on SIMT); K1 for the trunk's stage tables and the
+# neck's FPN and neighbor tables
+EXPECTED_GROUND_LAUNCHES = {'sparse_conv_tc': 43, 'sparse_conv_simt': 1,
+                            'sparse_dgrad_tc': 0, 'sparse_dgrad_simt': 0,
+                            'sparse_wgrad_tc': 0, 'sparse_wgrad_narrow': 0,
+                            'join_scan': 12}
 CONV_GATE = 1e-4  # K2, K3: max|kernel - plain| <= CONV_GATE x max|plain|
+EVAL_GATE = 1e-6  # metric dicts with the IoU on the card vs on the cpu
 SPLIT_GATE = 1e-6  # K3 many chunks vs one: max|d| <= SPLIT_GATE x max
 # CPU vs CUDA train step: every gradient leaf and batch statistic within
 # GRAD_GATE x its max|cpu| (3xTF32 kernels, cuDNN and atomic sums in
@@ -144,12 +164,7 @@ def make_batch(b, p, v, hw, g, num_classes, seed=0):
         ext = np.eye(4, dtype=np.float32)
         ext[:3, 3] = [-4.0 + 0.1 * i, -4.0, 8.0]
         exts.append(k @ ext)
-    boxes = np.concatenate([
-        rng.uniform(0.5, 7.5, (b, g, 2)),
-        rng.uniform(0.2, 2.0, (b, g, 1)),
-        rng.uniform(0.2, 1.5, (b, g, 3)),
-        rng.uniform(-0.5, 0.5, (b, g, 3)),
-    ], -1).astype(np.float32)
+    boxes = gt_boxes(rng, b, g)
     return dict(
         points=pts.astype(np.float32),
         points_mask=np.ones((b, p), bool),
@@ -160,6 +175,33 @@ def make_batch(b, p, v, hw, g, num_classes, seed=0):
         gt_labels=rng.randint(0, num_classes, (b, g)).astype(np.int32),
         gt_mask=np.ones((b, g), bool),
     )
+
+
+def gt_boxes(rng, b, g):
+    """(b, g, 9) boxes in the room, as ``bench.py:make_batch`` draws them."""
+    return np.concatenate([
+        rng.uniform(0.5, 7.5, (b, g, 2)),
+        rng.uniform(0.2, 2.0, (b, g, 1)),
+        rng.uniform(0.2, 1.5, (b, g, 3)),
+        rng.uniform(-0.5, 0.5, (b, g, 3)),
+    ], -1).astype(np.float32)
+
+
+PROMPTS = ('find the chair that is closest to the window',
+           'the lamp on the small table in the corner of the room',
+           'select the tall cabinet to the left of the door',
+           'the pillow on the bed, facing the wall')
+
+
+def make_ground_request(max_text_len, seed=0, **kw):
+    """``make_request`` plus one prompt tokenized by the port's
+    ``SimpleTokenizer``."""
+    from embodiedscan_torch.models.text import SimpleTokenizer
+    req = make_request(seed=seed, **kw)
+    enc = SimpleTokenizer(max_len=max_text_len)([PROMPTS[seed %
+                                                         len(PROMPTS)]])
+    req.update(text_ids=enc['input_ids'], text_mask=enc['attention_mask'])
+    return req
 
 
 def to_device(batch, device):
@@ -294,7 +336,7 @@ def phase_main_path(device):
         torch.cuda.synchronize()
     log(f'[main] warm-up request {time.perf_counter() - t0:.2f} s, '
         f'{len(rec.conv)} conv and {len(rec.scan)} join-scan calls recorded')
-    lat, mem, kept = [], [], []
+    lat, mem, kept, served = [], [], [], []
     totals = dict.fromkeys(EXPECTED_LAUNCHES, 0)
     for i, req in enumerate(requests[1:]):
         batch = to_device(req, device)
@@ -307,6 +349,7 @@ def phase_main_path(device):
         lat.append(time.perf_counter() - t0)
         counts = read_counts(S, P)
         mem.append(torch.cuda.max_memory_allocated() / 2**30)
+        served.append(preds)
         for key, val in preds.items():
             if val.is_floating_point() and not torch.isfinite(val).all():
                 raise RuntimeError(f'request {i}: non-finite {key}')
@@ -327,7 +370,109 @@ def phase_main_path(device):
                  kept=kept)
     batch = to_device(requests[1], device)
     stats.update(stage_times(model, batch))
-    return rec, totals, stats, model, batch
+    return rec, totals, stats, model, batch, served
+
+
+def phase_grounding(device, cfg=None):
+    """The mv_grounding serving path at full width (RoBERTa-base 12 x 768,
+    256 queries, 6 decoder layers, max_text_len 256; the trunk as the
+    detector's): one recorded warm-up request, then three timed ones, each
+    with its peak memory and its launch counts against
+    EXPECTED_GROUND_LAUNCHES; then the host-clock time of each stage."""
+    from embodiedscan_torch.configs.base import build_model, mv_grounding
+    from embodiedscan_torch.ops import pscan as P
+    from embodiedscan_torch.ops import sparse as S
+    cfg = cfg or mv_grounding()
+    m, d = cfg.model, cfg.data
+    t0 = time.perf_counter()
+    # a checkpoint's box branch (see _box_branch): the boxes follow the
+    # queries, so the grounding metric has hits to count
+    model = _box_branch(build_model(cfg, device=device), 0)
+    log(f'[ground] built mv_grounding on {device} in '
+        f'{time.perf_counter() - t0:.1f} s: '
+        f'{sum(p.numel() for p in model.parameters())} parameters, text '
+        f'{m.text_arch} {m.text_layers}x{m.text_hidden}, {m.num_queries} '
+        f'queries, {model.num_decoder_layers} decoder layers')
+    requests = [make_ground_request(m.max_text_len, seed=s, p=d.n_points,
+                                    v=d.n_views_test, hw=d.image_hw[0])
+                for s in range(4)]
+    with Recorder(S, P) as rec:  # warm-up request: record kernel inputs
+        t0 = time.perf_counter()
+        model(to_device(requests[0], device), mode='predict')
+        torch.cuda.synchronize()
+    log(f'[ground] warm-up request {time.perf_counter() - t0:.2f} s, '
+        f'{len(rec.conv)} conv and {len(rec.scan)} join-scan calls recorded')
+    lat, mem, served = [], [], []
+    totals = dict.fromkeys(EXPECTED_GROUND_LAUNCHES, 0)
+    for i, req in enumerate(requests[1:]):
+        batch = to_device(req, device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(S, P)
+        t0 = time.perf_counter()
+        preds = model(batch, mode='predict')
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        counts = read_counts(S, P)
+        mem.append(torch.cuda.max_memory_allocated() / 2**30)
+        for key, val in preds.items():
+            if val.is_floating_point() and not torch.isfinite(val).all():
+                raise RuntimeError(f'grounding request {i}: non-finite {key}')
+        shapes = (tuple(preds['bboxes'].shape), tuple(preds['scores'].shape))
+        if shapes != ((1, m.num_queries, 9), (1, m.num_queries)):
+            raise RuntimeError(f'grounding request {i}: shapes {shapes}')
+        check_counts(counts, EXPECTED_GROUND_LAUNCHES,
+                     f'grounding request {i}')
+        for name in totals:
+            totals[name] += counts[name]
+        served.append(preds)
+        log(f'[ground] request {i}: {lat[-1] * 1e3:.1f} ms, peak '
+            f'{mem[-1]:.2f} GiB, {int(preds["mask"].sum())} valid queries, '
+            f'best score {float(preds["scores"].max()):.4f}, launches '
+            f'{counts}')
+    log(f'[ground] latency ms per request: '
+        f'{[round(t * 1e3, 3) for t in lat]}, peak GiB {max(mem):.3f}')
+    stats = dict(latency_ms=[t * 1e3 for t in lat], peak_gib=max(mem))
+    batch = to_device(requests[1], device)
+    stats.update(ground_stage_times(model, batch))
+    return rec, totals, stats, model, batch, served
+
+
+def grounding_parts(model, batch, timer=None):
+    """The grounder's request stage by stage (voxelize + trunk, neck, text
+    encoder, query selection, decoder, predict), each through ``timer``
+    (``fn -> (ms, out)``) when one is given; returns (ms per stage, neck
+    output, selected query indices, decoder outputs, predictions)."""
+    timer = timer or (lambda fn: (0.0, fn()))
+    ms = {}
+
+    def stage(name, fn):
+        ms[name], out = timer(fn)
+        return out
+
+    with torch.no_grad():
+        feats3d = stage('voxelize_trunk', lambda: model.trunk(batch))
+        feats, scores, xyz, mask = stage('neck', lambda: model.neck(feats3d))
+        text_mask = batch['text_mask'] > 0
+        text = stage('text_encoder', lambda: model.text_encoder(
+            batch['text_ids'], batch['text_mask']))
+        query, coords, qmask, top = stage(
+            'query_selection', lambda: model.select_queries(
+                feats, xyz, mask, text, text_mask))
+        outs = stage('decoder', lambda: model.decoder(
+            query, coords, qmask, feats, xyz, mask, text, text_mask))
+        preds = stage('predict', lambda: model.predict(outs))
+    return ms, dict(feats=feats, scores=scores, xyz=xyz, mask=mask), top, \
+        outs, preds
+
+
+def ground_stage_times(model, batch):
+    """Where one grounding request's time goes on the host clock, stage by
+    stage (each ends in a synchronize)."""
+    stages = grounding_parts(model, batch, _host_ms)[0]
+    log('[breakdown] grounding host ms per stage: ' + ', '.join(
+        f'{k} {v:.2f}' for k, v in stages.items()))
+    return dict(stages_ms=stages)
 
 
 def reset_counts(S, P):
@@ -698,21 +843,28 @@ def _wgrad_call(S, x, xm, idx, y, ym):
 
 
 @torch.no_grad()
-def phase_kernels(rec, train_rec, device):
-    """Every recorded call of the serving request (K2 forward, K1) and of
-    the warm-up step's backward (K2 dgrad, K3) on the card, one call's
-    inputs on the device at a time; the profiler only after all timings."""
+def phase_kernels(rec, train_rec, device, ground_rec):
+    """Every recorded call of the serving requests (K2 forward, K1: the
+    detector's and the grounder's warm-up requests) and of the warm-up
+    step's backward (K2 dgrad, K3) on the card, one call's inputs on the
+    device at a time; the profiler only after all timings. Each row names
+    its path (det, grounding or train)."""
     from embodiedscan_torch.ops import pscan as P
     from embodiedscan_torch.ops import sparse as S
+    serving = (('det', rec), ('grounding', ground_rec))
     runs = {
-        'sparse_conv': (rec.conv, lambda a: S.gather_matmul_conv(*a)),
-        'sparse_dgrad': (train_rec.dgrad, lambda a: S.conv_dgrad(*a[:4])),
-        'sparse_wgrad': (train_rec.wgrad, lambda a: S.conv_wgrad(*a)),
-        'join_scan': (rec.scan, lambda a: P.join_scan(*a)),
+        'sparse_conv': ([(p, a) for p, r in serving for a in r.conv],
+                        lambda a: S.gather_matmul_conv(*a)),
+        'sparse_dgrad': ([('train', a) for a in train_rec.dgrad],
+                         lambda a: S.conv_dgrad(*a[:4])),
+        'sparse_wgrad': ([('train', a) for a in train_rec.wgrad],
+                         lambda a: S.conv_wgrad(*a)),
+        'join_scan': ([(p, a) for p, r in serving for a in r.scan],
+                      lambda a: P.join_scan(*a)),
     }
     calls = {name: [] for name in runs}
     for name, (recs, run) in runs.items():
-        for args in recs:
+        for path, args in recs:
             a = _on(args, device)
             if name == 'join_scan':
                 row = _scan_call(P, *a, time_it=True)
@@ -720,26 +872,30 @@ def phase_kernels(rec, train_rec, device):
                 row = _wgrad_call(S, *a)
             else:
                 row = _conv_call(S, *a, name, lambda: run(a))
+            row['path'] = path
             calls[name].append(row)
     # launches and device time per call, after every timing (see cuda_ms)
     for name, (recs, run) in runs.items():
-        for row, args in zip(calls[name], recs):
+        for row, (_, args) in zip(calls[name], recs):
             a = _on(args, device)
             row['cuda_launches'], row['device_ms'] = device_profile(
                 lambda: run(a))
     for name, rows in calls.items():
-        log(f'[kernels] {name}: {len(rows)} main-path calls checked, '
-            f'kernel {sum(r["ms"] for r in rows):.3f} ms, plain '
-            f'{sum(r["plain_ms"] for r in rows):.3f} ms, library '
-            f'{sum(r["library_ms"] for r in rows):.3f} ms, bound '
-            f'{sum(r["bound_ms"] for r in rows):.3f} ms per '
-            f'{"request" if name in ("sparse_conv", "join_scan") else "step"}'
-            f'; max|d| {max(r["max_abs_err"] for r in rows)}; CUDA launches '
-            f'{sum(r["cuda_launches"] for r in rows)}, device-only '
-            f'{sum(r["device_ms"] for r in rows):.3f} ms')
+        for path in sorted({r['path'] for r in rows}):
+            rs = [r for r in rows if r['path'] == path]
+            log(f'[kernels] {name} ({path}): {len(rs)} main-path calls '
+                f'checked, kernel {sum(r["ms"] for r in rs):.3f} ms, plain '
+                f'{sum(r["plain_ms"] for r in rs):.3f} ms, library '
+                f'{sum(r["library_ms"] for r in rs):.3f} ms, bound '
+                f'{sum(r["bound_ms"] for r in rs):.3f} ms per '
+                f'{"step" if path == "train" else "request"}; max|d| '
+                f'{max(r["max_abs_err"] for r in rs)}; CUDA launches '
+                f'{sum(r["cuda_launches"] for r in rs)}, device-only '
+                f'{sum(r["device_ms"] for r in rs):.3f} ms')
     for name in ('sparse_conv', 'sparse_dgrad'):
         for r in calls[name]:
-            log(f'[kernels] {name} {r["m"]}x{r["k"]} {r["cin"]}->{r["cout"]} '
+            log(f'[kernels] {name} ({r["path"]}) {r["m"]}x{r["k"]} '
+                f'{r["cin"]}->{r["cout"]} '
                 f'{r["route"]} {r["tile"][0]}x{r["tile"][1]} split '
                 f'{r["splits"]}x{r["per_split"]}: {r["ms"]:.4f} ms (device '
                 f'{r["device_ms"]:.4f}, bound {r["bound_ms"]:.4f}, fp32 '
@@ -760,9 +916,10 @@ def phase_kernels(rec, train_rec, device):
             f'max|d|/max|ref| '
             f'{r["max_abs_err"] / max(r["max_abs_ref"], 1e-30):.2e}')
     for r in calls['join_scan']:
-        log(f'[kernels] join scan n={r["n"]} k={r["k"]}: {r["ms"]:.4f} ms '
-            f'(device {r["device_ms"]:.4f}, bound {r["bound_ms"]:.4f}, '
-            f'library {r["library_ms"]:.4f}), launches {r["cuda_launches"]}')
+        log(f'[kernels] join scan ({r["path"]}) n={r["n"]} k={r["k"]}: '
+            f'{r["ms"]:.4f} ms (device {r["device_ms"]:.4f}, bound '
+            f'{r["bound_ms"]:.4f}, library {r["library_ms"]:.4f}), launches '
+            f'{r["cuda_launches"]}')
     return calls
 
 
@@ -1142,10 +1299,172 @@ def _tree_get(tree, path):
     return tree
 
 
+def _box_branch(model, seed):
+    """A checkpoint's box branch: the output layer of ``reg_branch``, zero
+    at init, drawn N(0, 0.01) from ``seed`` so the boxes follow the
+    queries."""
+    from embodiedscan_torch.utils.convert_weights import load_jax_variables
+    shape = tuple(model.reg_branch.out.weight.shape[::-1])
+    kernel = np.random.RandomState(seed).randn(*shape).astype(np.float32)
+    load_jax_variables(model, {'reg_branch': {'out': {
+        'kernel': kernel * 0.01}}}, strict=False)
+    return model
+
+
+def eval_records(det_preds, ground_preds):
+    """The two metrics' gt / dt records from the served predictions, through
+    ``train.loop._append_scene_results``. Detection GT per request: 16
+    boxes drawn as ``make_batch`` draws them and 8 kept detections moved by
+    N(0, 5 cm) with their labels. Grounding GT: one box per prompt, the
+    third-best query moved by N(0, 5 mm) for even requests, a drawn box
+    for odd ones; bucket flags vary."""
+    from embodiedscan_torch.configs.base import mv_det3d, mv_grounding
+    from embodiedscan_torch.train.loop import _append_scene_results
+    det, ground = ([], []), ([], [])
+    num_classes = mv_det3d().model.num_classes
+    for i, preds in enumerate(det_preds):
+        rng = np.random.RandomState(100 + i)
+        keep = preds['mask'][0].cpu().numpy()
+        kb = preds['bboxes'][0].cpu().numpy()[keep][:8]
+        kl = preds['labels'][0].cpu().numpy()[keep][:8]
+        boxes = np.concatenate([gt_boxes(rng, 1, 16)[0],
+                                kb + rng.normal(0, 0.05, kb.shape)])
+        labels = np.concatenate([rng.randint(0, num_classes, 16), kl])
+        _append_scene_results(mv_det3d(), dict(
+            gt_boxes=boxes[None].astype(np.float32),
+            gt_labels=labels[None].astype(np.int32),
+            gt_mask=np.ones((1, len(boxes)), bool)), preds, 1, *det, i)
+    for i, preds in enumerate(ground_preds):
+        rng = np.random.RandomState(200 + i)
+        if i % 2 == 0:
+            order = np.argsort(-preds['scores'][0].cpu().numpy())
+            box = preds['bboxes'][0, order[2]].cpu().numpy() + rng.normal(
+                0, 0.005, 9)
+        else:
+            box = gt_boxes(rng, 1, 1)[0, 0]
+        _append_scene_results(mv_grounding(), dict(
+            gt_boxes=box[None, None].astype(np.float32),
+            gt_mask=np.ones((1, 1), bool), is_view_dep=np.array([i < 2]),
+            is_hard=np.array([i == 1]), is_unique=np.array([i != 2])),
+            preds, 1, *ground, i)
+    return det, ground
+
+
+def phase_eval(det_preds, ground_preds, device):
+    """``indoor_eval`` over the detector's timed requests and ``ground_eval``
+    over the grounder's (``eval_records``), each with the IoU on the card
+    (after one warm-up evaluation) and on the cpu: same keys, values within
+    EVAL_GATE."""
+    from embodiedscan_torch.eval.grounding_metric import ground_eval
+    from embodiedscan_torch.eval.indoor_eval import indoor_eval
+    (gts, dts), (ggts, gdts) = eval_records(det_preds, ground_preds)
+    indoor_eval(gts, dts, verbose=False, device=device)
+    out, ms = {}, {}
+    for dev in (device, 'cpu'):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[dev, 'det'] = indoor_eval(gts, dts, verbose=False, device=dev)
+        t1 = time.perf_counter()
+        out[dev, 'ground'] = ground_eval(ggts, gdts, device=dev)
+        t2 = time.perf_counter()
+        ms[dev] = dict(indoor_eval=(t1 - t0) * 1e3,
+                       ground_eval=(t2 - t1) * 1e3)
+    worst = 0.0
+    for what in ('det', 'ground'):
+        a, b = out[device, what], out['cpu', what]
+        if set(a) != set(b):
+            raise RuntimeError(f'{what} eval: keys differ between the card '
+                               'and the cpu')
+        worst = max([worst] + [abs(a[k] - b[k]) for k in a])
+    if not worst <= EVAL_GATE:
+        raise RuntimeError(f'eval: card and cpu metrics differ by {worst}')
+    det, grd = out[device, 'det'], out[device, 'ground']
+    if not det['mAP_0.25'] > 0 or not grd['Overall@0.25'] > 0:
+        raise RuntimeError(f'eval: no hit (mAP_0.25 {det["mAP_0.25"]}, '
+                           f'Overall@0.25 {grd["Overall@0.25"]})')
+    log(f'[eval] indoor_eval over {len(gts)} scenes '
+        f'({sum(len(d["scores"]) for d in dts)} detections, '
+        f'{sum(len(g["gt_labels"]) for g in gts)} GT): mAP_0.25 '
+        f'{det["mAP_0.25"]:.4f} mAR_0.25 {det["mAR_0.25"]:.4f} mAP_0.50 '
+        f'{det["mAP_0.50"]:.4f}; ground_eval over {len(ggts)} prompts: '
+        f'Overall@0.25 {grd["Overall@0.25"]:.4f} Overall@0.5 '
+        f'{grd["Overall@0.5"]:.4f}; card vs cpu max|d| {worst} (gate '
+        f'{EVAL_GATE}); ms on the card {ms[device]}, with the IoU on the '
+        f'cpu {ms["cpu"]}')
+    return dict(det=det, ground=grd, ms=ms, max_abs_diff=worst)
+
+
+def _ground_parity_cfg():
+    """The small mv_grounding of the parity phase: shipped widths and depths
+    (RoBERTa-base, 256 queries, 6 decoder layers), trunk and neck
+    capacities as ``_parity_cfg``'s for a 6000-point scene."""
+    from embodiedscan_torch.configs.base import mv_grounding
+    cfg = mv_grounding()
+    small = _parity_cfg().model
+    for key in ('voxel_size', 'input_capacity', 'backbone_capacities',
+                'fpn_capacities'):
+        setattr(cfg.model, key, getattr(small, key))
+    return cfg
+
+
+@torch.no_grad()
+def phase_ground_parity(device):
+    """The small grounder on ``device`` (kernels) and on cpu (plain
+    versions) with the same weights: neighbor tables, neck coordinates and
+    masks, selected query indices and query masks identical; neck features
+    and scores, per-layer token logits and boxes, and the predictions
+    within atol 1e-4 + rtol 1e-5."""
+    from embodiedscan_torch.configs.base import build_model
+    from embodiedscan_torch.ops import pscan as P
+    from embodiedscan_torch.ops import sparse as S
+    cfg = _ground_parity_cfg()
+    cpu = _box_branch(build_model(cfg, device='cpu'), 7)
+    gpu = build_model(cfg, device=device)
+    gpu.load_state_dict(cpu.state_dict())
+    req = make_ground_request(cfg.model.max_text_len, seed=7, p=6000, v=4,
+                              hw=96)
+    out = {}
+    for name, model, dev in (('cpu', cpu, 'cpu'), ('cuda', gpu, device)):
+        with Recorder(S, P) as rec:
+            _, neck, top, outs, preds = grounding_parts(
+                model, to_device(req, dev))
+        out[name] = (rec, {k: v.cpu() for k, v in neck.items()}, top.cpu(),
+                     [t.cpu() for t in outs], {k: v.cpu()
+                                               for k, v in preds.items()})
+    (rc, nc, tc, oc, pc), (rg, ng, tg, og, pg) = out['cpu'], out['cuda']
+    if len(rc.conv) != len(rg.conv) or not rc.conv:
+        raise RuntimeError('cpu and cuda grounders made different conv calls')
+    for ac, ag in zip(rc.conv, rg.conv):
+        if not torch.equal(ac[2], ag[2].cpu()):
+            raise RuntimeError('grounder neighbor tables differ between cpu '
+                               'and cuda')
+    for what, a, b in (('neck xyz', nc['xyz'], ng['xyz']),
+                       ('neck mask', nc['mask'], ng['mask']),
+                       ('query indices', tc, tg),
+                       ('query mask', oc[2], og[2])):
+        if not torch.equal(a, b):
+            raise RuntimeError(f'grounder {what} differ between cpu and cuda')
+    diffs = {}
+    for what, a, b in (('neck feats', nc['feats'], ng['feats']),
+                       ('neck scores', nc['scores'], ng['scores']),
+                       ('cls', oc[0], og[0]), ('boxes', oc[1], og[1]),
+                       ('bboxes', pc['bboxes'], pg['bboxes']),
+                       ('scores', pc['scores'], pg['scores'])):
+        _close(a, b, f'grounder {what}')
+        diffs[what] = float((a - b).abs().max())
+    log(f'[parity] grounder cpu vs cuda: {len(rc.conv)} neighbor tables, '
+        f'neck coordinates ({int(nc["mask"].sum())} valid of '
+        f'{nc["mask"].shape[1]}) and {tc.shape[1]} query indices identical; '
+        f'floats within atol 1e-4 + rtol 1e-5, max|d| ' + ', '.join(
+            f'{k} {v:.3g}' for k, v in diffs.items()))
+
+
 def kernel_line(calls, totals):
-    """The kernels line: the serving path's K2 forward and K1 rows, the
-    training path's K2 dgrad and K3 rows; launches from the main paths'
-    timed runs, every other number from this run's replays."""
+    """The kernels line: the serving paths' K2 forward and K1 rows (the
+    detector's and the grounder's requests), the training path's K2 dgrad
+    and K3 rows; launches summed over the main paths' timed runs, every
+    other number from this run's replays (summed over one recorded
+    detector request and one grounding request, or one train step)."""
     rows = []
     conv = ('embodiedscan_torch/csrc/sparse_conv.cu',
             'embodiedscan_tpu/experimental/pallas_conv.py:62')
@@ -1196,27 +1515,38 @@ def main():
         log(f'[done] kernels only, {time.perf_counter() - t_start:.1f} s')
         return 0
     torch.manual_seed(0)
-    rec, totals, main_stats, model, batch = phase_main_path('cuda')
+    rec, totals, main_stats, model, batch, det_preds = phase_main_path('cuda')
     rec.to_host()
+    ground_rec, ground_totals, ground_stats, gmodel, gbatch, ground_preds = \
+        phase_grounding('cuda')
+    ground_rec.to_host()
     train_rec, train_totals, train_stats, tmodel, opt, tbatch = \
         phase_train('cuda')
     # event timings first, every profiler session after them (see cuda_ms)
-    calls = phase_kernels(rec, train_rec, 'cuda')
+    calls = phase_kernels(rec, train_rec, 'cuda', ground_rec)
     with torch.no_grad():
         main_stats.update(profile_run(
             lambda: model(batch, mode='predict'), 'request'))
+        ground_stats.update(profile_run(
+            lambda: gmodel(gbatch, mode='predict'), 'grounding request'))
     from embodiedscan_torch.train.state import train_step
     train_stats.update(profile_run(lambda: train_step(tmodel, opt, tbatch),
                                    'train step'))
-    del rec, train_rec, model, batch, tmodel, opt, tbatch
+    del rec, ground_rec, train_rec, model, batch, gmodel, gbatch, tmodel, \
+        opt, tbatch
+    eval_stats = phase_eval(det_preds, ground_preds, 'cuda')
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, 'chip_smoke_calls.json'), 'w') as f:
-        json.dump(dict(card=card, main=main_stats, train=train_stats,
-                       calls=calls), f, indent=1)
+        json.dump(dict(card=card, main=main_stats, grounding=ground_stats,
+                       train=train_stats, eval=eval_stats, calls=calls), f,
+                  indent=1)
     phase_edges('cuda')
     phase_e2e_parity('cuda')
+    phase_ground_parity('cuda')
     phase_train_parity('cuda')
     log(f'[done] {time.perf_counter() - t_start:.1f} s')
+    for name, n in ground_totals.items():
+        totals[name] += n
     totals.update({k: v for k, v in train_totals.items()
                    if k.startswith(('sparse_dgrad', 'sparse_wgrad'))})
     print(kernel_line(calls, totals))

@@ -1,5 +1,5 @@
-"""Configs and the model entry point (port of the detection parts of
-``embodiedscan_tpu/configs/base.py``)."""
+"""Configs and the model entry point (port of the detection and grounding
+parts of ``embodiedscan_tpu/configs/base.py``)."""
 
 import dataclasses
 from typing import Sequence
@@ -46,6 +46,17 @@ class ModelConfig:
     # 'reference' = yaw-truncated predictions as the published protocol;
     # 'full9d' keeps the predicted pitch/roll
     predict_protocol: str = 'reference'
+    # grounding
+    num_queries: int = 256
+    max_text_len: int = 256
+    text_arch: str = 'roberta'  # 'roberta' | 'tiny' (tests)
+    text_layers: int = 12
+    text_hidden: int = 768
+    text_heads: int = 12
+    # grounding box coder: 'baseline' | 'FCAF'
+    box_coder: str = 'baseline'
+    # the text encoder's output is detached (the reference's lr_mult=0)
+    freeze_text: bool = True
 
 
 @dataclasses.dataclass
@@ -62,13 +73,23 @@ def mv_det3d() -> Config:
     return Config()
 
 
-PRESETS = {'mv_det3d': mv_det3d}
+def mv_grounding() -> Config:
+    """configs/grounding/mv-grounding_8xb12_embodiedscan-vg-9dof.py (the
+    model; its data and schedule fields wait for the data slice)."""
+    cfg = Config()
+    cfg.model.task = 'mv_grounding'
+    cfg.model.fpn_capacities = (1024, 1024, 1024, 2048)
+    return cfg
+
+
+PRESETS = {'mv_det3d': mv_det3d, 'mv_grounding': mv_grounding}
 
 
 def build_model(cfg: Config, device='cuda', img_dtype=torch.float32,
                 generator: torch.Generator | None = None):
-    """The detector of ``cfg``, initialized from ``generator`` (default: a
-    generator seeded with ``cfg.seed``), in eval mode on ``device``.
+    """The detector or grounder of ``cfg``, initialized from ``generator``
+    (default: a generator seeded with ``cfg.seed``), in eval mode on
+    ``device``.
 
     Raises when ``device`` is CUDA and no CUDA device is present; pass
     ``device='cpu'`` to run the plain versions of the kernels. Turns off
@@ -76,6 +97,7 @@ def build_model(cfg: Config, device='cuda', img_dtype=torch.float32,
     in float32.
     """
     from ..models.detector import SparseFusionDetector, init_weights
+    from ..models.grounding import SparseFusionGrounder
     device = torch.device(device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError('build_model: CUDA is not available; pass '
@@ -83,17 +105,29 @@ def build_model(cfg: Config, device='cuda', img_dtype=torch.float32,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     m = cfg.model
-    if m.task != 'mv_det3d':
+    if m.task == 'mv_det3d':
+        model = SparseFusionDetector(
+            num_classes=m.num_classes, voxel_size=m.voxel_size,
+            input_capacity=m.input_capacity,
+            backbone_capacities=tuple(m.backbone_capacities),
+            fpn_capacities=tuple(m.fpn_capacities),
+            resnet_depth=m.resnet_depth, mink_depth=m.mink_depth,
+            nms_pre=m.nms_pre, max_candidates=m.max_candidates,
+            max_dets=m.max_dets, img_dtype=img_dtype,
+            predict_protocol=m.predict_protocol)
+    elif m.task == 'mv_grounding':
+        model = SparseFusionGrounder(
+            num_queries=m.num_queries, voxel_size=m.voxel_size,
+            max_text_len=m.max_text_len, input_capacity=m.input_capacity,
+            backbone_capacities=tuple(m.backbone_capacities),
+            fpn_capacities=tuple(m.fpn_capacities),
+            resnet_depth=m.resnet_depth, mink_depth=m.mink_depth,
+            text_arch=m.text_arch, text_layers=m.text_layers,
+            text_hidden=m.text_hidden, text_heads=m.text_heads,
+            freeze_text=m.freeze_text, box_coder=m.box_coder,
+            img_dtype=img_dtype)
+    else:
         raise NotImplementedError(f'task {m.task!r} is not ported yet')
-    model = SparseFusionDetector(
-        num_classes=m.num_classes, voxel_size=m.voxel_size,
-        input_capacity=m.input_capacity,
-        backbone_capacities=tuple(m.backbone_capacities),
-        fpn_capacities=tuple(m.fpn_capacities),
-        resnet_depth=m.resnet_depth, mink_depth=m.mink_depth,
-        nms_pre=m.nms_pre, max_candidates=m.max_candidates,
-        max_dets=m.max_dets, img_dtype=img_dtype,
-        predict_protocol=m.predict_protocol)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
     init_weights(model, generator)

@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from .fcaf3d import _CLS_BIAS, FCAF3DHead
+from .grounding import MinkNeck, RegBranch
 from .sparse_nn import SparseConv
 from .trunk import STRIDES, SparseFusionTrunk
 
@@ -70,26 +71,39 @@ def _normal_(t: torch.Tensor, std: float, g: torch.Generator) -> None:
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded initialization in the reference's spirit (He fan-out normal for
-    sparse kernels and sparse 1x1 layers, LeCun normal for the image convs,
-    N(0, 0.01) head projections with the prior-probability class bias).
-    Norm layers keep their identity statistics. Runs on CPU tensors."""
+    sparse kernels, sparse 1x1 layers and dense layers, zero dense biases
+    as flax's, LeCun normal for the image convs, N(0, 0.02) embeddings as
+    HF RoBERTa's, N(0, 0.01) head projections with the prior-probability
+    class bias, the grounder's box branch at zero weights and bias
+    [0, 0, -2, ...]). Norm layers keep their identity statistics. Runs on
+    CPU tensors."""
     for mod in model.modules():
         if isinstance(mod, SparseConv):
             k, _, cout = mod.kernel.shape
             _normal_(mod.kernel, math.sqrt(2.0 / (k * cout)), generator)
         elif isinstance(mod, nn.Linear):
             _normal_(mod.weight, math.sqrt(2.0 / mod.out_features), generator)
+            if mod.bias is not None:
+                nn.init.zeros_(mod.bias)
         elif isinstance(mod, nn.Conv2d):
             fan_in = mod.weight[0].numel()
             _normal_(mod.weight, math.sqrt(1.0 / fan_in), generator)
-        elif isinstance(mod, FCAF3DHead):
-            for name, p in mod.named_parameters(recurse=False):
-                if name.endswith('_tconv'):
-                    _normal_(p, math.sqrt(2.0 / (8 * p.shape[-1])), generator)
-    for mod in model.modules():
-        if isinstance(mod, FCAF3DHead):
-            for lin in (mod.conv_center, mod.conv_reg, mod.conv_cls):
-                _normal_(lin.weight, 0.01, generator)
-            with torch.no_grad():
+        elif isinstance(mod, nn.Embedding):
+            _normal_(mod.weight, 0.02, generator)
+        for name, p in mod.named_parameters(recurse=False):
+            if name.endswith('_tconv'):
+                _normal_(p, math.sqrt(2.0 / (8 * p.shape[-1])), generator)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, FCAF3DHead):
+                for lin in (mod.conv_center, mod.conv_reg, mod.conv_cls):
+                    _normal_(lin.weight, 0.01, generator)
                 mod.conv_cls.bias.fill_(_CLS_BIAS)
+            elif isinstance(mod, MinkNeck):
+                _normal_(mod.conv_cls.weight, 0.01, generator)
+                mod.conv_cls.bias.fill_(_CLS_BIAS)
+            elif isinstance(mod, RegBranch):
+                mod.out.weight.zero_()
+                mod.out.bias.fill_(-2.0)
+                mod.out.bias[:2] = 0.0
     return model

@@ -130,6 +130,27 @@ def assign_targets(points: torch.Tensor, levels: torch.Tensor,
     return center_t, bbox_t, cls_t
 
 
+def fpn_up_block(owner: nn.Module, i: int, x: S.SparseTensor, prune_level,
+                 lateral: S.SparseTensor, keep: int) -> S.SparseTensor:
+    """One top-down FPN step into level ``i`` through ``owner``'s
+    ``up_block_{i+1}`` layers (tconv, bn1, conv, bn2): the coarser level
+    ``x`` upsampled, its children summed into the ``lateral`` level, the
+    ``keep`` children with the best scores interpolated from the coarser
+    level's ``prune_level`` = (coords, scores, mask, 27-neighbor table),
+    whose table drives the child tables (``fpn_tables``)."""
+    name = f'up_block_{i + 1}'
+    up = S.generative_transpose2(x, getattr(owner, f'{name}_tconv'))
+    pcoords, pscores, pm, pnbr = prune_level
+    nbr_u, lat_idx, corner_idx = fpn_tables(pnbr, pcoords, pm, lateral)
+    f = F.elu(getattr(owner, f'{name}_bn1')(up.feats, up.mask))
+    f = getattr(owner, f'{name}_conv')(f, up.mask, nbr_u)
+    f = F.elu(getattr(owner, f'{name}_bn2')(f, up.mask))
+    x = S.scatter_sum_into(S.SparseTensor(up.coords, f, up.mask), lateral,
+                           lat_idx)
+    score = fpn_prune_scores(pscores, pm, corner_idx, x.mask)
+    return S.topk_select_b(x, score, keep)
+
+
 class FCAF3DHead(nn.Module):
     """Sparse FPN + head (reference FCAF3DHeadRotMat); the MaskedBatchNorms
     use batch statistics in training mode.
@@ -189,24 +210,12 @@ class FCAF3DHead(nn.Module):
         center_preds, reg_preds, cls_preds, points, masks = \
             [], [], [], [], []
         x = inputs[-1]
-        # (coords, scores, mask, 27-nbr table) of the coarser level; its
-        # table drives the finer level's coordinate tables (fpn_tables)
-        prune_level = None
+        prune_level = None  # the coarser level's, see fpn_up_block
         for i in range(n_levels - 1, -1, -1):
             if i < n_levels - 1:
-                name = f'up_block_{i + 1}'
-                up = S.generative_transpose2(x, getattr(self, f'{name}_tconv'))
-                pcoords, pscores, pm, pnbr = prune_level
-                nbr_u, lat_idx, corner_idx = fpn_tables(pnbr, pcoords, pm,
-                                                        inputs[i])
-                f = F.elu(getattr(self, f'{name}_bn1')(up.feats, up.mask))
-                f = getattr(self, f'{name}_conv')(f, up.mask, nbr_u)
-                f = F.elu(getattr(self, f'{name}_bn2')(f, up.mask))
-                up = S.SparseTensor(up.coords, f, up.mask)
-                x = S.scatter_sum_into(up, inputs[i], lat_idx)
-                score = fpn_prune_scores(pscores, pm, corner_idx, x.mask)
-                keep = min(self.pts_prune_threshold, self.fpn_capacities[i])
-                x = S.topk_select_b(x, score, keep)
+                x = fpn_up_block(self, i, x, prune_level, inputs[i],
+                                 min(self.pts_prune_threshold,
+                                     self.fpn_capacities[i]))
 
             nbr27 = S.neighbor_table_b(x, S.OFFSETS_3)
             out = getattr(self, f'out_block_{i}_conv')(x.feats, x.mask, nbr27)

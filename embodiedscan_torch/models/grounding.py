@@ -1,0 +1,314 @@
+"""3D visual grounding: sparse neck, DETR decoder, grounder (port of the
+serving parts of ``embodiedscan_tpu/models/grounding.py``).
+
+- ``MinkNeck``: the FCAF-style sparse FPN that emits per-location
+  features, scores and coordinates for the decoder (its convs run on K2,
+  its tables on K1, as the detector's head).
+- ``DecoderLayer``: self-attention -> text cross-attention -> point
+  cross-attention -> FFN, post-norm (flax LayerNorms, eps 1e-6).
+- ``SparseFusionGrounder``: trunk + text encoder + top-k query selection +
+  6 decoder layers with a shared box branch and contrastive token logits;
+  ``mode='feats'`` and ``'predict'``.
+
+Batch layout: the detector's (``models/detector.py``) plus
+    text_ids:  (B, L) int token ids
+    text_mask: (B, L) 0/1 token mask
+"""
+
+import math
+from typing import NamedTuple
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from ..geometry.rotations import rotation_3d_in_euler
+from ..ops import sparse as S
+from .attention import MultiHeadDotProductAttention
+from .fcaf3d import _CLS_BIAS, fpn_up_block
+from .norm import MaskedBatchNorm
+from .sparse_nn import SparseConv
+from .text import FLAX_LN_EPS, TextEncoder
+from .trunk import STRIDES, SparseFusionTrunk
+
+_NEG_INF = -1e4
+
+
+class MinkNeck(nn.Module):
+    """Sparse FPN neck emitting (feats, scores, xyz, mask) per location,
+    levels concatenated fine to coarse; one ``conv_cls`` shared by all
+    levels scores the locations for the next level's prune."""
+
+    def __init__(self, in_channels, out_channels: int = 256,
+                 voxel_size: float = 0.01, strides=STRIDES,
+                 fpn_capacities=(1024, 1024, 1024, 2048),
+                 pts_prune_threshold: int = 1000):
+        super().__init__()
+        self.in_channels = tuple(in_channels)
+        self.voxel_size = voxel_size
+        self.strides = tuple(strides)
+        self.fpn_capacities = tuple(fpn_capacities)
+        self.pts_prune_threshold = pts_prune_threshold
+        self.conv_cls = nn.Linear(out_channels, 1)
+        n = len(self.in_channels)
+        for i in range(n):
+            cin = self.in_channels[i]
+            self.add_module(f'out_block_{i}_conv', SparseConv(cin,
+                                                              out_channels))
+            self.add_module(f'out_block_{i}_bn', MaskedBatchNorm(out_channels))
+            if i < n - 1:
+                name = f'up_block_{i + 1}'
+                self.register_parameter(f'{name}_tconv', nn.Parameter(
+                    torch.zeros(8, self.in_channels[i + 1], cin)))
+                self.add_module(f'{name}_bn1', MaskedBatchNorm(cin))
+                self.add_module(f'{name}_conv', SparseConv(cin, cin))
+                self.add_module(f'{name}_bn2', MaskedBatchNorm(cin))
+
+    def forward(self, inputs):
+        n_levels = len(inputs)
+        feats_l, scores_l, xyz_l, mask_l = [], [], [], []
+        x = inputs[-1]
+        prune_level = None  # the coarser level's, see fpn_up_block
+        for i in range(n_levels - 1, -1, -1):
+            if i < n_levels - 1:
+                x = fpn_up_block(self, i, x, prune_level, inputs[i],
+                                 min(self.pts_prune_threshold,
+                                     self.fpn_capacities[i]))
+            nbr = S.neighbor_table_b(x, S.OFFSETS_3)
+            f = getattr(self, f'out_block_{i}_conv')(x.feats, x.mask, nbr)
+            f = F.elu(getattr(self, f'out_block_{i}_bn')(f, x.mask))
+            cls = self.conv_cls(f)
+            prune_level = (x.coords, cls[..., 0], x.mask, nbr)
+            feats_l.append(f)
+            scores_l.append(cls)
+            xyz_l.append(x.coords.to(torch.float32) *
+                         (self.strides[i] * self.voxel_size))
+            mask_l.append(x.mask)
+        # levels were built top-down; fine-to-coarse order, concatenated
+        return tuple(torch.cat(t[::-1], dim=1)
+                     for t in (feats_l, scores_l, xyz_l, mask_l))
+
+
+class PositionEmbeddingLearned(nn.Module):
+    """xyz or box -> embedding: Dense, MaskedBatchNorm, ReLU, Dense."""
+
+    def __init__(self, in_features: int, embed_dims: int = 256):
+        super().__init__()
+        self.Dense_0 = nn.Linear(in_features, embed_dims)
+        self.MaskedBatchNorm_0 = MaskedBatchNorm(embed_dims)
+        self.Dense_1 = nn.Linear(embed_dims, embed_dims)
+
+    def forward(self, x, mask):
+        h = F.relu(self.MaskedBatchNorm_0(self.Dense_0(x), mask))
+        return self.Dense_1(h)
+
+
+def _attn_mask(q_mask: torch.Tensor, k_mask: torch.Tensor) -> torch.Tensor:
+    """(B, Q), (B, K) -> (B, 1, Q, K) boolean attention mask."""
+    return (q_mask[:, :, None] & k_mask[:, None, :])[:, None]
+
+
+class DecoderLayer(nn.Module):
+    """self-attn -> text cross-attn -> point cross-attn -> FFN, post-norm."""
+
+    def __init__(self, embed_dims: int = 256, num_heads: int = 8,
+                 ffn_dims: int = 2048):
+        super().__init__()
+        for name in ('self_attn', 'cross_attn_text', 'cross_attn'):
+            self.add_module(name, MultiHeadDotProductAttention(
+                embed_dims, num_heads))
+        for i in range(4):
+            self.add_module(f'norm{i}', nn.LayerNorm(embed_dims,
+                                                     eps=FLAX_LN_EPS))
+        self.ffn_fc1 = nn.Linear(embed_dims, ffn_dims)
+        self.ffn_fc2 = nn.Linear(ffn_dims, embed_dims)
+
+    def forward(self, query, query_pos, q_mask, key, key_pos, k_mask,
+                text_feats, text_mask):
+        qp = query + query_pos
+        q = self.norm0(query + self.self_attn(
+            qp, qp, query, mask=_attn_mask(q_mask, q_mask)))
+        q = self.norm1(q + self.cross_attn_text(
+            q + query_pos, text_feats, text_feats,
+            mask=_attn_mask(q_mask, text_mask)))
+        q = self.norm2(q + self.cross_attn(
+            q + query_pos, key + key_pos, key,
+            mask=_attn_mask(q_mask, k_mask)))
+        q = q + self.ffn_fc2(F.relu(self.ffn_fc1(q)))
+        return self.norm3(q)
+
+
+class RegBranch(nn.Module):
+    """2x Linear+ReLU then Linear -> 9; the output layer starts at zero
+    weights and bias [0, 0, -2, ..., -2]."""
+
+    def __init__(self, embed_dims: int = 256, num_reg: int = 9):
+        super().__init__()
+        self.fc0 = nn.Linear(embed_dims, embed_dims)
+        self.fc1 = nn.Linear(embed_dims, embed_dims)
+        self.out = nn.Linear(embed_dims, num_reg)
+
+    def forward(self, x):
+        return self.out(F.relu(self.fc1(F.relu(self.fc0(x)))))
+
+
+def decode_baseline(points: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+    """'baseline' box coder: center offsets + log sizes + euler angles."""
+    size = torch.clamp(torch.exp(pred[..., 3:6]), min=2e-2)
+    return torch.cat([pred[..., :3] + points, size, pred[..., 6:9]], -1)
+
+
+def decode_fcaf(points: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+    """'FCAF' box coder, 9-dim variant: ``pred[..., :6]`` are log distances
+    to the 6 faces (exp'd and clamped), ``pred[..., 6:9]`` the euler
+    angles; the center shift is the face-distance asymmetry rotated into
+    the box frame."""
+    d = torch.clamp(torch.exp(pred[..., :6]), min=2e-2)
+    euler = pred[..., 6:9]
+    shift = torch.stack([(d[..., 1] - d[..., 0]) / 2,
+                         (d[..., 3] - d[..., 2]) / 2,
+                         (d[..., 5] - d[..., 4]) / 2], -1)
+    shift = rotation_3d_in_euler(shift[..., None, :], euler)[..., 0, :]
+    size = torch.stack([d[..., 0] + d[..., 1], d[..., 2] + d[..., 3],
+                        d[..., 4] + d[..., 5]], -1)
+    return torch.cat([points + shift, size, euler], -1)
+
+
+_BOX_CODERS = {'baseline': decode_baseline, 'FCAF': decode_fcaf}
+
+
+class ContrastiveEmbed(nn.Module):
+    """visual . text^T / sqrt(C) + a learnable bias; masked tokens and
+    visual rows at -1e4, padded to ``max_text_len`` with -1e4."""
+
+    def __init__(self, max_text_len: int = 256):
+        super().__init__()
+        self.max_text_len = max_text_len
+        self.bias = nn.Parameter(torch.full((1,), _CLS_BIAS))
+
+    def forward(self, visual, text, text_mask, visual_mask=None):
+        res = torch.einsum('bqc,blc->bql', visual, text)
+        res = res / math.sqrt(visual.shape[-1]) + self.bias
+        fill = res.new_tensor(_NEG_INF)
+        res = torch.where(text_mask[:, None, :], res, fill)
+        if visual_mask is not None:
+            res = torch.where(visual_mask[:, :, None], res, fill)
+        pad = self.max_text_len - res.shape[-1]
+        if pad > 0:
+            res = F.pad(res, (0, pad), value=_NEG_INF)
+        return res
+
+
+def top_k_indices(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """``jax.lax.top_k``'s indices of (B, N) float32 scores on any device:
+    score-descending, ties (the -inf of masked rows among them) by
+    ascending index. A stable sort of the monotone keys of
+    ``ops.sparse._monotone_desc_key``, row by row."""
+    if k > scores.shape[-1]:
+        raise ValueError(f'top {k} of {scores.shape[-1]} rows')
+    key = S._monotone_desc_key(scores)
+    return torch.sort(key, dim=-1, stable=True)[1][:, :k]
+
+
+class GroundingOutputs(NamedTuple):
+    cls: torch.Tensor  # (L, B, Q, T) per-layer token logits
+    boxes: torch.Tensor  # (L, B, Q, 9)
+    query_mask: torch.Tensor  # (B, Q)
+
+
+class SparseFusionGrounder(nn.Module):
+    """Embodied Perceptron grounding variant (language -> 9-DoF box)."""
+
+    def __init__(self, num_queries: int = 256, voxel_size: float = 0.01,
+                 max_text_len: int = 256, embed_dims: int = 256,
+                 num_decoder_layers: int = 6, input_capacity: int = 98304,
+                 backbone_capacities=(65536, 32768, 24576, 8192, 4096, 2048),
+                 fpn_capacities=(1024, 1024, 1024, 2048),
+                 resnet_depth: int = 50, mink_depth: int = 34,
+                 text_arch: str = 'roberta', text_layers: int = 12,
+                 text_hidden: int = 768, text_heads: int = 12,
+                 freeze_text: bool = True, box_coder: str = 'baseline',
+                 img_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if box_coder not in _BOX_CODERS:
+            raise ValueError(f'unknown box coder {box_coder!r}')
+        self.num_queries = num_queries
+        self.num_decoder_layers = num_decoder_layers
+        self.decode_boxes = _BOX_CODERS[box_coder]
+        self.trunk = SparseFusionTrunk(
+            voxel_size=voxel_size, input_capacity=input_capacity,
+            backbone_capacities=tuple(backbone_capacities),
+            resnet_depth=resnet_depth, mink_depth=mink_depth,
+            img_dtype=img_dtype)
+        self.neck = MinkNeck(self.trunk.out_channels, embed_dims,
+                             voxel_size=voxel_size,
+                             fpn_capacities=tuple(fpn_capacities))
+        self.text_encoder = TextEncoder(embed_dims, arch=text_arch,
+                                        layers=text_layers,
+                                        hidden=text_hidden, heads=text_heads,
+                                        frozen=freeze_text)
+        for i in range(num_decoder_layers):
+            self.add_module(f'layer{i}', DecoderLayer(embed_dims))
+        self.self_posembed = PositionEmbeddingLearned(9, embed_dims)
+        self.cross_posembed = PositionEmbeddingLearned(3, embed_dims)
+        self.decoder_norm = nn.LayerNorm(embed_dims, eps=FLAX_LN_EPS)
+        # one box branch shared by every layer (share_pred_layer)
+        self.reg_branch = RegBranch(embed_dims)
+        self.cls_embed = ContrastiveEmbed(max_text_len)
+
+    def select_queries(self, feats, xyz, mask, text_feats, text_mask):
+        """The top ``num_queries`` neck locations by their best contrastive
+        token score: (query feats, query xyz, query mask, indices)."""
+        enc_cls = self.cls_embed(feats, text_feats, text_mask, mask)
+        sel = torch.where(mask, enc_cls.amax(-1),
+                          enc_cls.new_tensor(float('-inf')))
+        top = top_k_indices(sel, self.num_queries)
+        return (S._take_rows(feats, top), S._take_rows(xyz, top),
+                S._take_rows(mask, top), top)
+
+    def decoder(self, query, query_coords, query_mask, feats, xyz, mask,
+                text_feats, text_mask) -> GroundingOutputs:
+        """The decoder layers, each refining the boxes from the query
+        locations; per-layer token logits and boxes."""
+        pred_bboxes = self.decode_boxes(query_coords, self.reg_branch(query))
+        key_pos = self.cross_posembed(xyz, mask)
+        all_cls, all_boxes = [], []
+        for i in range(self.num_decoder_layers):
+            query_pos = self.self_posembed(pred_bboxes, query_mask)
+            query = getattr(self, f'layer{i}')(
+                query, query_pos, query_mask, feats, key_pos, mask,
+                text_feats, text_mask)
+            pred_bboxes = self.decode_boxes(query_coords,
+                                            self.reg_branch(query))
+            all_cls.append(self.cls_embed(self.decoder_norm(query),
+                                          text_feats, text_mask))
+            all_boxes.append(pred_bboxes)
+        return GroundingOutputs(torch.stack(all_cls), torch.stack(all_boxes),
+                                query_mask)
+
+    @staticmethod
+    def predict(outs: GroundingOutputs) -> dict:
+        """The last layer's boxes, each query's best token probability
+        (0 for masked queries), and the query mask."""
+        scores = torch.sigmoid(outs.cls[-1]).amax(-1)
+        scores = torch.where(outs.query_mask, scores,
+                             torch.zeros_like(scores))
+        return dict(bboxes=outs.boxes[-1], scores=scores,
+                    mask=outs.query_mask)
+
+    def forward(self, batch: dict, mode: str = 'predict'):
+        """``'feats'`` (GroundingOutputs) or ``'predict'`` (bboxes (B, Q, 9),
+        scores (B, Q), mask (B, Q)); both without autograd. The training
+        loss is not ported yet."""
+        if mode not in ('feats', 'predict'):
+            raise NotImplementedError(f'mode {mode!r} is not ported')
+        with torch.no_grad():
+            feats, _, xyz, mask = self.neck(self.trunk(batch))
+            text_mask = batch['text_mask'] > 0
+            text_feats = self.text_encoder(batch['text_ids'],
+                                           batch['text_mask'])
+            query, coords, qmask, _ = self.select_queries(
+                feats, xyz, mask, text_feats, text_mask)
+            outs = self.decoder(query, coords, qmask, feats, xyz, mask,
+                                text_feats, text_mask)
+            return outs if mode == 'feats' else self.predict(outs)

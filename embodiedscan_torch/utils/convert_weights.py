@@ -10,15 +10,23 @@ leaf kind         flax layout      port layout
 ================  ===============  ======================
 sparse kernel     (K, Cin, Cout)   kept as is
 Dense kernel      (in, out)        (out, in) nn.Linear
+attention q/k/v   (D, H, Dh),      (H * Dh, D), (H * Dh,)
+kernel, bias      (H, Dh)          ``attention.HeadsIn``
+attention out     (H, Dh, D)       (D, H * Dh)
+kernel                             ``attention.HeadsOut``
 Conv kernel       HWIO             OIHW nn.Conv2d
-scale/bias/mean/  (C,)             copied
-var, head params
+Embed embedding   (V, C)           nn.Embedding weight
+LayerNorm scale   (C,)             nn.LayerNorm weight
+bias/mean/var,    (C,) or as       copied
+other params      declared
 ================  ===============  ======================
 """
 
 import numpy as np
 import torch
 from torch import nn
+
+from ..models.attention import HeadsIn, HeadsOut
 
 
 def _leaves(tree, prefix=()):
@@ -33,10 +41,21 @@ def _target(model: nn.Module, path):
     """(tensor to fill, array transform) for one flax leaf path."""
     mod = model.get_submodule('.'.join(path[:-1]))
     leaf = path[-1]
+    if isinstance(mod, HeadsIn):
+        if leaf == 'kernel':
+            return mod.weight, lambda a: a.reshape(a.shape[0], -1).T
+        if leaf == 'bias':
+            return mod.bias, lambda a: a.reshape(-1)
+    if isinstance(mod, HeadsOut) and leaf == 'kernel':
+        return mod.weight, lambda a: a.reshape(-1, a.shape[-1]).T
     if isinstance(mod, nn.Linear) and leaf == 'kernel':
         return mod.weight, lambda a: a.T
     if isinstance(mod, nn.Conv2d) and leaf == 'kernel':
         return mod.weight, lambda a: a.transpose(3, 2, 0, 1)
+    if isinstance(mod, nn.Embedding) and leaf == 'embedding':
+        return mod.weight, lambda a: a
+    if isinstance(mod, nn.LayerNorm) and leaf == 'scale':
+        return mod.weight, lambda a: a
     tensor = getattr(mod, leaf, None)
     if not isinstance(tensor, torch.Tensor):
         raise KeyError(f'no port tensor for {"/".join(path)}')
@@ -76,10 +95,20 @@ def load_jax_variables(model: nn.Module, params: dict,
 def _leaf(mod: nn.Module, name: str, tensor: torch.Tensor):
     """(flax leaf name, numpy array in the flax layout) of a port tensor."""
     arr = tensor.detach().cpu().numpy()
+    if isinstance(mod, HeadsIn):
+        if name == 'weight':
+            return 'kernel', arr.T.reshape(arr.shape[1], mod.heads, -1)
+        return name, arr.reshape(mod.heads, -1)
+    if isinstance(mod, HeadsOut) and name == 'weight':
+        return 'kernel', arr.T.reshape(mod.heads, -1, arr.shape[0])
     if isinstance(mod, nn.Linear) and name == 'weight':
         return 'kernel', arr.T
     if isinstance(mod, nn.Conv2d) and name == 'weight':
         return 'kernel', arr.transpose(2, 3, 1, 0)
+    if isinstance(mod, nn.Embedding) and name == 'weight':
+        return 'embedding', arr
+    if isinstance(mod, nn.LayerNorm) and name == 'weight':
+        return 'scale', arr
     return name, arr
 
 
@@ -87,7 +116,7 @@ def export_jax_tree(model: nn.Module, tensors: str = 'params') -> dict:
     """The inverse of :func:`load_jax_variables`: ``'params'`` (parameters),
     ``'grads'`` (their ``.grad``; a parameter without one raises) or
     ``'buffers'`` (the ``batch_stats``) as nested dicts of numpy arrays in
-    the flax layout (Dense kernels (in, out), Conv kernels HWIO)."""
+    the flax layout of the table above."""
     if tensors not in ('params', 'grads', 'buffers'):
         raise ValueError(f'tensors: {tensors!r}')
     named = model.named_buffers() if tensors == 'buffers' else \

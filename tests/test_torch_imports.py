@@ -8,7 +8,8 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'embodiedscan_tpu')
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'transformers',
+             'embodiedscan_tpu')
 FILES = sorted((ROOT / 'embodiedscan_torch').rglob('*.py')) + \
     [ROOT / 'chip_smoke.py', ROOT / 'kernel_ab.py']
 
@@ -29,10 +30,15 @@ def test_no_reference_imports(path):
 
 @pytest.mark.parametrize('module', [
     'embodiedscan_torch.train.state', 'embodiedscan_torch.models.losses',
-    'embodiedscan_torch.models.detector', 'embodiedscan_torch.ops.sparse'])
+    'embodiedscan_torch.models.detector', 'embodiedscan_torch.ops.sparse',
+    'embodiedscan_torch.models.text', 'embodiedscan_torch.models.attention',
+    'embodiedscan_torch.models.grounding',
+    'embodiedscan_torch.eval.indoor_eval',
+    'embodiedscan_torch.eval.grounding_metric',
+    'embodiedscan_torch.train.loop'])
 def test_module_is_checked_and_imports(module):
-    """The training slice's modules are among the files checked above and
-    import on a machine without JAX."""
+    """The training and grounding slices' modules are among the files
+    checked above and import on a machine without JAX or transformers."""
     path = ROOT / (module.replace('.', '/') + '.py')
     assert path in FILES
     code = (f'import sys; sys.modules.update(dict.fromkeys({FORBIDDEN!r}));'
