@@ -5,8 +5,10 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py
 
 Phases (one line each; any failure exits non-zero before the last line):
-  1. device and build: the card's name and power limit, then the build of
-     the hand-written kernels from embodiedscan_torch/csrc;
+  1. device and build: the card's name and power limit, the versions of
+     python, torch and scipy (the grounder's host matcher; its import
+     failing fails the run), then the build of the hand-written kernels
+     from embodiedscan_torch/csrc;
   2. serving path: the full-width mv_det3d detector (284 classes,
      MinkResNet-34 + ResNet-50/16, shipped capacities) serves one warm-up
      and three synthetic requests of 100k points and 50 views of 480x480;
@@ -20,26 +22,34 @@ Phases (one line each; any failure exits non-zero before the last line):
      (voxelize + trunk, neck, text encoder, query selection, decoder,
      predict);
   4. training path: the same detector in training mode takes one warm-up
-     and three timed train steps (loss, backward, clip, AdamW) on a scene of
-     100k points, 20 views of 480x480 and 128 GT boxes, with launch counts
-     reset before each step and read after it; then the forward, backward
-     and optimizer times of one step;
-  5. kernel parity and times: every kernel call of both warm-up requests
-     and of the warm-up step's backward is replayed on its recorded inputs
-     against the kernel's plain PyTorch version (join scan bit-exact,
-     sparse conv and weight gradient within 1e-4 x max|ref| and
-     bit-identical when run twice, the weight gradient's pair lists
-     identical to the plain pair pass), with the kernel, plain and library
-     times, the least time the card could take, the plan (route, tile,
-     split or chunks) and the share of the dense work that hits and that
-     the kernel computes; after every timing, the profiler
-     counts each call's CUDA launches and device time and traces one
-     request of each path and one train step (device busy time and idle
-     share);
-  6. eval: indoor_eval over the detector's requests and ground_eval over
+     and three timed train steps (loss, backward, clip, AdamW; the 2D stem
+     and first stage frozen) on a scene of 100k points, 20 views of
+     480x480 and 128 GT boxes, with launch counts reset before each step
+     and read after it; then the forward, backward and optimizer times of
+     one step;
+  5. grounding training path: the full-width grounder in training mode
+     (text encoder and 2D stem and first stage frozen, decoder at 0.1 of
+     the rate) takes one warm-up and three timed steps on the same scene
+     with 64 padded gt boxes, 4 of them valid, each matched to a word of
+     the prompt; launch counts per step; the split, with the IoU match cost
+     and the Hungarian matcher (scipy on the host, its copies included);
+     frozen parameters bit-identical and the others moved;
+  6. kernel parity and times: every kernel call of both warm-up requests,
+     of the detector's warm-up step's backward and of the grounder's
+     warm-up step is replayed on its recorded inputs against the kernel's
+     plain PyTorch version (join scan bit-exact, sparse conv and weight
+     gradient within 1e-4 x max|ref| and bit-identical when run twice, the
+     weight gradient's pair lists identical to the plain pair pass), with
+     the kernel, plain and library times, the least time the card could
+     take, the plan (route, tile, split or chunks) and the share of the
+     dense work that hits and that the kernel computes; after every
+     timing, the profiler counts each call's CUDA launches and device time
+     and traces one request of each path and one step of each train path
+     (device busy time and idle share);
+  7. eval: indoor_eval over the detector's requests and ground_eval over
      the grounder's, against synthetic ground truth, with the IoU on the
      card and on the cpu (metric dicts within 1e-6; times printed);
-  7. edge shapes: the sparse conv at Cin = 3, K = 1, ragged M, Cout 64 /
+  8. edge shapes: the sparse conv at Cin = 3, K = 1, ragged M, Cout 64 /
      128 / 512, all-absent and all-masked tables, a misaligned view, split
      against unsplit; the weight gradient at C of 3, 4, 8 and 12, channels
      that are not a multiple of the tile, C 128 to 1024, K = 1, ragged R,
@@ -48,16 +58,18 @@ Phases (one line each; any failure exits non-zero before the last line):
      (its pair lists held identical to the plain pair pass everywhere);
      the join scan at the reference's unit-test cases, one tile, one tile
      plus one row and ~4M rows;
-  8. end-to-end parity: a small detector and a small grounder (shipped
+  9. end-to-end parity: a small detector and a small grounder (shipped
      widths, cut capacities) on cuda (kernels) and on cpu (plain versions)
-     with the same weights, serving; the detector also one train step;
-  9. one JSON line with the kernels, then the result line.
+     with the same weights, serving; each also one train step (the
+     grounder's matched gt indices identical);
+ 10. one JSON line with the kernels, then the result line.
 Per-call details go to chiprun_out/chip_smoke_calls.json.
 
-``python3 chip_smoke.py --kernels-only`` runs phases 1 and 7 and stops
+``python3 chip_smoke.py --kernels-only`` runs phases 1 and 8 and stops
 (no result line): the quickest check that the kernels build and agree.
 """
 
+import contextlib
 import functools
 import json
 import os
@@ -95,6 +107,15 @@ EXPECTED_GROUND_LAUNCHES = {'sparse_conv_tc': 43, 'sparse_conv_simt': 1,
                             'sparse_dgrad_tc': 0, 'sparse_dgrad_simt': 0,
                             'sparse_wgrad_tc': 0, 'sparse_wgrad_narrow': 0,
                             'join_scan': 12}
+# wrapper calls per grounding train step: as the detector's step, the
+# neck's 7 convs in place of the head's (all 27-offset submanifold, with
+# their input gradient on K2 and weight gradient on K3); the frozen 2D stem
+# and first stage run no sparse kernel
+EXPECTED_GROUND_TRAIN_LAUNCHES = {'sparse_conv_tc': 43, 'sparse_conv_simt': 1,
+                                  'sparse_dgrad_tc': 39,
+                                  'sparse_dgrad_simt': 0,
+                                  'sparse_wgrad_tc': 43,
+                                  'sparse_wgrad_narrow': 1, 'join_scan': 12}
 CONV_GATE = 1e-4  # K2, K3: max|kernel - plain| <= CONV_GATE x max|plain|
 EVAL_GATE = 1e-6  # metric dicts with the IoU on the card vs on the cpu
 SPLIT_GATE = 1e-6  # K3 many chunks vs one: max|d| <= SPLIT_GATE x max
@@ -297,12 +318,15 @@ def _on(args, device):
 
 
 def phase_build():
+    import scipy  # the grounder's host matcher: no fallback without it
     from embodiedscan_torch.ops import kernels
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
     log(card)
+    log(f'[build] python {sys.version.split()[0]}, torch {torch.__version__} '
+        f'(CUDA {torch.version.cuda}), scipy {scipy.__version__}')
     t0 = time.perf_counter()
     kernels.library()
     # registers, spills, and the compiler's notes on serialized wgmma (C7xxx)
@@ -559,9 +583,6 @@ def phase_train(device, cfg=None):
     EXPECTED_TRAIN_LAUNCHES; then one step split into forward, backward
     and optimizer."""
     from embodiedscan_torch.configs.base import build_train, mv_det3d
-    from embodiedscan_torch.ops import pscan as P
-    from embodiedscan_torch.ops import sparse as S
-    from embodiedscan_torch.train.state import train_step
     cfg = cfg or mv_det3d()
     t0 = time.perf_counter()
     model, opt = build_train(cfg, device=device)
@@ -572,19 +593,105 @@ def phase_train(device, cfg=None):
     log(f'[train] built mv_det3d and AdamW on {device} in '
         f'{time.perf_counter() - t0:.1f} s; batch b=1, '
         f'{d.n_points} points, {d.n_views_train} views, {d.n_gt} GT boxes')
+    rec, totals, stats = train_steps('train', model, opt, batch,
+                                     EXPECTED_TRAIN_LAUNCHES)
+    rec.conv, rec.scan = [], []  # the serving replay covers K1 and K2 fwd
+    return rec, totals, stats, model, opt, batch
+
+
+def make_ground_train_batch(cfg, p, v, hw, seed=0):
+    """``make_batch`` with ``cfg.data.max_boxes`` padded gt boxes, the first
+    four valid, and one prompt (``PROMPTS[0]``) tokenized by the port's
+    ``SimpleTokenizer``; each valid box's positive map covers its own word
+    of the prompt (``build_positive_maps``)."""
+    from embodiedscan_torch.models.text import (SimpleTokenizer,
+                                                build_positive_maps)
+    m, g = cfg.model, cfg.data.max_boxes
+    batch = make_batch(1, p, v, hw, g, m.num_classes, seed)
+    text = PROMPTS[0]
+    tok = SimpleTokenizer(max_len=m.max_text_len)
+    enc = tok([text])
+    spans = [[[text.index(w), text.index(w) + len(w)]]
+             for w in ('chair', 'window', 'closest', 'find')]
+    batch['gt_mask'][:, len(spans):] = False
+    batch.update(text_ids=enc['input_ids'], text_mask=enc['attention_mask'],
+                 positive_maps=build_positive_maps(tok, [text], [spans],
+                                                   m.max_text_len, g))
+    return batch
+
+
+def phase_ground_train(device, cfg=None):
+    """The mv_grounding train step at full width (the serving grounder's
+    widths; 20 views, ``max_boxes`` padded gt boxes, 4 valid): ``build_train``
+    with the task's lr multipliers (text encoder, 2D stem and first stage
+    frozen, decoder at 0.1), a checkpoint's box branch (``_box_branch``);
+    :func:`train_steps` against EXPECTED_GROUND_TRAIN_LAUNCHES, the split
+    naming the IoU match cost and the matcher; then every frozen parameter
+    bit-identical and every other one moved."""
+    from embodiedscan_torch.configs.base import build_train, mv_grounding
+    cfg = cfg or mv_grounding()
+    d = cfg.data
+    t0 = time.perf_counter()
+    model, opt = build_train(cfg, device=device)
+    _box_branch(model, 0)
+    batch = to_device(make_ground_train_batch(
+        cfg, d.n_points, d.n_views_train, d.image_hw[0]), device)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    frozen = {n for n, p in model.named_parameters() if not p.requires_grad}
+    groups = {g['lr_mult']: sum(p.numel() for p in g['params'])
+              for g in opt.param_groups}
+    log(f'[ground_train] built mv_grounding and AdamW on {device} in '
+        f'{time.perf_counter() - t0:.1f} s: parameters by lr multiplier '
+        f'{groups}, frozen {sum(before[n].numel() for n in frozen)} in '
+        f'{len(frozen)} tensors; batch b=1, {d.n_points} points, '
+        f'{d.n_views_train} views, {d.max_boxes} gt boxes '
+        f'({int(batch["gt_mask"].sum())} valid), lr {cfg.schedule.lr}, '
+        f'weight decay {cfg.schedule.weight_decay}, matcher '
+        f'{cfg.model.matcher}')
+    rec, totals, stats = train_steps('ground_train', model, opt, batch,
+                                     EXPECTED_GROUND_TRAIN_LAUNCHES)
+    params = dict(model.named_parameters())
+    moved = [n for n in frozen if not torch.equal(params[n], before[n])]
+    still = [n for n in params if n not in frozen and
+             torch.equal(params[n], before[n])]
+    # weight decay moves every nonzero tensor; a zero one stays where the
+    # loss gives it no gradient
+    stuck = [n for n in still if before[n].any()]
+    if moved or stuck:
+        raise RuntimeError(f'grounding train: frozen tensors moved {moved}, '
+                           f'trained tensors did not move {stuck}')
+    log(f'[ground_train] after {len(stats["losses"]) + 1} steps: the '
+        f'{len(frozen)} frozen tensors bit-identical, '
+        f'{len(params) - len(frozen) - len(still)} of the '
+        f'{len(params) - len(frozen)} others moved, {len(still)} zero '
+        f'tensors without a gradient stayed zero{still[:3]}')
+    stats.update(unmoved_zero_tensors=still)
+    stats.update(params_by_lr_mult=groups, frozen_tensors=len(frozen))
+    return rec, totals, stats, model, opt, batch
+
+
+def train_steps(tag, model, opt, batch, want):
+    """One recorded warm-up step, then three timed ones (host clock, each
+    ending in a synchronize), each with its peak memory and its launch
+    counts against ``want``; losses finite and changing; then one step
+    split into forward, backward and optimizer. Returns the recorder (on
+    the host), the launch totals of the timed steps and the stats."""
+    from embodiedscan_torch.ops import pscan as P
+    from embodiedscan_torch.ops import sparse as S
+    from embodiedscan_torch.train.state import train_step
     reset_counts(S, P)
-    with Recorder(S, P) as rec:  # warm-up step: record backward inputs
+    with Recorder(S, P) as rec:  # warm-up step: record kernel inputs
         t0 = time.perf_counter()
         metrics = train_step(model, opt, batch)
         torch.cuda.synchronize()
-    check_counts(read_counts(S, P), EXPECTED_TRAIN_LAUNCHES, 'warm-up step')
-    rec.conv, rec.scan = [], []  # the serving replay covers K1 and K2 fwd
+    check_counts(read_counts(S, P), want, f'{tag} warm-up step')
     rec.to_host()
-    log(f'[train] warm-up step {time.perf_counter() - t0:.2f} s, '
-        f'{len(rec.dgrad)} dgrad and {len(rec.wgrad)} wgrad calls recorded')
+    log(f'[{tag}] warm-up step {time.perf_counter() - t0:.2f} s, '
+        f'{len(rec.conv)} conv, {len(rec.dgrad)} dgrad, {len(rec.wgrad)} '
+        f'wgrad and {len(rec.scan)} join-scan calls recorded')
     history = [metrics]
     step_ms, mem = [], []
-    totals = dict.fromkeys(EXPECTED_TRAIN_LAUNCHES, 0)
+    totals = dict.fromkeys(want, 0)
     for i in range(3):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -595,38 +702,63 @@ def phase_train(device, cfg=None):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         counts = read_counts(S, P)
         mem.append(torch.cuda.max_memory_allocated() / 2**30)
-        check_counts(counts, EXPECTED_TRAIN_LAUNCHES, f'train step {i}')
+        check_counts(counts, want, f'{tag} step {i}')
         for name in totals:
             totals[name] += counts[name]
         vals = {k: float(v) for k, v in metrics.items()}
         if not all(np.isfinite(v) for v in vals.values()):
-            raise RuntimeError(f'train step {i}: non-finite losses {vals}')
+            raise RuntimeError(f'{tag} step {i}: non-finite losses {vals}')
         history.append(metrics)
-        log(f'[train] step {i}: {step_ms[-1]:.1f} ms, peak {mem[-1]:.2f} '
+        log(f'[{tag}] step {i}: {step_ms[-1]:.1f} ms, peak {mem[-1]:.2f} '
             f'GiB, ' + ', '.join(f'{k} {v:.6g}' for k, v in vals.items()) +
             f', launches {counts}')
     totals_seen = [float(m['loss_total']) for m in history]
     if len(set(totals_seen)) != len(totals_seen):
-        raise RuntimeError(f'loss_total did not change between steps: '
-                           f'{totals_seen}')
-    split = step_split(model, opt, batch, S, P)
-    log(f'[train] step ms {[round(t, 3) for t in step_ms]}, peak GiB '
+        raise RuntimeError(f'{tag}: loss_total did not change between '
+                           f'steps: {totals_seen}')
+    split = step_split(model, opt, batch, S, P, want)
+    log(f'[{tag}] step ms {[round(t, 3) for t in step_ms]}, peak GiB '
         f'{max(mem):.3f}; one step split: ' + ', '.join(
             f'{k} {v:.2f} ms' for k, v in split.items()))
     stats = dict(step_ms=step_ms, peak_gib=mem, split_ms=split,
                  losses=[{k: float(v) for k, v in m.items()}
                          for m in history])
-    return rec, totals, stats, model, opt, batch
+    return rec, totals, stats
 
 
-def step_split(model, opt, batch, S, P):
+def step_split(model, opt, batch, S, P, want):
     """Host-clock forward, backward and optimizer ms of one train step
-    (each part ending in a synchronize); its launches are checked too."""
+    (each part ending in a synchronize); its launches are checked too. A
+    grounder's forward also reports, each between synchronizes, its IoU
+    match cost and its matcher (the host matcher's copies included)."""
+    parts = {}
+    restore = []
+    if hasattr(model, 'match_fn'):
+        from embodiedscan_torch.models import grounding as G
+
+        def timed(name, fn):
+            def run(*args):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*args)
+                torch.cuda.synchronize()
+                parts[name] = (time.perf_counter() - t) * 1e3
+                return out
+            return run
+
+        for obj, name, part in ((G, 'paired_iou_pruned', 'of_which_iou_cost'),
+                                (model, 'match_fn', 'of_which_matcher')):
+            restore.append((obj, name, getattr(obj, name)))
+            setattr(obj, name, timed(part, getattr(obj, name)))
     reset_counts(S, P)
     opt.zero_grad(set_to_none=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    losses = model(batch, mode='loss')
+    try:
+        losses = model(batch, mode='loss')
+    finally:
+        for obj, name, fn in restore:
+            setattr(obj, name, fn)
     total = sum(losses.values())
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -636,8 +768,8 @@ def step_split(model, opt, batch, S, P):
     opt.step()
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    check_counts(read_counts(S, P), EXPECTED_TRAIN_LAUNCHES, 'split step')
-    return dict(forward=(t1 - t0) * 1e3, backward=(t2 - t1) * 1e3,
+    check_counts(read_counts(S, P), want, 'split step')
+    return dict(forward=(t1 - t0) * 1e3, **parts, backward=(t2 - t1) * 1e3,
                 optimizer=(t3 - t2) * 1e3)
 
 
@@ -653,16 +785,23 @@ def profile_run(fn, what):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     # device-side entries only (kernels, copies): the host-side aten
-    # entries report the same device time again
-    ops = [(e.key, _self_device_us(e) / 1e3, e.count)
-           for e in prof.key_averages()
-           if str(e.device_type).endswith('CUDA') and _self_device_us(e) > 0]
+    # entries report the same device time again, and a record_function
+    # span on the device (the optimizer's step) covers its kernels again
+    device = [e for e in prof.key_averages()
+              if str(e.device_type).endswith('CUDA')
+              and _self_device_us(e) > 0]
+    spans = sum(_self_device_us(e) / 1e3 for e in device
+                if getattr(e, 'is_user_annotation', False))
+    ops = [(e.key, _self_device_us(e) / 1e3, e.count) for e in device
+           if not getattr(e, 'is_user_annotation', False)]
     ops.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in ops)
     log(f'[breakdown] profiled {what} {wall:.1f} ms wall, device busy '
-        f'{busy:.1f} ms (idle share {1 - busy / wall:.3f}); top ops: ' +
+        f'{busy:.1f} ms (idle share {1 - busy / wall:.3f}; record_function '
+        f'spans on the device, not counted: {spans:.2f} ms); top ops: ' +
         '; '.join(f'{k[:90]} {t:.2f} ms x{c}' for k, t, c in ops[:8]))
     return dict(profiled_wall_ms=wall, device_busy_ms=busy,
+                device_span_ms=spans,
                 device_ops=[dict(op=k, ms=t, count=c) for k, t, c in ops])
 
 
@@ -843,23 +982,26 @@ def _wgrad_call(S, x, xm, idx, y, ym):
 
 
 @torch.no_grad()
-def phase_kernels(rec, train_rec, device, ground_rec):
+def phase_kernels(rec, train_rec, device, ground_rec, ground_train_rec):
     """Every recorded call of the serving requests (K2 forward, K1: the
-    detector's and the grounder's warm-up requests) and of the warm-up
-    step's backward (K2 dgrad, K3) on the card, one call's inputs on the
-    device at a time; the profiler only after all timings. Each row names
-    its path (det, grounding or train)."""
+    detector's and the grounder's warm-up requests), of the detector's
+    warm-up step's backward (K2 dgrad, K3) and of the grounder's whole
+    warm-up step (K1, K2 forward and dgrad, K3) on the card, one call's
+    inputs on the device at a time; the profiler only after all timings.
+    Each row names its path (det, grounding, train or ground_train)."""
     from embodiedscan_torch.ops import pscan as P
     from embodiedscan_torch.ops import sparse as S
-    serving = (('det', rec), ('grounding', ground_rec))
+    fwd = (('det', rec), ('grounding', ground_rec),
+           ('ground_train', ground_train_rec))
+    bwd = (('train', train_rec), ('ground_train', ground_train_rec))
     runs = {
-        'sparse_conv': ([(p, a) for p, r in serving for a in r.conv],
+        'sparse_conv': ([(p, a) for p, r in fwd for a in r.conv],
                         lambda a: S.gather_matmul_conv(*a)),
-        'sparse_dgrad': ([('train', a) for a in train_rec.dgrad],
+        'sparse_dgrad': ([(p, a) for p, r in bwd for a in r.dgrad],
                          lambda a: S.conv_dgrad(*a[:4])),
-        'sparse_wgrad': ([('train', a) for a in train_rec.wgrad],
+        'sparse_wgrad': ([(p, a) for p, r in bwd for a in r.wgrad],
                          lambda a: S.conv_wgrad(*a)),
-        'join_scan': ([(p, a) for p, r in serving for a in r.scan],
+        'join_scan': ([(p, a) for p, r in fwd for a in r.scan],
                       lambda a: P.join_scan(*a)),
     }
     calls = {name: [] for name in runs}
@@ -888,7 +1030,8 @@ def phase_kernels(rec, train_rec, device, ground_rec):
                 f'{sum(r["plain_ms"] for r in rs):.3f} ms, library '
                 f'{sum(r["library_ms"] for r in rs):.3f} ms, bound '
                 f'{sum(r["bound_ms"] for r in rs):.3f} ms per '
-                f'{"step" if path == "train" else "request"}; max|d| '
+                f'{"request" if path in ("det", "grounding") else "step"}; '
+                f'max|d| '
                 f'{max(r["max_abs_err"] for r in rs)}; CUDA launches '
                 f'{sum(r["cuda_launches"] for r in rs)}, device-only '
                 f'{sum(r["device_ms"] for r in rs):.3f} ms')
@@ -905,7 +1048,8 @@ def phase_kernels(rec, train_rec, device, ground_rec):
                 f'max|d|/max|ref| '
                 f'{r["max_abs_err"] / max(r["max_abs_ref"], 1e-30):.2e}')
     for r in calls['sparse_wgrad']:
-        log(f'[kernels] sparse_wgrad {r["r"]}x{r["k"]} {r["cx"]}x{r["cy"]} '
+        log(f'[kernels] sparse_wgrad ({r["path"]}) {r["r"]}x{r["k"]} '
+            f'{r["cx"]}x{r["cy"]} '
             f'{r["route"]} {r["tile"][0]}x{r["tile"][1]} chunks '
             f'{r["chunks"]}: '
             f'{r["ms"]:.4f} ms (device {r["device_ms"]:.4f}, bound '
@@ -1256,17 +1400,25 @@ def train_parity(device):
         if not torch.equal(a, b.cpu()):
             raise RuntimeError('train step tables differ between cpu and '
                                'cuda')
-    worst = {}
-    for what, c, g in (('losses', mc, mg), ('grads', gc, gg),
-                       ('batch stats', bc, bg)):
-        worst[what] = (0.0, '')
-        for path, a in _tree_leaves(c):
-            b = _tree_get(g, path)
-            scale = max(float(np.abs(a).max()), 1e-30)
-            ratio = float(np.abs(np.asarray(a) - np.asarray(b)).max()) / scale
-            if not np.isfinite(ratio) or ratio >= worst[what][0]:
-                worst[what] = (ratio, '/'.join(path))
+    worst = {what: _worst({'/'.join(k): v for k, v in _tree_leaves(c)},
+                          {'/'.join(k): v for k, v in _tree_leaves(g)})
+             for what, c, g in (('losses', mc, mg), ('grads', gc, gg),
+                                ('batch stats', bc, bg))}
     return len(tables), mc, mg, worst
+
+
+def _worst(cpu, cuda, scales=None):
+    """(the worst max|cuda - cpu| / scale over the leaves of two flat dicts
+    of arrays or tensors, that leaf's key); the scale is ``scales[key]``
+    or max|cpu|; a non-finite ratio is the worst."""
+    worst = (0.0, '')
+    for key, a in cpu.items():
+        a, b = np.asarray(a), np.asarray(cuda[key])
+        scale = max(scales[key] if scales else float(np.abs(a).max()), 1e-30)
+        ratio = float(np.abs(a - b).max()) / scale
+        if not np.isfinite(ratio) or ratio >= worst[0]:
+            worst = (ratio, key)
+    return worst
 
 
 def phase_train_parity(device):
@@ -1285,18 +1437,169 @@ def phase_train_parity(device):
         f' (gate {GRAD_GATE})')
 
 
+LOSS_RTOL = 1e-5  # grounding train step cpu vs cuda: each loss
+# A gradient leaf five orders below the largest of its block (the module
+# holding its layer: an attention, a position embedding) is rounding
+# residue: an attention's key bias and a position embedding's bias before
+# its batch-statistics norm are zero in exact arithmetic, and the random
+# RoBERTa's output tokens nearly coincide (spread ~1e-4 of their size),
+# which leaves the text attention's query and key gradients near zero.
+# Such a leaf is held to GRAD_GATE x its block's max|cpu|.
+RESIDUE = 1e-5
+
+
+def _gate_scales(grads):
+    """Each gradient leaf's scale for the gate: its max|cpu|, or its
+    block's where that is RESIDUE times larger (see RESIDUE)."""
+    block = {}
+    for name, g in grads.items():
+        key = name.rsplit('.', 2)[0]
+        block[key] = max(block.get(key, 0.0), float(g.abs().max()))
+    scales = {}
+    for name, g in grads.items():
+        own, top = float(g.abs().max()), block[name.rsplit('.', 2)[0]]
+        scales[name] = top if own < RESIDUE * top else own
+    return scales
+
+
+# A ReLU's gradient jumps where its input crosses 0. The card and the cpu
+# compute the forward in another order, so a unit whose input lies within
+# rounding of 0 can switch on one side only: in the small grounder's step
+# the card's text and neck outputs differ from the cpu's by ~1.5e-5 and
+# switch one of 524,288 units of a decoder FFN, which moves that layer's
+# fc1 gradient by 6.7e-2 of its max (on the cpu alone, moving the neck
+# output by 1e-6 of its size moves it by 3.5e-4). As with the matched
+# indices, the cpu step takes the card's decisions: where the two differ,
+# the cpu's input must be within FLIP_ATOL x max|input| of 0.
+FLIP_ATOL = 1e-4
+
+
+@contextlib.contextmanager
+def _relu_decisions(follow=None):
+    """While active, every ``F.relu`` logs its decisions (input > 0) into
+    the yielded ``decisions`` list; with ``follow`` (another run's list),
+    call k returns ``x * follow[k]``: that run's decisions on this run's
+    values (the same values and gradients wherever the two agree). Each
+    differing decision must be a tie within FLIP_ATOL x max|x|; ``flips``
+    collects (call, count, worst |x| / max|x|)."""
+    functional = torch.nn.functional
+    relu = functional.relu
+    decisions, flips = [], []
+
+    def patched(x, inplace=False):
+        mine = x > 0
+        decisions.append(mine.cpu())
+        if follow is None:
+            return relu(x, inplace=inplace)
+        want = follow[len(decisions) - 1].to(x.device)
+        diff = want != mine
+        if diff.any():
+            size = x.detach().abs()
+            worst = float(size[diff].max()) / max(float(size.max()), 1e-30)
+            if not worst <= FLIP_ATOL:
+                raise RuntimeError(f'relu call {len(decisions) - 1}: '
+                                   f'{int(diff.sum())} decisions differ, '
+                                   f'|x| up to {worst:.3g} x max|x|')
+            flips.append((len(decisions) - 1, int(diff.sum()), worst))
+        return x * want.to(x.dtype)
+
+    functional.relu = patched
+    try:
+        yield decisions, flips
+    finally:
+        functional.relu = relu
+
+
+def _ground_step(model, cfg, batch, dev, follow=None):
+    """One train step of a grounder with the task's lr multipliers, its
+    ReLUs logged or following ``follow`` (:func:`_relu_decisions`): the
+    recorder, the losses, the gradients, the buffers after the step, the
+    matched gt indices, the ReLU decisions and the flips."""
+    from embodiedscan_torch.ops import pscan as P
+    from embodiedscan_torch.ops import sparse as S
+    from embodiedscan_torch.train.loop import lr_mult_fn_for
+    from embodiedscan_torch.train.state import make_optimizer, train_step
+    opt = make_optimizer(model, cfg, lr_mult_fn_for(cfg.model.task))
+    seen = []
+    match = model.match
+    model.match = lambda *a: seen.append(match(*a)) or seen[-1]
+    try:
+        with Recorder(S, P) as rec, _relu_decisions(follow) as (dec, flips):
+            metrics = train_step(model, opt, to_device(batch, dev))
+    finally:
+        del model.match  # back to the class's method
+    return (rec, {k: float(v) for k, v in metrics.items()},
+            {n: p.grad.cpu() for n, p in model.named_parameters()
+             if p.grad is not None},
+            {n: b.cpu() for n, b in model.named_buffers()}, seen[0].cpu(),
+            dec, flips)
+
+
+def phase_ground_train_parity(device):
+    """One train step of the small grounder (``_ground_parity_cfg``: the
+    shipped widths, RoBERTa-base) with the task's lr multipliers on
+    ``device`` (kernels), then on cpu (plain versions) taking the card's
+    ReLU decisions (``_relu_decisions``), from the same weights and batch:
+    every conv, dgrad and wgrad table and every layer's matched gt indices
+    identical, each loss within LOSS_RTOL of the cpu's, every gradient leaf
+    within GRAD_GATE x its scale (``_gate_scales``) and every batch
+    statistic within GRAD_GATE x its max|cpu|."""
+    from embodiedscan_torch.configs.base import build_model
+    cfg = _ground_parity_cfg()
+    cpu = _box_branch(build_model(cfg, device='cpu'), 7).train()
+    gpu = build_model(cfg, device=device).train()
+    gpu.load_state_dict(cpu.state_dict())
+    batch = make_ground_train_batch(cfg, 6000, 4, 96, seed=7)
+    rg, mg, gg, bg, ig, dec, _ = _ground_step(gpu, cfg, batch, device)
+    rc, mc, gc, bc, ic, _, flips = _ground_step(cpu, cfg, batch, 'cpu', dec)
+    kinds = ('conv', 'dgrad', 'wgrad')
+    if any(len(getattr(rc, k)) != len(getattr(rg, k)) or not getattr(rc, k)
+           for k in kinds):
+        raise RuntimeError('cpu and cuda grounding train steps made '
+                           'different calls')
+    tables = [(a[2], b[2]) for k in kinds
+              for a, b in zip(getattr(rc, k), getattr(rg, k))]
+    if not all(torch.equal(a, b.cpu()) for a, b in tables):
+        raise RuntimeError('grounding train step tables differ between cpu '
+                           'and cuda')
+    if not torch.equal(ic, ig):
+        raise RuntimeError('grounding train step: matched gt indices differ '
+                           'between cpu and cuda')
+    loss_err = max(abs(mg[k] - v) / abs(v) for k, v in mc.items())
+    if not loss_err <= LOSS_RTOL:
+        raise RuntimeError(f'grounding train step losses: {mc} vs {mg}')
+    if set(gc) != set(gg):
+        raise RuntimeError('cpu and cuda grounders have gradients for '
+                           'different parameters')
+    scales = _gate_scales(gc)
+    residue = sorted(n for n, v in scales.items()
+                     if v > float(gc[n].abs().max()))
+    worst = {'grads': _worst(gc, gg, scales), 'batch stats': _worst(bc, bg)}
+    for what, (ratio, key) in worst.items():
+        if not np.isfinite(ratio) or ratio > GRAD_GATE:
+            raise RuntimeError(f'grounding train step {what} {key}: '
+                               f'max|d|/scale {ratio} > {GRAD_GATE}')
+    log(f'[parity] grounding train step cpu vs cuda: {len(tables)} tables '
+        f'and the matched gt indices of {ic.shape[0]} layers identical '
+        f'({int((ic >= 0).sum())} matches), losses within {loss_err:.2e} '
+        f'relative (gate {LOSS_RTOL}), loss_total {mc["loss_total"]:.6g}; '
+        f'{sum(n for _, n, _ in flips)} of the cpu\'s ReLU decisions in '
+        f'{len(flips)} of {len(dec)} calls took the card\'s, each a tie '
+        f'within {max([w for _, _, w in flips], default=0):.2e} x max|x| '
+        f'(gate {FLIP_ATOL}); worst max|d|/scale over {len(gc)} gradient '
+        f'leaves and the batch statistics: ' +
+        ', '.join(f'{k} {v:.2e} ({p})' for k, (v, p) in worst.items()) +
+        f' (gate {GRAD_GATE}); {len(residue)} residue leaves on their '
+        f'block\'s scale ({", ".join(residue[:4])}, ...)')
+    return dict(worst=worst, flips=flips, loss_rel=loss_err)
+
+
 def _tree_leaves(tree, prefix=()):
     for key, val in tree.items():
         if isinstance(val, dict):
             yield from _tree_leaves(val, prefix + (key,))
         else:
             yield prefix + (key,), val
-
-
-def _tree_get(tree, path):
-    for key in path:
-        tree = tree[key]
-    return tree
 
 
 def _box_branch(model, seed):
@@ -1460,11 +1763,12 @@ def phase_ground_parity(device):
 
 
 def kernel_line(calls, totals):
-    """The kernels line: the serving paths' K2 forward and K1 rows (the
-    detector's and the grounder's requests), the training path's K2 dgrad
-    and K3 rows; launches summed over the main paths' timed runs, every
-    other number from this run's replays (summed over one recorded
-    detector request and one grounding request, or one train step)."""
+    """The kernels line: K2 forward and K1 rows (the detector's and the
+    grounder's requests and the grounding train step), K2 dgrad and K3
+    rows (the detector's and the grounder's train steps); launches summed
+    over the main paths' timed runs, every other number from this run's
+    replays (summed over one recorded detector request, one grounding
+    request and the grounding train step, or over the two train steps)."""
     rows = []
     conv = ('embodiedscan_torch/csrc/sparse_conv.cu',
             'embodiedscan_tpu/experimental/pallas_conv.py:62')
@@ -1522,8 +1826,10 @@ def main():
     ground_rec.to_host()
     train_rec, train_totals, train_stats, tmodel, opt, tbatch = \
         phase_train('cuda')
+    gt_rec, gt_totals, gt_stats, gtmodel, gtopt, gtbatch = \
+        phase_ground_train('cuda')
     # event timings first, every profiler session after them (see cuda_ms)
-    calls = phase_kernels(rec, train_rec, 'cuda', ground_rec)
+    calls = phase_kernels(rec, train_rec, 'cuda', ground_rec, gt_rec)
     with torch.no_grad():
         main_stats.update(profile_run(
             lambda: model(batch, mode='predict'), 'request'))
@@ -1532,23 +1838,29 @@ def main():
     from embodiedscan_torch.train.state import train_step
     train_stats.update(profile_run(lambda: train_step(tmodel, opt, tbatch),
                                    'train step'))
-    del rec, ground_rec, train_rec, model, batch, gmodel, gbatch, tmodel, \
-        opt, tbatch
+    gt_stats.update(profile_run(lambda: train_step(gtmodel, gtopt, gtbatch),
+                                'grounding train step'))
+    del rec, ground_rec, train_rec, gt_rec, model, batch, gmodel, gbatch, \
+        tmodel, opt, tbatch, gtmodel, gtopt, gtbatch
     eval_stats = phase_eval(det_preds, ground_preds, 'cuda')
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, 'chip_smoke_calls.json'), 'w') as f:
         json.dump(dict(card=card, main=main_stats, grounding=ground_stats,
-                       train=train_stats, eval=eval_stats, calls=calls), f,
-                  indent=1)
+                       train=train_stats, ground_train=gt_stats,
+                       eval=eval_stats, calls=calls), f, indent=1)
     phase_edges('cuda')
     phase_e2e_parity('cuda')
     phase_ground_parity('cuda')
     phase_train_parity('cuda')
+    phase_ground_train_parity('cuda')
     log(f'[done] {time.perf_counter() - t_start:.1f} s')
     for name, n in ground_totals.items():
         totals[name] += n
-    totals.update({k: v for k, v in train_totals.items()
-                   if k.startswith(('sparse_dgrad', 'sparse_wgrad'))})
+    for name, n in train_totals.items():
+        if name.startswith(('sparse_dgrad', 'sparse_wgrad')):
+            totals[name] = n
+    for name, n in gt_totals.items():
+        totals[name] += n
     print(kernel_line(calls, totals))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

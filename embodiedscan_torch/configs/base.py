@@ -14,6 +14,7 @@ class DataConfig:
     n_points: int = 100000
     image_hw: Sequence[int] = (480, 480)
     n_gt: int = 128  # padded ground-truth boxes per training scene
+    max_boxes: int = 200  # padded gt boxes per grounding prompt
 
 
 @dataclasses.dataclass
@@ -57,6 +58,16 @@ class ModelConfig:
     box_coder: str = 'baseline'
     # the text encoder's output is detached (the reference's lr_mult=0)
     freeze_text: bool = True
+    # grounding loss (configs/grounding/mv-grounding...py:63-92): the
+    # matcher ('hungarian' on the host | 'auction' on the device), the
+    # pairs the IoU match cost clips exactly (0 = max(2048, pairs // 8)),
+    # the cost weights and the decoupled box loss's weights
+    matcher: str = 'hungarian'
+    iou_cost_capacity: int = 0
+    cost_cls_weight: float = 1.0
+    cost_l1_weight: float = 2.0
+    cost_iou_weight: float = 2.0
+    decouple_weights: Sequence[float] = (0.2, 0.2, 0.2, 0.4)
 
 
 @dataclasses.dataclass
@@ -75,10 +86,15 @@ def mv_det3d() -> Config:
 
 def mv_grounding() -> Config:
     """configs/grounding/mv-grounding_8xb12_embodiedscan-vg-9dof.py (the
-    model; its data and schedule fields wait for the data slice)."""
+    model, the schedule and the gt padding; its data files wait for the
+    data slice)."""
     cfg = Config()
     cfg.model.task = 'mv_grounding'
     cfg.model.fpn_capacities = (1024, 1024, 1024, 2048)
+    # 64 padded gt boxes bound every published prompt family
+    cfg.data.max_boxes = 64
+    cfg.schedule.lr = 5e-4
+    cfg.schedule.weight_decay = 5e-4
     return cfg
 
 
@@ -125,7 +141,11 @@ def build_model(cfg: Config, device='cuda', img_dtype=torch.float32,
             text_arch=m.text_arch, text_layers=m.text_layers,
             text_hidden=m.text_hidden, text_heads=m.text_heads,
             freeze_text=m.freeze_text, box_coder=m.box_coder,
-            img_dtype=img_dtype)
+            matcher=m.matcher, iou_cost_capacity=m.iou_cost_capacity,
+            cost_cls_weight=m.cost_cls_weight,
+            cost_l1_weight=m.cost_l1_weight,
+            cost_iou_weight=m.cost_iou_weight,
+            decouple_weights=tuple(m.decouple_weights), img_dtype=img_dtype)
     else:
         raise NotImplementedError(f'task {m.task!r} is not ported yet')
     if generator is None:
@@ -136,7 +156,10 @@ def build_model(cfg: Config, device='cuda', img_dtype=torch.float32,
 
 def build_train(cfg: Config, device='cuda'):
     """(model in training mode, its optimizer): :func:`build_model`, then
-    ``train.state.make_optimizer`` over every parameter."""
+    ``train.state.make_optimizer`` with the task's lr multipliers
+    (``train.loop.lr_mult_fn_for``), which freeze the 2D stem and first
+    stage, and the grounder's text encoder."""
+    from ..train.loop import lr_mult_fn_for
     from ..train.state import make_optimizer
     model = build_model(cfg, device=device).train()
-    return model, make_optimizer(model, cfg)
+    return model, make_optimizer(model, cfg, lr_mult_fn_for(cfg.model.task))

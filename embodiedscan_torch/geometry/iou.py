@@ -181,6 +181,31 @@ def boxes3d_overlap(boxes1: torch.Tensor, boxes2: torch.Tensor):
     return vol, iou
 
 
+def paired_iou_pruned(boxes1: torch.Tensor, boxes2: torch.Tensor,
+                      capacity: int) -> torch.Tensor:
+    """Exact IoU of aligned box pairs with SAT pruning: (P, 9) x 2 -> (P,).
+
+    Of the pairs a match cost needs, most do not overlap at all.
+    :func:`_axis_overlap_bound` bounds each pair's intersection volume from
+    above, so a pair whose bound is 0 has IoU 0 exactly: only the
+    ``capacity`` pairs with the largest bounds (a stable descending sort,
+    ties by index) are clipped, the rest take 0. Exact unless more than
+    ``capacity`` pairs overlap; then the smallest-bound ones are dropped.
+    For costs without gradient (matching).
+    """
+    p = boxes1.shape[0]
+    v1 = torch.abs(boxes1[:, 3] * boxes1[:, 4] * boxes1[:, 5])
+    v2 = torch.abs(boxes2[:, 3] * boxes2[:, 4] * boxes2[:, 5])
+    if capacity >= p:
+        vol = _intersection_volume_flat(boxes1, boxes2)
+    else:
+        bound = _axis_overlap_bound(boxes1, boxes2)
+        sel = torch.sort(-bound, stable=True)[1][:capacity]
+        vol = boxes1.new_zeros(p).index_put_(
+            (sel,), _intersection_volume_flat(boxes1[sel], boxes2[sel]))
+    return vol / torch.clamp(v1 + v2 - vol, min=1e-8)
+
+
 def boxes3d_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     """Pairwise exact IoU of oriented 9-DoF boxes: (N, 9) x (M, 9) -> (N, M)."""
     return boxes3d_overlap(boxes1, boxes2)[1]

@@ -1,5 +1,5 @@
-"""3D visual grounding: sparse neck, DETR decoder, grounder (port of the
-serving parts of ``embodiedscan_tpu/models/grounding.py``).
+"""3D visual grounding: sparse neck, DETR decoder, grounder (port of
+``embodiedscan_tpu/models/grounding.py``).
 
 - ``MinkNeck``: the FCAF-style sparse FPN that emits per-location
   features, scores and coordinates for the decoder (its convs run on K2,
@@ -8,11 +8,17 @@ serving parts of ``embodiedscan_tpu/models/grounding.py``).
   cross-attention -> FFN, post-norm (flax LayerNorms, eps 1e-6).
 - ``SparseFusionGrounder``: trunk + text encoder + top-k query selection +
   6 decoder layers with a shared box branch and contrastive token logits;
-  ``mode='feats'`` and ``'predict'``.
+  ``mode='feats'``, ``'predict'`` and ``'loss'`` (every layer's boxes
+  matched to the ground truth, then a token focal loss and a decoupled
+  corner-chamfer box loss per layer).
 
 Batch layout: the detector's (``models/detector.py``) plus
     text_ids:  (B, L) int token ids
     text_mask: (B, L) 0/1 token mask
+and, for the loss,
+    positive_maps: (B, G, L) float, each gt box's normalized token map
+    gt_boxes:      (B, G, 9) float
+    gt_mask:       (B, G) bool, the valid (unpadded) gt boxes
 """
 
 import math
@@ -22,10 +28,14 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..geometry.iou import paired_iou_pruned
 from ..geometry.rotations import rotation_3d_in_euler
 from ..ops import sparse as S
+from ..ops.hungarian import auction_match, hungarian_match
 from .attention import MultiHeadDotProductAttention
 from .fcaf3d import _CLS_BIAS, fpn_up_block
+from .losses import bbox_cd_loss
+from .match_costs import bbox3d_l1_cost, binary_focal_cost
 from .norm import MaskedBatchNorm
 from .sparse_nn import SparseConv
 from .text import FLAX_LN_EPS, TextEncoder
@@ -175,6 +185,8 @@ def decode_fcaf(points: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
 
 
 _BOX_CODERS = {'baseline': decode_baseline, 'FCAF': decode_fcaf}
+# 'hungarian': scipy on the host, as the reference; 'auction': on the device
+_MATCHERS = {'hungarian': hungarian_match, 'auction': auction_match}
 
 
 class ContrastiveEmbed(nn.Module):
@@ -228,10 +240,22 @@ class SparseFusionGrounder(nn.Module):
                  text_arch: str = 'roberta', text_layers: int = 12,
                  text_hidden: int = 768, text_heads: int = 12,
                  freeze_text: bool = True, box_coder: str = 'baseline',
+                 matcher: str = 'hungarian', iou_cost_capacity: int = 0,
+                 cost_cls_weight: float = 1.0, cost_l1_weight: float = 2.0,
+                 cost_iou_weight: float = 2.0,
+                 decouple_weights=(0.2, 0.2, 0.2, 0.4),
                  img_dtype: torch.dtype = torch.float32):
         super().__init__()
         if box_coder not in _BOX_CODERS:
             raise ValueError(f'unknown box coder {box_coder!r}')
+        if matcher not in _MATCHERS:
+            raise ValueError(f'unknown matcher {matcher!r}')
+        self.match_fn = _MATCHERS[matcher]
+        # pairs the IoU match cost clips exactly; 0 = max(2048, pairs // 8)
+        self.iou_cost_capacity = iou_cost_capacity
+        self.cost_weights = (cost_cls_weight, cost_l1_weight,
+                             cost_iou_weight)
+        self.decouple_weights = tuple(decouple_weights)
         self.num_queries = num_queries
         self.num_decoder_layers = num_decoder_layers
         self.decode_boxes = _BOX_CODERS[box_coder]
@@ -269,8 +293,10 @@ class SparseFusionGrounder(nn.Module):
     def decoder(self, query, query_coords, query_mask, feats, xyz, mask,
                 text_feats, text_mask) -> GroundingOutputs:
         """The decoder layers, each refining the boxes from the query
-        locations; per-layer token logits and boxes."""
-        pred_bboxes = self.decode_boxes(query_coords, self.reg_branch(query))
+        locations; per-layer token logits and boxes. The boxes fed back into
+        the next layer's position embedding carry no gradient."""
+        pred_bboxes = self.decode_boxes(query_coords,
+                                        self.reg_branch(query)).detach()
         key_pos = self.cross_posembed(xyz, mask)
         all_cls, all_boxes = [], []
         for i in range(self.num_decoder_layers):
@@ -278,11 +304,11 @@ class SparseFusionGrounder(nn.Module):
             query = getattr(self, f'layer{i}')(
                 query, query_pos, query_mask, feats, key_pos, mask,
                 text_feats, text_mask)
-            pred_bboxes = self.decode_boxes(query_coords,
-                                            self.reg_branch(query))
+            new_boxes = self.decode_boxes(query_coords, self.reg_branch(query))
+            pred_bboxes = new_boxes.detach()
             all_cls.append(self.cls_embed(self.decoder_norm(query),
                                           text_feats, text_mask))
-            all_boxes.append(pred_bboxes)
+            all_boxes.append(new_boxes)
         return GroundingOutputs(torch.stack(all_cls), torch.stack(all_boxes),
                                 query_mask)
 
@@ -296,19 +322,105 @@ class SparseFusionGrounder(nn.Module):
         return dict(bboxes=outs.boxes[-1], scores=scores,
                     mask=outs.query_mask)
 
+    def outputs(self, batch: dict) -> tuple:
+        """(GroundingOutputs, text mask): trunk, neck, text encoder, query
+        selection and decoder."""
+        feats, _, xyz, mask = self.neck(self.trunk(batch))
+        text_mask = batch['text_mask'] > 0
+        text_feats = self.text_encoder(batch['text_ids'], batch['text_mask'])
+        query, coords, qmask, _ = self.select_queries(
+            feats, xyz, mask, text_feats, text_mask)
+        return self.decoder(query, coords, qmask, feats, xyz, mask,
+                            text_feats, text_mask), text_mask
+
+    @torch.no_grad()
+    def match(self, outs: GroundingOutputs, text_mask: torch.Tensor,
+              batch: dict) -> torch.Tensor:
+        """Every layer's queries matched to the gt boxes in one matcher
+        call: (L, B, Q) int32, the gt index or -1.
+
+        The cost is the token focal cost, the boxes' L1 cost and their
+        negative IoU, weighted; masked queries cost 1e6. The IoU of all
+        L*B*Q*G pairs is one ``paired_iou_pruned`` call."""
+        boxes, cls = outs.boxes, outs.cls
+        gt_boxes, gt_mask = batch['gt_boxes'], batch['gt_mask']
+        (nl, b, q), g = boxes.shape[:3], gt_boxes.shape[1]
+        pairs = nl * b * q * g
+        cap = self.iou_cost_capacity or max(2048, pairs // 8)
+        iou = paired_iou_pruned(
+            boxes[:, :, :, None, :].expand(nl, b, q, g, 9).reshape(-1, 9),
+            gt_boxes[None, :, None].expand(nl, b, q, g, 9).reshape(-1, 9),
+            min(cap, pairs)).reshape(nl, b, q, g)
+        w_cls, w_l1, w_iou = self.cost_weights
+        cost = (w_cls * binary_focal_cost(
+            cls[..., :text_mask.shape[1]], batch['positive_maps'], text_mask)
+            + w_l1 * bbox3d_l1_cost(boxes, gt_boxes) + w_iou * -iou)
+        cost = torch.where(outs.query_mask[None, :, :, None], cost,
+                           cost.new_tensor(1e6))
+        return self.match_fn(cost, gt_mask.expand(nl, b, g))
+
+    def loss(self, outs: GroundingOutputs, text_mask: torch.Tensor,
+             batch: dict) -> dict:
+        """Per decoder layer: the sigmoid focal loss over the (query,
+        valid token) cells against the matched gt's positive map, and the
+        decoupled corner-chamfer loss of the matched boxes (center, size,
+        angles and the whole box, each alone against the gt), both over the
+        batch's matched count clamped at 1. Keys ``d{i}.loss_cls``,
+        ``d{i}.loss_bbox``, and ``loss_cls``, ``loss_bbox`` for the last
+        layer."""
+        matched = self.match(outs, text_mask, batch)
+        pos_maps, gt_boxes = batch['positive_maps'], batch['gt_boxes']
+        cls, boxes = outs.cls, outs.boxes
+        nl, b, q, t = cls.shape
+        pos = matched >= 0
+        safe = torch.clamp(matched, min=0).long()
+        bidx = torch.arange(b, device=cls.device)[None, :, None]
+        labels = torch.where(pos[..., None], pos_maps[bidx, safe],
+                             pos_maps.new_zeros(()))
+        tgt = gt_boxes[bidx, safe]
+        num_pos = pos.sum((1, 2)).to(cls.dtype)
+        avg = torch.clamp(num_pos, min=1.0)
+        tmask = torch.zeros(b, t, dtype=torch.bool, device=cls.device)
+        tmask[:, :text_mask.shape[1]] = text_mask
+        cell = outs.query_mask[:, :, None] & tmask[:, None, :]
+        lab = torch.zeros_like(cls)
+        lab[..., :labels.shape[-1]] = labels
+        p = torch.sigmoid(cls)
+        is_pos = lab > 0
+        pt = torch.where(is_pos, p, 1 - p)
+        alpha_t = torch.where(is_pos, 0.25, 0.75)
+        focal = alpha_t * torch.pow(1 - pt, 2.0) * \
+            -torch.log(torch.maximum(pt, pt.new_tensor(1e-12)))
+        cls_loss = torch.where(cell, focal, torch.zeros_like(focal)).sum(
+            (1, 2, 3)) / avg
+        valid = pos.reshape(-1)
+        pb, tb = boxes.reshape(-1, 9), tgt.reshape(-1, 9)
+        groups = (torch.cat([pb[:, :3], tb[:, 3:]], -1),
+                  torch.cat([tb[:, :3], pb[:, 3:6], tb[:, 6:]], -1),
+                  torch.cat([tb[:, :6], pb[:, 6:]], -1),
+                  pb)
+        denom = torch.clamp(pos.reshape(nl, -1).sum(1).to(cls.dtype) * 8,
+                            min=1.0)
+        bbox_loss = sum(
+            w * bbox_cd_loss(g_, tb, valid, 'none').reshape(nl, -1).sum(1)
+            / denom for w, g_ in zip(self.decouple_weights, groups))
+        bbox_loss = torch.nan_to_num(bbox_loss)
+        losses = {}
+        for i in range(nl):
+            pre = '' if i == nl - 1 else f'd{i}.'
+            losses[f'{pre}loss_cls'] = cls_loss[i]
+            losses[f'{pre}loss_bbox'] = bbox_loss[i]
+        return losses
+
     def forward(self, batch: dict, mode: str = 'predict'):
-        """``'feats'`` (GroundingOutputs) or ``'predict'`` (bboxes (B, Q, 9),
-        scores (B, Q), mask (B, Q)); both without autograd. The training
-        loss is not ported yet."""
+        """``'loss'`` (with autograd; needs positive_maps, gt_boxes and
+        gt_mask) returns the per-layer losses of :meth:`loss`; ``'feats'``
+        (GroundingOutputs) and ``'predict'`` (bboxes (B, Q, 9), scores
+        (B, Q), mask (B, Q)) run without autograd."""
+        if mode == 'loss':
+            return self.loss(*self.outputs(batch), batch)
         if mode not in ('feats', 'predict'):
-            raise NotImplementedError(f'mode {mode!r} is not ported')
+            raise ValueError(f'unknown mode {mode!r}')
         with torch.no_grad():
-            feats, _, xyz, mask = self.neck(self.trunk(batch))
-            text_mask = batch['text_mask'] > 0
-            text_feats = self.text_encoder(batch['text_ids'],
-                                           batch['text_mask'])
-            query, coords, qmask, _ = self.select_queries(
-                feats, xyz, mask, text_feats, text_mask)
-            outs = self.decoder(query, coords, qmask, feats, xyz, mask,
-                                text_feats, text_mask)
+            outs = self.outputs(batch)[0]
             return outs if mode == 'feats' else self.predict(outs)

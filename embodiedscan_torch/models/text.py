@@ -1,6 +1,6 @@
 """Text encoding for visual grounding (port of
-``embodiedscan_tpu/models/text.py``: ``SimpleTokenizer`` and
-``TextEncoder``).
+``embodiedscan_tpu/models/text.py``: ``SimpleTokenizer``,
+``build_positive_maps`` and ``TextEncoder``).
 
 The JAX package runs HuggingFace's Flax RoBERTa; the port carries its own
 RoBERTa in PyTorch, with the submodules named as the flax tree
@@ -64,6 +64,40 @@ class SimpleTokenizer:
         if char_idx < 0 or char_idx >= len(cm) or cm[char_idx] < 0:
             return None
         return int(cm[char_idx])
+
+
+def build_positive_maps(tokenizer, texts: List[str],
+                        tokens_positive: List[List[List[List[int]]]],
+                        max_text_len: int, max_boxes: int) -> np.ndarray:
+    """Char spans -> normalized (B, max_boxes, max_text_len) token maps: a
+    box's row has equal weights summing to ~1 over its spans' tokens.
+
+    ``tokenizer`` must have tokenized ``texts`` last (its ``char_to_token``
+    reads that call). A span edge on a character without a token tries the
+    next one or two characters (start) or the previous one or two (end);
+    a span whose edge still has none is skipped.
+    """
+    b = len(texts)
+    out = np.zeros((b, max_boxes, max_text_len), np.float32)
+    for i in range(b):
+        for j, spans in enumerate(tokens_positive[i][:max_boxes]):
+            for beg, end in spans:
+                beg_pos = tokenizer.char_to_token(i, beg)
+                end_pos = tokenizer.char_to_token(i, end - 1)
+                if beg_pos is None:
+                    beg_pos = tokenizer.char_to_token(i, beg + 1)
+                    if beg_pos is None:
+                        beg_pos = tokenizer.char_to_token(i, beg + 2)
+                if end_pos is None:
+                    end_pos = tokenizer.char_to_token(i, end - 2)
+                    if end_pos is None:
+                        end_pos = tokenizer.char_to_token(i, end - 3)
+                if beg_pos is None or end_pos is None:
+                    continue
+                out[i, j, beg_pos:end_pos + 1] = 1.0
+        sums = out[i].sum(-1, keepdims=True)
+        out[i] = out[i] / (sums + 1e-6)
+    return out
 
 
 class _Embeddings(nn.Module):

@@ -1,10 +1,45 @@
-"""From a predict output to the records the eval metrics take (port of
-``_append_scene_results`` in ``embodiedscan_tpu/train/loop.py`` for the
-detection and grounding tasks; the loop that drives it, ``evaluate``,
-comes with the runtime)."""
+"""Per-parameter lr multipliers and the records the eval metrics take
+(port of ``lr_mult_fn_for`` and of ``_append_scene_results`` in
+``embodiedscan_tpu/train/loop.py`` for the detection and grounding tasks;
+the loops that drive them, ``train`` and ``evaluate``, come with the
+runtime)."""
+
+from typing import Callable
 
 import numpy as np
 import torch
+
+
+def lr_mult_fn_for(task: str) -> Callable[[tuple], float]:
+    """The reference's paramwise lr multipliers as a function of a
+    parameter's path (a tuple of names, joined by ``/`` as the flax path;
+    the port's dotted names split at the dots give the same groups): 0
+    freezes the 2D ResNet's stem and first stage (``frozen_stages=1``) for
+    every task; the grounder also freezes everything under
+    ``text_encoder`` (its output projection included) and trains the
+    decoder (layers, both position embeddings, the decoder norm) at 0.1."""
+
+    def base_freeze(path):
+        joined = '/'.join(str(p) for p in path)
+        if 'stem_conv' in joined or 'stem_bn' in joined or 'layer1_' in joined:
+            return 0.0
+        return 1.0
+
+    if task == 'mv_grounding':
+
+        def fn(path):
+            joined = '/'.join(str(p) for p in path)
+            if 'text_encoder' in joined:
+                return 0.0
+            # the decoder's layer0, layer1, ... at the top of the tree; the
+            # ResNet's layer1_* sits under trunk and is frozen above
+            if joined.startswith(('layer', 'self_posembed', 'cross_posembed',
+                                  'decoder_norm')):
+                return 0.1
+            return base_freeze(path)
+
+        return fn
+    return base_freeze
 
 
 def _host(x) -> np.ndarray:

@@ -1,11 +1,17 @@
 """Optimizer, learning-rate schedule and the train step (port of
 ``embodiedscan_tpu/train/state.py``: ``multistep_lr``, ``make_optimizer``
-without per-parameter lr multipliers, ``make_train_step``).
+with its per-parameter lr multipliers, ``make_train_step``).
 
 The reference chains optax's ``clip_by_global_norm(10)`` and ``adamw(lr,
 weight_decay=1e-4)`` under a step schedule; here one ``torch.optim.AdamW``
 subclass clips, sets the scheduled rate and steps, with the same formulas.
+With multipliers the reference runs that chain once per group of equal
+multiplier (``optax.multi_transform``), scaled by the multiplier, and
+``set_to_zero`` for the multiplier 0; here each group is a parameter
+group, clipped on its own, and the frozen parameters leave the optimizer.
 """
+
+from typing import Callable
 
 import torch
 from torch import nn
@@ -36,8 +42,11 @@ def multistep_lr(base_lr: float, steps_per_epoch: int, milestones=(8, 11),
 
 class ClippedAdamW(torch.optim.AdamW):
     """AdamW (betas 0.9 / 0.999, eps 1e-8, decoupled weight decay on every
-    parameter, as ``optax.adamw``) after a global-norm clip, at the rate
-    ``schedule(count)`` for the update made after ``count`` earlier ones.
+    parameter, as ``optax.adamw``) after a global-norm clip of each
+    parameter group's gradients, at the rate ``schedule(count)`` times the
+    group's ``lr_mult`` (default 1) for the update made after ``count``
+    earlier ones. A parameter the loss does not reach gets a zero gradient,
+    as optax sees it: AdamW still decays it.
 
     Each parameter group keeps ``count`` (as optax's schedule state counts
     updates), so ``state_dict`` / ``load_state_dict`` resume the schedule
@@ -51,33 +60,60 @@ class ClippedAdamW(torch.optim.AdamW):
         self.clip_norm = clip_norm
         for group in self.param_groups:
             group['count'] = 0
+            group.setdefault('lr_mult', 1.0)
 
     @torch.no_grad()
     def clip_grads_(self) -> torch.Tensor:
-        """Scale the gradients by ``min(1, clip_norm / norm)`` with norm the
-        global norm of all of them (optax's clip, no epsilon); returns the
-        norm before the clip."""
-        grads = [p.grad for g in self.param_groups for p in g['params']
-                 if p.grad is not None]
-        norm = torch.linalg.vector_norm(torch.stack(
-            torch._foreach_norm(grads)))
-        torch._foreach_mul_(grads, torch.clamp(self.clip_norm / norm,
-                                               max=1.0))
-        return norm
+        """Scale each group's gradients by ``min(1, clip_norm / norm)`` with
+        norm the global norm of that group's gradients (optax's clip, no
+        epsilon); returns the norms before the clip, one per group."""
+        norms = []
+        for group in self.param_groups:
+            grads = [p.grad for p in group['params'] if p.grad is not None]
+            norm = torch.linalg.vector_norm(torch.stack(
+                torch._foreach_norm(grads)))
+            torch._foreach_mul_(grads, torch.clamp(self.clip_norm / norm,
+                                                   max=1.0))
+            norms.append(norm)
+        return torch.stack(norms)
 
     def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group['params']:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         self.clip_grads_()
         for group in self.param_groups:
-            group['lr'] = self.schedule(group['count'])
+            group['lr'] = self.schedule(group['count']) * group['lr_mult']
             group['count'] += 1
         return super().step(closure)
 
 
-def make_optimizer(model: nn.Module, cfg) -> ClippedAdamW:
-    """The optimizer of ``cfg.schedule`` over every parameter of ``model``;
-    an epoch is ``cfg.schedule.steps_per_epoch`` updates."""
+def make_optimizer(model: nn.Module, cfg,
+                   lr_mult_fn: Callable[[tuple], float] | None = None
+                   ) -> ClippedAdamW:
+    """The optimizer of ``cfg.schedule`` over the parameters of ``model``;
+    an epoch is ``cfg.schedule.steps_per_epoch`` updates.
+
+    ``lr_mult_fn`` (``train.loop.lr_mult_fn_for``) maps a parameter's name,
+    split at the dots, to its multiplier: one parameter group per distinct
+    multiplier, and a parameter at 0 leaves the optimizer and stops
+    requiring a gradient (no update, no decay, outside every clip norm; no
+    backward runs for it). Without it every parameter is in one group.
+    """
     sc = cfg.schedule
-    return ClippedAdamW(model.parameters(),
+    if lr_mult_fn is None:
+        groups = [dict(params=list(model.parameters()))]
+    else:
+        by_mult = {}
+        for name, p in model.named_parameters():
+            mult = float(lr_mult_fn(tuple(name.split('.'))))
+            if mult == 0.0:
+                p.requires_grad_(False)
+            else:
+                by_mult.setdefault(mult, []).append(p)
+        groups = [dict(params=ps, lr_mult=m) for m, ps in by_mult.items()]
+    return ClippedAdamW(groups,
                         multistep_lr(sc.lr, sc.steps_per_epoch,
                                      sc.milestones),
                         weight_decay=sc.weight_decay, clip_norm=sc.clip_norm)

@@ -213,5 +213,7 @@ def test_build_model_grounding_entry_point():
     for (name, a), b in zip(model.state_dict().items(),
                             again.state_dict().values()):
         assert torch.equal(a, b), name
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
+        model(to_torch(_batches()['room']), mode='bogus')
+    with pytest.raises(KeyError):  # the loss needs the gt and positive maps
         model(to_torch(_batches()['room']), mode='loss')

@@ -33,6 +33,8 @@ def test_no_reference_imports(path):
     'embodiedscan_torch.models.detector', 'embodiedscan_torch.ops.sparse',
     'embodiedscan_torch.models.text', 'embodiedscan_torch.models.attention',
     'embodiedscan_torch.models.grounding',
+    'embodiedscan_torch.models.match_costs',
+    'embodiedscan_torch.ops.hungarian',
     'embodiedscan_torch.eval.indoor_eval',
     'embodiedscan_torch.eval.grounding_metric',
     'embodiedscan_torch.train.loop'])
