@@ -49,8 +49,21 @@ Phases (one line each; any failure exits non-zero before the last line):
   7. eval: indoor_eval over the detector's requests and ground_eval over
      the grounder's, against synthetic ground truth, with the IoU on the
      card and on the cpu (metric dicts within 1e-6; times printed);
-  8. edge shapes: the sparse conv at Cin = 3, K = 1, ragged M, Cout 64 /
-     128 / 512, all-absent and all-masked tables, a misaligned view, split
+  8. published checkpoints ([ckpt]): a seeded state_dict in the layout of
+     a reference EmbodiedScan checkpoint for each preset, at its full
+     width (torchvision ResNet, ME MinkResNet, FCAF3D head or MinkNeck,
+     roberta-base with its 50265-token vocabulary, decoder, head
+     branches), saved as a .pth, converted by
+     ``embodiedscan_torch.tools.convert_checkpoint.main`` on the card (no
+     skip for the detector, only the word embedding for the grounder),
+     restored into a fresh model (bit-identical); converted and restored
+     serve one request each with the same bits and the main paths' launch
+     counts (the grounder's prompt tokenized by BPETokenizer from
+     tests/fixtures/roberta_tok); conversion, checkpoint size, restore and
+     request times beside the card's name and power limit;
+  9. edge shapes: the sparse conv at Cin = 3, K = 1, ragged M, Cout 64 /
+     128 / 512, all-absent and all-masked tables, indices N, N + 5 and -7
+     (absent) on both routes, a misaligned view, split
      against unsplit; the weight gradient at C of 3, 4, 8 and 12, channels
      that are not a multiple of the tile, C 128 to 1024, K = 1, ragged R,
      R = 1, offsets of 0, 1, 31, 32 and 33 pairs, all-absent and
@@ -58,14 +71,15 @@ Phases (one line each; any failure exits non-zero before the last line):
      (its pair lists held identical to the plain pair pass everywhere);
      the join scan at the reference's unit-test cases, one tile, one tile
      plus one row and ~4M rows;
-  9. end-to-end parity: a small detector and a small grounder (shipped
+ 10. end-to-end parity: a small detector and a small grounder (shipped
      widths, cut capacities) on cuda (kernels) and on cpu (plain versions)
-     with the same weights, serving; each also one train step (the
-     grounder's matched gt indices identical);
- 10. one JSON line with the kernels, then the result line.
+     with the same weights, serving, then the same two loaded from
+     reference state_dicts by load_reference_model; each also one train
+     step (the grounder's matched gt indices identical);
+ 11. one JSON line with the kernels, then the result line.
 Per-call details go to chiprun_out/chip_smoke_calls.json.
 
-``python3 chip_smoke.py --kernels-only`` runs phases 1 and 8 and stops
+``python3 chip_smoke.py --kernels-only`` runs phases 1 and 9 and stops
 (no result line): the quickest check that the kernels build and agree.
 """
 
@@ -126,6 +140,13 @@ SPLIT_GATE = 1e-6  # K3 many chunks vs one: max|d| <= SPLIT_GATE x max
 # cut to single TF32, 0.473 (``kernel_ab.py --tf32-control``)
 GRAD_GATE = 3e-4
 OUT_DIR = 'chiprun_out'
+# RoBERTa's byte-level BPE files of the repo's tokenizer fixture
+ROBERTA_TOK = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           'tests', 'fixtures', 'roberta_tok')
+# the one leaf of a grounder checkpoint the port skips: roberta-base's 50265
+# rows against the 30522 of both packages' encoders
+WORD_EMBEDDING = ('text_encoder/FlaxRobertaModule_0/embeddings/'
+                  'word_embeddings/embedding')
 
 
 def log(msg):
@@ -214,13 +235,13 @@ PROMPTS = ('find the chair that is closest to the window',
            'the pillow on the bed, facing the wall')
 
 
-def make_ground_request(max_text_len, seed=0, **kw):
-    """``make_request`` plus one prompt tokenized by the port's
-    ``SimpleTokenizer``."""
+def make_ground_request(max_text_len, seed=0, tokenizer=None, **kw):
+    """``make_request`` plus one prompt tokenized by ``tokenizer`` (default:
+    the port's ``SimpleTokenizer``)."""
     from embodiedscan_torch.models.text import SimpleTokenizer
     req = make_request(seed=seed, **kw)
-    enc = SimpleTokenizer(max_len=max_text_len)([PROMPTS[seed %
-                                                         len(PROMPTS)]])
+    tokenizer = tokenizer or SimpleTokenizer(max_len=max_text_len)
+    enc = tokenizer([PROMPTS[seed % len(PROMPTS)]])
     req.update(text_ids=enc['input_ids'], text_mask=enc['attention_mask'])
     return req
 
@@ -1154,6 +1175,23 @@ def phase_edges(device):
         if not torch.equal(got, b.expand_as(got)):
             raise RuntimeError(f'sparse_conv {what}: output is not the bias')
         checked.append(what)
+    # indices N, N + 5 and -7 read as absent on both routes, as in the
+    # plain version and the reference (its zero pad row)
+    for cin, route in ((64, 'tc'), (3, 'simt')):
+        feats, mask, nbr, w, b = _conv_case(g, 2000, 1500, 27, cin, 128,
+                                            device=device)
+        n = feats.shape[0]
+        nbr[0::3, 0], nbr[1::3, 5], nbr[2::3, 9] = n, n + 5, -7
+        if S.cuda_plan(feats, nbr, w).route != route:
+            raise RuntimeError(f'out_of_range: not the {route} route')
+        got, _, scale = _check_conv(S, feats, mask, nbr, w, b,
+                                    f'out_of_range_{route}')
+        absent = torch.where((nbr >= 0) & (nbr < n), nbr,
+                             torch.full_like(nbr, -1))
+        want = S._gather_matmul_conv_plain(feats, mask, absent, w, b)
+        if not float((got - want).abs().max()) <= CONV_GATE * scale:
+            raise RuntimeError(f'out_of_range_{route}: not read as absent')
+        checked.append(f'out_of_range N, N+5, -7 ({route})')
     # a view that is not 16-byte aligned takes the SIMT route
     feats, mask, nbr, w, b = _conv_case(g, 3000, 1000, 27, 64, 64,
                                         device=device)
@@ -1305,15 +1343,23 @@ def phase_edges(device):
 def phase_e2e_parity(device):
     """A small detector on ``device`` and on cpu with the same weights."""
     from embodiedscan_torch.configs.base import build_model
-    from embodiedscan_torch.ops import pscan as P
-    from embodiedscan_torch.ops import sparse as S
     cfg = _parity_cfg()
     cpu = build_model(cfg, device='cpu')
     with torch.no_grad():
         cpu.bbox_head.conv_cls.bias.zero_()
     gpu = build_model(cfg, device=device)
     gpu.load_state_dict(cpu.state_dict())
-    req = make_request(p=6000, v=4, hw=96, seed=7)
+    det_parity(cpu, gpu, make_request(p=6000, v=4, hw=96, seed=7), device,
+               'cpu vs cuda')
+
+
+def det_parity(cpu, gpu, req, device, what):
+    """One request of a detector on cpu (plain versions) and its twin on
+    ``device`` (kernels): neighbor tables, feature coordinates and masks,
+    labels and keep masks identical; head outputs, boxes and scores within
+    atol 1e-4 + rtol 1e-5."""
+    from embodiedscan_torch.ops import pscan as P
+    from embodiedscan_torch.ops import sparse as S
     out = {}
     for name, model, dev in (('cpu', cpu, 'cpu'), ('cuda', gpu, device)):
         with Recorder(S, P) as rec:
@@ -1339,7 +1385,9 @@ def phase_e2e_parity(device):
             raise RuntimeError(f'predict {field} differ')
     for field in ('bboxes', 'scores'):
         worst = max(worst, _close(pc[field], pg[field], field))
-    log(f'[parity] cpu vs cuda: {len(rc.conv)} neighbor tables identical, '
+    if not pc['mask'].any():
+        raise RuntimeError(f'{what}: no detection kept')
+    log(f'[parity] {what}: {len(rc.conv)} neighbor tables identical, '
         f'labels/masks identical, kept {int(pc["mask"].sum())}, '
         f'worst float |d| - tol {worst:.3g}')
 
@@ -1614,6 +1662,301 @@ def _box_branch(model, seed):
     return model
 
 
+def phase_ckpt(device, sds, card):
+    """The published-checkpoint path at full width, in a temporary
+    directory: each preset's reference state_dict (``sds``) is saved as a
+    ``.pth``, converted by the CLI's ``main`` in-process on ``device``
+    (tensors loaded, skips: none for the detector, only the word
+    embedding for the grounder), restored into a fresh ``build_model``
+    (bit-identical to the converted model), and both serve one request
+    with the same bits and the launch counts of the main paths (the
+    grounder's prompt tokenized by BPETokenizer)."""
+    import tempfile
+    from embodiedscan_torch.configs.base import PRESETS, build_model
+    from embodiedscan_torch.models.text import BPETokenizer
+    from embodiedscan_torch.ops import pscan as P
+    from embodiedscan_torch.ops import sparse as S
+    from embodiedscan_torch.tools import convert_checkpoint as cli
+    from embodiedscan_torch.train.checkpoint import CheckpointManager
+    stats = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for task, want_skip, want in (
+                ('mv_det3d', [], EXPECTED_LAUNCHES),
+                ('mv_grounding', [WORD_EMBEDDING], EXPECTED_GROUND_LAUNCHES)):
+            cfg = PRESETS[task]()
+            pth = os.path.join(tmp, f'{task}.pth')
+            torch.save({'state_dict': {k: torch.from_numpy(v)
+                                       for k, v in sds[task].items()},
+                        'meta': {'seed': 0}}, pth)
+            work = os.path.join(tmp, task)
+            t0 = time.perf_counter()
+            model, n, skipped = cli.main([task, pth, '--work-dir', work,
+                                          '--device', device])
+            torch.cuda.synchronize()
+            convert_s = time.perf_counter() - t0
+            total = sum(1 for _ in model.parameters()) + \
+                sum(1 for _ in model.buffers())
+            if skipped != want_skip or n != total - len(skipped):
+                raise RuntimeError(f'[ckpt] {task}: loaded {n} of {total} '
+                                   f'tensors, skipped {skipped}')
+            ckpt_mb = os.path.getsize(os.path.join(
+                work, 'checkpoints', '0.pt')) / 2**20
+            t0 = time.perf_counter()
+            restored = build_model(cfg, device=device)
+            t1 = time.perf_counter()
+            step = CheckpointManager(work).restore(restored)
+            torch.cuda.synchronize()
+            build_s, restore_s = t1 - t0, time.perf_counter() - t1
+            a, b = model.state_dict(), restored.state_dict()
+            if step != 0 or a.keys() != b.keys() or not all(
+                    torch.equal(a[k], b[k]) for k in a):
+                raise RuntimeError(f'[ckpt] {task}: the restored model '
+                                   'differs from the converted one')
+            d, m = cfg.data, cfg.model
+            req = make_request(d.n_points, d.n_views_test, d.image_hw[0], 5)
+            if task == 'mv_grounding':
+                enc = BPETokenizer(ROBERTA_TOK, m.max_text_len)([PROMPTS[1]])
+                req.update(text_ids=enc['input_ids'],
+                           text_mask=enc['attention_mask'])
+            batch = to_device(req, device)
+            preds, ms = {}, {}
+            for name, net in (('converted', model), ('restored', restored)):
+                torch.cuda.synchronize()
+                reset_counts(S, P)
+                t0 = time.perf_counter()
+                preds[name] = net(batch, mode='predict')
+                torch.cuda.synchronize()
+                ms[name] = (time.perf_counter() - t0) * 1e3
+                counts = read_counts(S, P)
+                check_counts(counts, want, f'[ckpt] {task} {name} request')
+            for key, val in preds['converted'].items():
+                if val.is_floating_point() and not torch.isfinite(val).all():
+                    raise RuntimeError(f'[ckpt] {task}: non-finite {key}')
+                if not torch.equal(val, preds['restored'][key]):
+                    raise RuntimeError(f'[ckpt] {task}: {key} differs '
+                                       'between converted and restored')
+            kept = int(preds['converted']['mask'].sum())
+            log(f'[ckpt] {task}: converted in {convert_s:.2f} s (CLI main: '
+                f'load .pth, build, convert, save), {n} of {total} tensors '
+                f'loaded, skipped {skipped}; checkpoint {ckpt_mb:.1f} MB; '
+                f'restored in {restore_s:.2f} s (+ build_model '
+                f'{build_s:.2f} s), bit-identical; request ms converted '
+                f'{ms["converted"]:.1f}, restored {ms["restored"]:.1f}, '
+                f'same bits, {kept} kept, launches {counts}; {card}')
+            stats[task] = dict(convert_s=convert_s, n_loaded=n,
+                               tensors=total, skipped=skipped,
+                               checkpoint_mb=ckpt_mb, build_s=build_s,
+                               restore_s=restore_s, request_ms=ms,
+                               kept=kept)
+            del model, restored, a, b, preds, batch
+            torch.cuda.empty_cache()
+    return stats
+
+
+# --- reference checkpoints: seeded state_dicts in the reference's layout ---
+
+
+def _ref_channels(resnet_depth, mink_depth):
+    """Per-level channels of the fused trunk: MinkResNet's 64 x 2^i plus
+    the 16-wide 2D ResNet's 16 x 2^i, each x4 at bottleneck depths."""
+    e3 = 4 if mink_depth >= 50 else 1
+    e2 = 4 if resnet_depth >= 50 else 1
+    return tuple(64 * 2**i * e3 + 16 * 2**i * e2 for i in range(4))
+
+
+class _RefSD(dict):
+    """A reference-layout state_dict under construction: float32 arrays
+    drawn from one seeded generator."""
+
+    def __init__(self, seed):
+        super().__init__()
+        self.rng = np.random.default_rng(seed)
+
+    def normal(self, key, shape, std):
+        self[key] = self.rng.standard_normal(shape, dtype=np.float32) * \
+            np.float32(std)
+
+    def bn(self, name, c, tracked=False):
+        """BatchNorm statistics and affine (``num_batches_tracked`` as
+        torchvision writes it)."""
+        self[f'{name}.weight'] = self.rng.uniform(0.5, 1.5, c).astype(
+            np.float32)
+        self.normal(f'{name}.bias', (c,), 0.1)
+        self.normal(f'{name}.running_mean', (c,), 0.1)
+        self[f'{name}.running_var'] = self.rng.uniform(0.5, 2.0, c).astype(
+            np.float32)
+        if tracked:
+            self[f'{name}.num_batches_tracked'] = np.array(7, np.int64)
+
+    def linear(self, name, cin, cout, std=None, bias=True):
+        """torch Linear: weight (out, in), bias (out,)."""
+        self.normal(f'{name}.weight', (cout, cin),
+                    std if std is not None else cin ** -0.5)
+        if bias:
+            self.normal(f'{name}.bias', (cout,), 0.02)
+
+    def me_conv(self, name, k, cin, cout):
+        """ME kernel (K, Cin, Cout), (Cin, Cout) at kernel volume 1."""
+        shape = (cin, cout) if k == 1 else (k, cin, cout)
+        self.normal(f'{name}.kernel', shape, (2.0 / (k * cout)) ** 0.5)
+
+
+def _ref_resnet2d(sd, depth, base=16):
+    """torchvision ResNet names under ``backbone.``."""
+    blocks = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3)}[depth]
+    bottleneck = depth >= 50
+
+    def conv(name, cout, cin, k):
+        sd.normal(f'backbone.{name}.weight', (cout, cin, k, k),
+                  (1.0 / (cin * k * k)) ** 0.5)
+
+    conv('conv1', base, 3, 7)
+    sd.bn('backbone.bn1', base, tracked=True)
+    cin = base
+    for i, n in enumerate(blocks):
+        planes = base * 2**i
+        cout = planes * (4 if bottleneck else 1)
+        for j in range(n):
+            p = f'layer{i + 1}.{j}'
+            shapes = ((planes, cin, 1), (planes, planes, 3),
+                      (cout, planes, 1)) if bottleneck else \
+                ((planes, cin, 3), (planes, planes, 3))
+            for c, (o, ci, k) in enumerate(shapes):
+                conv(f'{p}.conv{c + 1}', o, ci, k)
+                sd.bn(f'backbone.{p}.bn{c + 1}', o, tracked=True)
+            if j == 0 and (i > 0 or cin != cout):
+                conv(f'{p}.downsample.0', cout, cin, 1)
+                sd.bn(f'backbone.{p}.downsample.1', cout, tracked=True)
+            cin = cout
+
+
+def _ref_mink(sd, depth):
+    """ME MinkResNet (basic blocks) names under ``backbone_3d.``: ME row
+    order, the K = 1 downsample as a (Cin, Cout) matrix, BatchNorm wrapped
+    as ``norm.bn.*``."""
+    blocks = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3)}[depth]
+    p = 'backbone_3d.'
+    sd.me_conv(p + 'conv1', 27, 3, 64)
+    sd[p + 'norm1.inst_norm.weight'] = sd.rng.uniform(0.5, 1.5, 64).astype(
+        np.float32)
+    sd.normal(p + 'norm1.inst_norm.bias', (64,), 0.1)
+    cin = 64
+    for i, n in enumerate(blocks):
+        planes = 64 * 2**i
+        for j in range(n):
+            q = f'{p}layer{i + 1}.{j}'
+            sd.me_conv(f'{q}.conv1', 27, cin if j == 0 else planes, planes)
+            sd.me_conv(f'{q}.conv2', 27, planes, planes)
+            sd.bn(f'{q}.norm1.bn', planes)
+            sd.bn(f'{q}.norm2.bn', planes)
+            if j == 0:
+                sd.me_conv(f'{q}.downsample.0', 1, cin, planes)
+                sd.bn(f'{q}.downsample.1.bn', planes)
+        cin = planes
+
+
+def _ref_fpn(sd, prefix, chans, out):
+    """The up and out blocks shared by the FCAF3D head and MinkNeck: the
+    generative transpose (8, C_{i+1}, C_i), its conv, their norms."""
+    for i in range(1, len(chans)):
+        sd.me_conv(f'{prefix}up_block_{i}.0', 8, chans[i], chans[i - 1])
+        sd.bn(f'{prefix}up_block_{i}.1.bn', chans[i - 1])
+        sd.me_conv(f'{prefix}up_block_{i}.3', 27, chans[i - 1], chans[i - 1])
+        sd.bn(f'{prefix}up_block_{i}.4.bn', chans[i - 1])
+    for i, c in enumerate(chans):
+        sd.me_conv(f'{prefix}out_block_{i}.0', 27, c, out)
+        sd.bn(f'{prefix}out_block_{i}.1.bn', out)
+
+
+def _ref_mha(sd, name, e):
+    sd.normal(f'{name}.attn.in_proj_weight', (3 * e, e), e ** -0.5)
+    sd.normal(f'{name}.attn.in_proj_bias', (3 * e,), 0.02)
+    sd.linear(f'{name}.attn.out_proj', e, e)
+
+
+def _ref_ln(sd, name, c):
+    sd[f'{name}.weight'] = sd.rng.uniform(0.8, 1.2, c).astype(np.float32)
+    sd.normal(f'{name}.bias', (c,), 0.02)
+
+
+def _ref_roberta(sd, hidden, layers, vocab):
+    """HF RobertaModel names under ``text_encoder.`` (no pooler), weights
+    N(0, 0.02) as HF initializes them."""
+    p = 'text_encoder.'
+    sd.normal(p + 'embeddings.word_embeddings.weight', (vocab, hidden), 0.02)
+    sd.normal(p + 'embeddings.position_embeddings.weight', (514, hidden),
+              0.02)
+    sd.normal(p + 'embeddings.token_type_embeddings.weight', (1, hidden),
+              0.02)
+    _ref_ln(sd, p + 'embeddings.LayerNorm', hidden)
+    for i in range(layers):
+        q = f'{p}encoder.layer.{i}.'
+        for name in ('query', 'key', 'value'):
+            sd.linear(f'{q}attention.self.{name}', hidden, hidden, 0.02)
+        sd.linear(q + 'attention.output.dense', hidden, hidden, 0.02)
+        _ref_ln(sd, q + 'attention.output.LayerNorm', hidden)
+        sd.linear(q + 'intermediate.dense', hidden, 4 * hidden, 0.02)
+        sd.linear(q + 'output.dense', 4 * hidden, hidden, 0.02)
+        _ref_ln(sd, q + 'output.LayerNorm', hidden)
+
+
+def reference_state_dict(task, seed=0, num_classes=284, resnet_depth=50,
+                         mink_depth=34, embed_dims=256, decoder_layers=6,
+                         text_hidden=768, text_layers=12, vocab=50265):
+    """A seeded state_dict (numpy float32) in the layout of a published
+    EmbodiedScan checkpoint of ``task``, at the given widths (the
+    defaults are the ``mv_det3d`` / ``mv_grounding`` presets' and
+    roberta-base's 50265-token vocabulary): ``backbone.*`` (torchvision
+    ResNet, 16 wide), ``backbone_3d.*`` (ME MinkResNet), then the
+    detector's ``bbox_head.*`` (FCAF3D, 128 wide) or the grounder's
+    ``neck_3d.*``, ``text_encoder.*``, ``text_feat_map.*``, ``decoder.*``
+    and the shared head branches ``bbox_head.{reg,cls}_branches.0``."""
+    sd = _RefSD(seed)
+    _ref_resnet2d(sd, resnet_depth)
+    _ref_mink(sd, mink_depth)
+    chans = _ref_channels(resnet_depth, mink_depth)
+    if task == 'mv_det3d':
+        _ref_fpn(sd, 'bbox_head.', chans, 128)
+        sd.normal('bbox_head.conv_center.kernel', (128, 1), 0.01)
+        sd.normal('bbox_head.conv_reg.kernel', (128, 12), 0.01)
+        sd.normal('bbox_head.conv_cls.kernel', (128, num_classes), 0.01)
+        # a zero class bias: candidates clear score_thr, NMS has work
+        sd['bbox_head.conv_cls.bias'] = np.zeros((1, num_classes),
+                                                 np.float32)
+        for i in range(4):
+            sd[f'bbox_head.scales.{i}.scale'] = np.array(1.0 + 0.1 * i,
+                                                         np.float32)
+        return dict(sd)
+    e = embed_dims
+    _ref_fpn(sd, 'neck_3d.', chans, e)
+    sd.normal('neck_3d.conv_cls.kernel', (e, 1), 0.01)
+    sd.normal('neck_3d.conv_cls.bias', (1, 1), 0.01)
+    _ref_roberta(sd, text_hidden, text_layers, vocab)
+    sd.linear('text_feat_map', text_hidden, e)
+    for i in range(decoder_layers):
+        q = f'decoder.layers.{i}.'
+        for name in ('self_attn', 'cross_attn_text', 'cross_attn'):
+            _ref_mha(sd, q + name, e)
+        sd.linear(q + 'ffn.layers.0.0', e, 2048, (2.0 / e) ** 0.5)
+        sd.linear(q + 'ffn.layers.1', 2048, e, 2048 ** -0.5)
+        for n in range(4):
+            _ref_ln(sd, f'{q}norms.{n}', e)
+    for name, cin in (('self_posembed', 9), ('cross_posembed', 3)):
+        h = f'decoder.{name}.position_embedding_head'
+        sd.normal(f'{h}.0.weight', (e, cin, 1), cin ** -0.5)
+        sd.normal(f'{h}.0.bias', (e,), 0.02)
+        sd.bn(f'{h}.1', e)
+        sd.normal(f'{h}.3.weight', (e, e, 1), e ** -0.5)
+        sd.normal(f'{h}.3.bias', (e,), 0.02)
+    _ref_ln(sd, 'decoder.norm', e)
+    sd.linear('bbox_head.reg_branches.0.0', e, e)
+    sd.linear('bbox_head.reg_branches.0.2', e, e)
+    # the boxes follow the queries: small log sizes and angles
+    sd.linear('bbox_head.reg_branches.0.4', e, 9, 0.01)
+    sd['bbox_head.cls_branches.0.bias'] = np.array([0.1], np.float32)
+    return dict(sd)
+
+
 def eval_records(det_preds, ground_preds):
     """The two metrics' gt / dt records from the served predictions, through
     ``train.loop._append_scene_results``. Detection GT per request: 16
@@ -1713,19 +2056,24 @@ def _ground_parity_cfg():
 @torch.no_grad()
 def phase_ground_parity(device):
     """The small grounder on ``device`` (kernels) and on cpu (plain
-    versions) with the same weights: neighbor tables, neck coordinates and
-    masks, selected query indices and query masks identical; neck features
-    and scores, per-layer token logits and boxes, and the predictions
-    within atol 1e-4 + rtol 1e-5."""
+    versions) with the same weights."""
     from embodiedscan_torch.configs.base import build_model
-    from embodiedscan_torch.ops import pscan as P
-    from embodiedscan_torch.ops import sparse as S
     cfg = _ground_parity_cfg()
     cpu = _box_branch(build_model(cfg, device='cpu'), 7)
     gpu = build_model(cfg, device=device)
     gpu.load_state_dict(cpu.state_dict())
-    req = make_ground_request(cfg.model.max_text_len, seed=7, p=6000, v=4,
-                              hw=96)
+    ground_parity(cpu, gpu, make_ground_request(
+        cfg.model.max_text_len, seed=7, p=6000, v=4, hw=96), device,
+        'grounder cpu vs cuda')
+
+
+def ground_parity(cpu, gpu, req, device, what):
+    """One request of a grounder on cpu and its twin on ``device``:
+    neighbor tables, neck coordinates and masks, selected query indices and
+    query masks identical; neck features and scores, per-layer token logits
+    and boxes, and the predictions within atol 1e-4 + rtol 1e-5."""
+    from embodiedscan_torch.ops import pscan as P
+    from embodiedscan_torch.ops import sparse as S
     out = {}
     for name, model, dev in (('cpu', cpu, 'cpu'), ('cuda', gpu, device)):
         with Recorder(S, P) as rec:
@@ -1741,25 +2089,57 @@ def phase_ground_parity(device):
         if not torch.equal(ac[2], ag[2].cpu()):
             raise RuntimeError('grounder neighbor tables differ between cpu '
                                'and cuda')
-    for what, a, b in (('neck xyz', nc['xyz'], ng['xyz']),
+    for name, a, b in (('neck xyz', nc['xyz'], ng['xyz']),
                        ('neck mask', nc['mask'], ng['mask']),
                        ('query indices', tc, tg),
                        ('query mask', oc[2], og[2])):
         if not torch.equal(a, b):
-            raise RuntimeError(f'grounder {what} differ between cpu and cuda')
+            raise RuntimeError(f'{what}: {name} differ between cpu and cuda')
     diffs = {}
-    for what, a, b in (('neck feats', nc['feats'], ng['feats']),
+    for name, a, b in (('neck feats', nc['feats'], ng['feats']),
                        ('neck scores', nc['scores'], ng['scores']),
                        ('cls', oc[0], og[0]), ('boxes', oc[1], og[1]),
                        ('bboxes', pc['bboxes'], pg['bboxes']),
                        ('scores', pc['scores'], pg['scores'])):
-        _close(a, b, f'grounder {what}')
-        diffs[what] = float((a - b).abs().max())
-    log(f'[parity] grounder cpu vs cuda: {len(rc.conv)} neighbor tables, '
+        _close(a, b, f'{what} {name}')
+        diffs[name] = float((a - b).abs().max())
+    log(f'[parity] {what}: {len(rc.conv)} neighbor tables, '
         f'neck coordinates ({int(nc["mask"].sum())} valid of '
         f'{nc["mask"].shape[1]}) and {tc.shape[1]} query indices identical; '
         f'floats within atol 1e-4 + rtol 1e-5, max|d| ' + ', '.join(
             f'{k} {v:.3g}' for k, v in diffs.items()))
+
+
+@torch.no_grad()
+def phase_converted_parity(device, ground_sd):
+    """The small detector and grounder of the parity phases (shipped
+    widths, cut capacities) loaded from reference state_dicts by
+    ``load_reference_model`` on cpu and on ``device``: the detector from a
+    seeded one at its 18 classes, the grounder from ``ground_sd`` (the
+    full-width reference grounder's, the same widths); each serves one
+    request on both (the grounder's prompt tokenized by BPETokenizer)."""
+    from embodiedscan_torch.models.text import BPETokenizer
+    from embodiedscan_torch.utils.convert_weights import load_reference_model
+    cfg = _parity_cfg()
+    sd = reference_state_dict('mv_det3d', seed=1,
+                              num_classes=cfg.model.num_classes)
+    cpu, n, skipped = load_reference_model(cfg, sd, device='cpu')
+    gpu = load_reference_model(cfg, sd, device=device)[0]
+    if skipped:
+        raise RuntimeError(f'converted small detector skipped {skipped}')
+    det_parity(cpu, gpu, make_request(p=6000, v=4, hw=96, seed=8), device,
+               f'converted detector ({n} tensors) cpu vs cuda')
+    del cpu, gpu, sd
+    cfg = _ground_parity_cfg()
+    cpu, n, skipped = load_reference_model(cfg, ground_sd, device='cpu')
+    gpu = load_reference_model(cfg, ground_sd, device=device)[0]
+    if skipped != [WORD_EMBEDDING]:
+        raise RuntimeError(f'converted small grounder skipped {skipped}')
+    req = make_ground_request(cfg.model.max_text_len, seed=8, p=6000, v=4,
+                              hw=96, tokenizer=BPETokenizer(
+                                  ROBERTA_TOK, cfg.model.max_text_len))
+    ground_parity(cpu, gpu, req, device,
+                  f'converted grounder ({n} tensors) cpu vs cuda')
 
 
 def kernel_line(calls, totals):
@@ -1843,14 +2223,25 @@ def main():
     del rec, ground_rec, train_rec, gt_rec, model, batch, gmodel, gbatch, \
         tmodel, opt, tbatch, gtmodel, gtopt, gtbatch
     eval_stats = phase_eval(det_preds, ground_preds, 'cuda')
+    t0 = time.perf_counter()
+    sds = {task: reference_state_dict(task)
+           for task in ('mv_det3d', 'mv_grounding')}
+    log(f'[ckpt] reference state_dicts drawn in '
+        f'{time.perf_counter() - t0:.1f} s: ' + ', '.join(
+            f'{t} {sum(v.size for v in sd.values())} values'
+            for t, sd in sds.items()))
+    ckpt_stats = phase_ckpt('cuda', sds, card)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, 'chip_smoke_calls.json'), 'w') as f:
         json.dump(dict(card=card, main=main_stats, grounding=ground_stats,
                        train=train_stats, ground_train=gt_stats,
-                       eval=eval_stats, calls=calls), f, indent=1)
+                       eval=eval_stats, ckpt=ckpt_stats, calls=calls), f,
+                  indent=1)
     phase_edges('cuda')
     phase_e2e_parity('cuda')
     phase_ground_parity('cuda')
+    phase_converted_parity('cuda', sds['mv_grounding'])
+    del sds
     phase_train_parity('cuda')
     phase_ground_train_parity('cuda')
     log(f'[done] {time.perf_counter() - t_start:.1f} s')

@@ -1,10 +1,38 @@
-"""Configs and the model entry point (port of the detection and grounding
-parts of ``embodiedscan_tpu/configs/base.py``)."""
+"""Configs, their ``a.b=c`` overrides and the model entry point (port of
+the detection and grounding parts of ``embodiedscan_tpu/configs/base.py``).
+"""
 
 import dataclasses
-from typing import Sequence
+from typing import Any, Sequence
 
 import torch
+
+
+def _convert(value: str, current: Any):
+    if isinstance(current, bool):
+        return value.lower() in ('1', 'true', 'yes')
+    if isinstance(current, int):
+        return int(value)
+    if isinstance(current, float):
+        return float(value)
+    if isinstance(current, (tuple, list)):
+        parts = [p for p in value.strip('[]()').split(',') if p]
+        elem = current[0] if len(current) else 0
+        return type(current)(_convert(p, elem) for p in parts)
+    return value
+
+
+def apply_overrides(cfg: Any, overrides: Sequence[str]):
+    """Apply ``a.b=c`` overrides to a (nested) dataclass in place, each
+    value parsed as the type of the field's current value."""
+    for item in overrides:
+        key, _, value = item.partition('=')
+        parts = key.split('.')
+        obj = cfg
+        for p in parts[:-1]:
+            obj = getattr(obj, p)
+        setattr(obj, parts[-1], _convert(value, getattr(obj, parts[-1])))
+    return cfg
 
 
 @dataclasses.dataclass
@@ -15,6 +43,9 @@ class DataConfig:
     image_hw: Sequence[int] = (480, 480)
     n_gt: int = 128  # padded ground-truth boxes per training scene
     max_boxes: int = 200  # padded gt boxes per grounding prompt
+    # directory of RoBERTa's vocab.json and merges.txt for models.text.
+    # get_tokenizer; '' = the offline hash tokenizer
+    tokenizer_path: str = ''
 
 
 @dataclasses.dataclass

@@ -1,6 +1,8 @@
 """Text encoding for visual grounding (port of
 ``embodiedscan_tpu/models/text.py``: ``SimpleTokenizer``,
-``build_positive_maps`` and ``TextEncoder``).
+``get_tokenizer``, ``build_positive_maps`` and ``TextEncoder``; and
+``BPETokenizer``, the port's own byte-level BPE in place of the JAX
+package's ``HFTokenizer``, which wraps ``transformers``).
 
 The JAX package runs HuggingFace's Flax RoBERTa; the port carries its own
 RoBERTa in PyTorch, with the submodules named as the flax tree
@@ -10,7 +12,10 @@ leaf for leaf. Its LayerNorms take HF's ``layer_norm_eps`` 1e-12, the
 tiny arch's take flax's 1e-6; the GELU is the exact (erf) one.
 """
 
+import json
+import os
 import re
+import unicodedata
 from typing import Dict, List
 
 import numpy as np
@@ -64,6 +69,171 @@ class SimpleTokenizer:
         if char_idx < 0 or char_idx >= len(cm) or cm[char_idx] < 0:
             return None
         return int(cm[char_idx])
+
+
+_CONTRACTIONS = ('s', 't', 're', 've', 'm', 'll', 'd')
+
+
+def _is_space(c: str) -> bool:
+    r"""Unicode White_Space (the regex ``\s``): Python's isspace less the
+    information separators U+001C-U+001F."""
+    return c.isspace() and not '\x1c' <= c <= '\x1f'
+
+
+def _is_number(c: str) -> bool:
+    return unicodedata.category(c)[0] == 'N'  # \p{N}: Nd, Nl, No
+
+
+def _is_other(c: str) -> bool:
+    return not (_is_space(c) or c.isalpha() or _is_number(c))
+
+
+def _pretoken_end(text: str, i: int) -> int:
+    r"""End of the pre-token starting at ``i`` under GPT-2's pattern
+    ``'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+| ?[^\s\p{L}\p{N}]+|
+    \s+(?!\S)|\s+`` (``str.isalpha`` is ``\p{L}``), alternatives
+    tried in order at ``i``."""
+    n = len(text)
+    if text[i] == "'":
+        for suffix in _CONTRACTIONS:
+            if text.startswith(suffix, i + 1):
+                return i + 1 + len(suffix)
+    start = i + 1 if text[i] == ' ' and i + 1 < n else i
+    for cls in (str.isalpha, _is_number, _is_other):
+        j = start
+        while j < n and cls(text[j]):
+            j += 1
+        if j > start:
+            return j
+    # whitespace: the run, less its last character when a non-space
+    # follows it (that one prefixes the next word), unless it is alone
+    j = i
+    while j < n and _is_space(text[j]):
+        j += 1
+    return j if j == n or j - i == 1 else j - 1
+
+
+def _bytes_to_unicode() -> Dict[int, str]:
+    """GPT-2's byte -> printable character table: printable Latin-1 bytes
+    map to themselves, the other 68 to U+0100 onwards (the space to
+    'Ġ')."""
+    keep = list(range(ord('!'), ord('~') + 1)) + \
+        list(range(ord('¡'), ord('¬') + 1)) + list(range(ord('®'), 256))
+    table, extra = {b: chr(b) for b in keep}, 0
+    for b in range(256):
+        if b not in table:
+            table[b] = chr(256 + extra)
+            extra += 1
+    return table
+
+
+class BPETokenizer:
+    """Byte-level BPE of RoBERTa (GPT-2's), read from a directory's
+    ``vocab.json`` and ``merges.txt``, with the output of
+    ``RobertaTokenizerFast(texts, padding='max_length', truncation=True,
+    max_length=max_len)``: ``<s>`` text tokens ``</s>`` then ``<pad>``,
+    the text cut to ``max_len - 2`` tokens. ``char_to_token`` follows the
+    fast tokenizer's ``trim_offsets=True``: a token's span leaves out its
+    leading space, so a space maps to no token; a character split over
+    two tokens maps to the first. A special token written inside a text
+    is tokenized as plain text.
+    """
+
+    def __init__(self, path: str, max_len: int = 256):
+        with open(os.path.join(path, 'vocab.json'), encoding='utf-8') as f:
+            self.vocab = json.load(f)
+        ranks = {}
+        with open(os.path.join(path, 'merges.txt'), encoding='utf-8') as f:
+            for line in f:
+                if line.startswith('#version'):
+                    continue
+                pair = tuple(line.rstrip('\r\n').split(' '))
+                if len(pair) == 2:
+                    ranks.setdefault(pair, len(ranks))
+        self.ranks = ranks
+        self.max_len = max_len
+        self.vocab_size = len(self.vocab)
+        self.bos, self.pad, self.eos = (self.vocab[t] for t in
+                                        ('<s>', '<pad>', '</s>'))
+        self.unk = self.vocab.get('<unk>')
+        self.byte_char = _bytes_to_unicode()
+        self._cache = {}
+
+    def _bpe(self, word: str) -> List[str]:
+        """Merges the lowest-ranked adjacent pair, every occurrence left to
+        right, until no pair of ``word``'s symbols has a rank."""
+        if word in self._cache:
+            return self._cache[word]
+        parts = list(word)
+        while len(parts) > 1:
+            best = min(zip(parts, parts[1:]),
+                       key=lambda p: self.ranks.get(p, float('inf')))
+            if best not in self.ranks:
+                break
+            merged, i = [], 0
+            while i < len(parts):
+                if i + 1 < len(parts) and (parts[i], parts[i + 1]) == best:
+                    merged.append(parts[i] + parts[i + 1])
+                    i += 2
+                else:
+                    merged.append(parts[i])
+                    i += 1
+            parts = merged
+        self._cache[word] = parts
+        return parts
+
+    def tokenize(self, text: str):
+        """(ids, spans): the text's token ids and each token's character
+        span [start, end), trimmed of its leading spaces."""
+        ids, spans, i = [], [], 0
+        while i < len(text):
+            end = _pretoken_end(text, i)
+            chars, owner = [], []  # byte characters, their text position
+            for pos in range(i, end):
+                for b in text[pos].encode('utf-8'):
+                    chars.append(self.byte_char[b])
+                    owner.append(pos)
+            at = 0
+            for sym in self._bpe(''.join(chars)):
+                ids.append(self.vocab.get(sym, self.unk))
+                lead = len(sym) - len(sym.lstrip(self.byte_char[32]))
+                lo, hi = owner[at], owner[at + len(sym) - 1] + 1
+                spans.append((min(lo + lead, hi), hi))
+                at += len(sym)
+            i = end
+        return ids, spans
+
+    def __call__(self, texts: List[str]) -> Dict[str, np.ndarray]:
+        b = len(texts)
+        ids = np.full((b, self.max_len), self.pad, np.int32)
+        mask = np.zeros((b, self.max_len), np.int32)
+        self._char_maps = []
+        for i, text in enumerate(texts):
+            tok, spans = self.tokenize(text)
+            tok, spans = tok[:self.max_len - 2], spans[:self.max_len - 2]
+            row = [self.bos] + tok + [self.eos]
+            ids[i, :len(row)] = row
+            mask[i, :len(row)] = 1
+            char_map = np.full(len(text), -1, np.int64)
+            for j in range(len(spans) - 1, -1, -1):  # the first token wins
+                char_map[spans[j][0]:spans[j][1]] = j + 1
+            self._char_maps.append(char_map)
+        return dict(input_ids=ids, attention_mask=mask)
+
+    def char_to_token(self, batch_idx: int, char_idx: int):
+        cm = self._char_maps[batch_idx]
+        if char_idx < 0 or char_idx >= len(cm) or cm[char_idx] < 0:
+            return None
+        return int(cm[char_idx])
+
+
+def get_tokenizer(path: str, max_len: int):
+    """:class:`BPETokenizer` over the vocabulary files in ``path``, or the
+    offline hash tokenizer when ``path`` is empty. A path without
+    ``vocab.json`` and ``merges.txt`` raises."""
+    if path:
+        return BPETokenizer(path, max_len=max_len)
+    return SimpleTokenizer(max_len=max_len)
 
 
 def build_positive_maps(tokenizer, texts: List[str],

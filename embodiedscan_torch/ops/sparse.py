@@ -189,7 +189,9 @@ def _gather_matmul_conv_plain(feats, mask, nbr, weights, bias=None):
     cout = weights.shape[-1]
     safe = torch.where(mask[:, None], feats, torch.zeros_like(feats))
     padded = torch.cat([safe, safe.new_zeros(1, cin)])
-    idx = torch.where(nbr >= 0, nbr, torch.full_like(nbr, n)).long()
+    # any index outside [0, n) reads the zero row, as K2 and the reference
+    idx = torch.where((nbr >= 0) & (nbr < n), nbr,
+                      torch.full_like(nbr, n)).long()
     out = feats.new_zeros(nbr.shape[0], cout, dtype=torch.float32)
     for j in range(weights.shape[0]):
         out = out + padded[idx[:, j]] @ weights[j]
@@ -352,7 +354,8 @@ def gather_matmul_conv(feats: torch.Tensor, mask: torch.Tensor,
         feats: (N, Cin) float32 input features; rows with ``mask`` false
             read as zero.
         mask: (N,) bool input validity.
-        nbr: (M, K) int32 gather indices into feats (-1 = absent).
+        nbr: (M, K) int32 gather indices into feats (-1, or any index
+            outside [0, N), = absent).
         weights: (K, Cin, Cout) float32.
         bias: optional (Cout,) float32.
 
@@ -503,7 +506,8 @@ def _conv_wgrad_plain(x, x_mask, idx, y, y_mask):
     safe_x = torch.where(x_mask[:, None], x, torch.zeros_like(x))
     safe_y = torch.where(y_mask[:, None], y, torch.zeros_like(y))
     padded = torch.cat([safe_y, safe_y.new_zeros(1, cy)])
-    gidx = torch.where(idx >= 0, idx, torch.full_like(idx, ny)).long()
+    gidx = torch.where((idx >= 0) & (idx < ny), idx,
+                       torch.full_like(idx, ny)).long()
     return torch.stack([safe_x.T @ padded[gidx[:, j]]
                         for j in range(idx.shape[1])])
 
@@ -574,7 +578,8 @@ def conv_wgrad(x: torch.Tensor, x_mask: torch.Tensor, idx: torch.Tensor,
     Args:
         x: (R, Cx) float32; rows with ``x_mask`` false read as zero.
         x_mask: (R,) bool.
-        idx: (R, K) int32 rows of y (-1 = absent).
+        idx: (R, K) int32 rows of y (-1, or any row outside [0, Ny), =
+            absent).
         y: (Ny, Cy) float32; rows with ``y_mask`` false read as zero.
         y_mask: (Ny,) bool.
 
@@ -696,8 +701,9 @@ class _GenericConv(torch.autograd.Function):
             n = feats.shape[0]
             acc = feats.new_zeros(n + 1, feats.shape[1])
             for j in range(nbr.shape[1]):
-                rows = torch.where(nbr[:, j] >= 0, nbr[:, j],
-                                   torch.full_like(nbr[:, j], n)).long()
+                col = nbr[:, j]
+                rows = torch.where((col >= 0) & (col < n), col,
+                                   torch.full_like(col, n)).long()
                 acc.index_add_(0, rows, dout @ weights[j].T)
             dfeats = _masked_rows(acc[:n], mask)
         if ctx.needs_input_grad[3]:

@@ -169,6 +169,31 @@ def test_generic_route(level, case):
             _close(g, r)
 
 
+def test_generic_route_out_of_range_indices(level):
+    """Indices N, N + 5 and -7 are absent: no output, no input gradient, no
+    weight gradient (the reference's gather clamps them onto its zero pad
+    row, whose gradient it drops)."""
+    ts, _, _, _ = level['tables']
+    mask = level['mask'].reshape(-1)
+    omask = level['cmask'].reshape(-1)
+    nbr = _flat(ts, CAP).numpy().copy()
+    n = 2 * CAP
+    nbr[0::3, 0] = n
+    nbr[1::3, 5] = n + 5
+    nbr[2::3, 9] = -7
+    feats, w, dout = _inputs(np.random.RandomState(9), n, 8, 2 * CCAP, 16,
+                             27)
+    jm, jn = jnp.asarray(mask), jnp.asarray(nbr)
+    want = _jax_grads(lambda f, w_: jS.gather_matmul_conv(f, jm, jn, w_),
+                      feats, w, dout)
+    tm, tom, tn = (torch.from_numpy(a) for a in (mask, omask, nbr))
+    got = _port_grads(
+        lambda f, w_: tS.generic_gather_conv(f, tm, tn, w_, tom), feats, w,
+        dout)
+    for g, r in zip(got, want):
+        _close(g, r)
+
+
 def _graph_names(t):
     seen, todo = set(), [t.grad_fn]
     while todo:
@@ -223,6 +248,26 @@ def test_conv_wgrad_plain_matches_dense(shape):
                    -1).astype(np.int32)
     got = tS.conv_wgrad(*map(torch.from_numpy, (x, x_mask, idx, y, y_mask)))
     _close(got.numpy(), _dense_wgrad(x, x_mask, idx, y, y_mask))
+
+
+def test_conv_wgrad_out_of_range_rows_are_absent():
+    rng = np.random.RandomState(3)
+    r, k, ny = 120, 27, 50
+    x = rng.randn(r, 8).astype(np.float32)
+    y = rng.randn(ny, 16).astype(np.float32)
+    x_mask, y_mask = rng.rand(r) > 0.1, rng.rand(ny) > 0.1
+    idx = np.where(rng.rand(r, k) < 0.5, rng.randint(0, ny, (r, k)),
+                   -1).astype(np.int32)
+    idx[0::3, 0], idx[1::3, 5], idx[2::3, 9] = ny, ny + 5, -7
+    got = tS.conv_wgrad(*map(torch.from_numpy, (x, x_mask, idx, y, y_mask)))
+    _close(got.numpy(), _dense_wgrad(x, x_mask, np.where(idx < ny, idx, -1),
+                                     y, y_mask))
+    pairs, counts = tS._wgrad_pairs_plain(
+        torch.from_numpy(x_mask), torch.from_numpy(idx),
+        torch.from_numpy(y_mask))
+    hit = pairs[..., 1]
+    assert ((hit == -1) | ((hit >= 0) & (hit < ny))).all()
+    assert int(counts.sum()) == int((hit >= 0).sum())
 
 
 def test_conv_wgrad_all_absent_and_all_masked_are_zero():

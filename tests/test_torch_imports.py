@@ -9,7 +9,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'transformers',
-             'embodiedscan_tpu')
+             'tokenizers', 'regex', 'embodiedscan_tpu')
 FILES = sorted((ROOT / 'embodiedscan_torch').rglob('*.py')) + \
     [ROOT / 'chip_smoke.py', ROOT / 'kernel_ab.py']
 
@@ -37,10 +37,13 @@ def test_no_reference_imports(path):
     'embodiedscan_torch.ops.hungarian',
     'embodiedscan_torch.eval.indoor_eval',
     'embodiedscan_torch.eval.grounding_metric',
-    'embodiedscan_torch.train.loop'])
+    'embodiedscan_torch.train.loop', 'embodiedscan_torch.train.checkpoint',
+    'embodiedscan_torch.utils.convert_weights',
+    'embodiedscan_torch.tools.convert_checkpoint'])
 def test_module_is_checked_and_imports(module):
-    """The training and grounding slices' modules are among the files
-    checked above and import on a machine without JAX or transformers."""
+    """The training, grounding and checkpoint slices' modules are among
+    the files checked above and import on a machine without JAX,
+    transformers, tokenizers or regex."""
     path = ROOT / (module.replace('.', '/') + '.py')
     assert path in FILES
     code = (f'import sys; sys.modules.update(dict.fromkeys({FORBIDDEN!r}));'

@@ -99,6 +99,28 @@ def test_all_absent_rows_are_bias_only():
                                   np.broadcast_to(bias, (64, w.shape[-1])))
 
 
+def _out_of_range(nbr, n):
+    """Entries N, N + 5 and -7 in three columns of every third row."""
+    bad = nbr.copy()
+    bad[0::3, 0] = n
+    bad[1::3, 5] = n + 5
+    bad[2::3, 9] = -7
+    return bad
+
+
+def test_out_of_range_indices_are_absent():
+    # the reference reads every index outside [0, N) through its zero pad
+    # row (jnp's gather clamps N + 5 onto N), as K2 does on the card
+    rng = np.random.RandomState(6)
+    feats, mask, nbr, w = make_case(rng, m=256)
+    bias = rng.randn(w.shape[-1]).astype(np.float32)
+    bad = _out_of_range(nbr, feats.shape[0])
+    got = _port(feats, mask, bad, w, bias)
+    np.testing.assert_allclose(got, _ref(feats, mask, bad, w, bias), **TOL)
+    absent = np.where((bad >= 0) & (bad < feats.shape[0]), bad, -1)
+    np.testing.assert_array_equal(got, _port(feats, mask, absent, w, bias))
+
+
 def test_rejects_what_the_kernel_does_not_take():
     feats, mask, nbr, w = make_case(np.random.RandomState(5), m=8)
     args = list(map(torch.from_numpy, (feats, mask, nbr, w)))
