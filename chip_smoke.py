@@ -34,9 +34,21 @@ Phases (one line each; any failure exits non-zero before the last line):
      the prompt; launch counts per step; the split, with the IoU match cost
      and the Hungarian matcher (scipy on the host, its copies included);
      frozen parameters bit-identical and the others moved;
-  6. kernel parity and times: every kernel call of both warm-up requests,
-     of the detector's warm-up step's backward and of the grounder's
-     warm-up step is replayed on its recorded inputs against the kernel's
+  5b. occupancy paths ([occ], [occ_train]): the full-width mv_occ model
+     (81 classes, ResNet-50/64 + FPN 256, MinkResNet-34 at 0.0025 m
+     voxels, the 768 -> 1536 -> 3072-channel dense U-Net on the 40 x 40 x
+     16 prior grid; ~705M parameters, its seeded host init timed) serves
+     one warm-up and three requests of 100k points in a 2.4 m tall room
+     and 20 views of 480x480 (latency, peak, kept voxels, launches per
+     request; host ms per stage: voxelize + MinkResNet, ResNet + FPN,
+     image volume, U-Net, head + argmax), then from build_train takes one
+     warm-up and three steps on 10 views with 16384 padded gt voxels and
+     a visibility mask (launches, split, peak; frozen parameters
+     bit-identical, the others and the U-Net's statistics moved);
+  6. kernel parity and times: every kernel call of the warm-up requests,
+     of the detector's warm-up step's backward and of the grounder's and
+     the occupancy model's warm-up steps is replayed on its recorded
+     inputs against the kernel's
      plain PyTorch version (join scan bit-exact, sparse conv and weight
      gradient within 1e-4 x max|ref| and bit-identical when run twice, the
      weight gradient's pair lists identical to the plain pair pass), with
@@ -45,10 +57,14 @@ Phases (one line each; any failure exits non-zero before the last line):
      dense work that hits and that the kernel computes; after every
      timing, the profiler counts each call's CUDA launches and device time
      and traces one request of each path and one step of each train path
-     (device busy time and idle share);
+     (device busy time and idle share), and the U-Net's device time in an
+     occupancy request and step;
   7. eval: indoor_eval over the detector's requests and ground_eval over
      the grounder's, against synthetic ground truth, with the IoU on the
      card and on the cpu (metric dicts within 1e-6; times printed);
+     occupancy_eval over the occupancy requests ([occ_eval]) with the
+     ground truth's label grids built on the card and on the cpu
+     (records and dicts identical);
   8. published checkpoints ([ckpt]): a seeded state_dict in the layout of
      a reference EmbodiedScan checkpoint for each preset, at its full
      width (torchvision ResNet, ME MinkResNet, FCAF3D head or MinkNeck,
@@ -75,8 +91,16 @@ Phases (one line each; any failure exits non-zero before the last line):
      widths, cut capacities) on cuda (kernels) and on cpu (plain versions)
      with the same weights, serving, then the same two loaded from
      reference state_dicts by load_reference_model; each also one train
-     step (the grounder's matched gt indices identical);
- 11. one JSON line with the kernels, then the result line.
+     step (the grounder's matched gt indices identical); a small
+     occupancy model (shipped widths up to a 32-channel pre-neck, the 40 x
+     40 x 16 grid) at b = 2 serving with its norms' statistics taken from
+     another scene (voxels and tables identical, logits within atol 1e-4
+     + rtol 1e-5, classes identical but for reported top-2 ties; both
+     sides' U-Net and head against float64) and one train step (leaves
+     within 3e-4 x max|leaf|);
+ 11. one JSON line with the kernels (each kernel's row on the detection
+     and grounding paths, then its row on the occupancy paths), then the
+     result line.
 Per-call details go to chiprun_out/chip_smoke_calls.json.
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1 and 9 and stops
@@ -84,6 +108,7 @@ Per-call details go to chiprun_out/chip_smoke_calls.json.
 """
 
 import contextlib
+import copy
 import functools
 import json
 import os
@@ -130,6 +155,21 @@ EXPECTED_GROUND_TRAIN_LAUNCHES = {'sparse_conv_tc': 43, 'sparse_conv_simt': 1,
                                   'sparse_dgrad_simt': 0,
                                   'sparse_wgrad_tc': 43,
                                   'sparse_wgrad_narrow': 1, 'join_scan': 12}
+# wrapper calls per occupancy request: MinkResNet-34 alone (its 37 convs,
+# the stem on SIMT, and its joins); the 2D branch and the U-Net run on
+# cuDNN
+EXPECTED_OCC_LAUNCHES = {'sparse_conv_tc': 36, 'sparse_conv_simt': 1,
+                         'sparse_dgrad_tc': 0, 'sparse_dgrad_simt': 0,
+                         'sparse_wgrad_tc': 0, 'sparse_wgrad_narrow': 0,
+                         'join_scan': 5}
+# wrapper calls per occupancy train step: the 37 forward convs; K2 for the
+# input gradient of the 28 submanifold and 4 strided convs; K3 for the
+# weight gradient of all 37 (the stem's on the narrow route)
+EXPECTED_OCC_TRAIN_LAUNCHES = {'sparse_conv_tc': 36, 'sparse_conv_simt': 1,
+                               'sparse_dgrad_tc': 32,
+                               'sparse_dgrad_simt': 0,
+                               'sparse_wgrad_tc': 36,
+                               'sparse_wgrad_narrow': 1, 'join_scan': 5}
 CONV_GATE = 1e-4  # K2, K3: max|kernel - plain| <= CONV_GATE x max|plain|
 EVAL_GATE = 1e-6  # metric dicts with the IoU on the card vs on the cpu
 SPLIT_GATE = 1e-6  # K3 many chunks vs one: max|d| <= SPLIT_GATE x max
@@ -860,11 +900,16 @@ def device_profile(fn):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages()
-          if str(e.device_type).endswith('CUDA')]
+    # every call launches something: a session that recorded nothing lost
+    # its events (seen on the card now and then), so take another
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages()
+              if str(e.device_type).endswith('CUDA')]
+        if ev:
+            break
     return sum(e.count for e in ev), sum(_self_device_us(e) for e in ev) / 1e3
 
 
@@ -1003,18 +1048,22 @@ def _wgrad_call(S, x, xm, idx, y, ym):
 
 
 @torch.no_grad()
-def phase_kernels(rec, train_rec, device, ground_rec, ground_train_rec):
+def phase_kernels(rec, train_rec, device, ground_rec, ground_train_rec,
+                  occ_rec, occ_train_rec):
     """Every recorded call of the serving requests (K2 forward, K1: the
-    detector's and the grounder's warm-up requests), of the detector's
-    warm-up step's backward (K2 dgrad, K3) and of the grounder's whole
-    warm-up step (K1, K2 forward and dgrad, K3) on the card, one call's
-    inputs on the device at a time; the profiler only after all timings.
-    Each row names its path (det, grounding, train or ground_train)."""
+    detector's, the grounder's and the occupancy model's warm-up
+    requests), of the detector's warm-up step's backward (K2 dgrad, K3)
+    and of the grounder's and the occupancy model's whole warm-up steps
+    (K1, K2 forward and dgrad, K3) on the card, one call's inputs on the
+    device at a time; the profiler only after all timings. Each row names
+    its path (det, grounding, occ, train, ground_train or occ_train)."""
     from embodiedscan_torch.ops import pscan as P
     from embodiedscan_torch.ops import sparse as S
     fwd = (('det', rec), ('grounding', ground_rec),
-           ('ground_train', ground_train_rec))
-    bwd = (('train', train_rec), ('ground_train', ground_train_rec))
+           ('ground_train', ground_train_rec), ('occ', occ_rec),
+           ('occ_train', occ_train_rec))
+    bwd = (('train', train_rec), ('ground_train', ground_train_rec),
+           ('occ_train', occ_train_rec))
     runs = {
         'sparse_conv': ([(p, a) for p, r in fwd for a in r.conv],
                         lambda a: S.gather_matmul_conv(*a)),
@@ -1051,7 +1100,7 @@ def phase_kernels(rec, train_rec, device, ground_rec, ground_train_rec):
                 f'{sum(r["plain_ms"] for r in rs):.3f} ms, library '
                 f'{sum(r["library_ms"] for r in rs):.3f} ms, bound '
                 f'{sum(r["bound_ms"] for r in rs):.3f} ms per '
-                f'{"request" if path in ("det", "grounding") else "step"}; '
+                f'{"step" if "train" in path else "request"}; '
                 f'max|d| '
                 f'{max(r["max_abs_err"] for r in rs)}; CUDA launches '
                 f'{sum(r["cuda_launches"] for r in rs)}, device-only '
@@ -2142,13 +2191,469 @@ def phase_converted_parity(device, ground_sd):
                   f'converted grounder ({n} tensors) cpu vs cuda')
 
 
-def kernel_line(calls, totals):
+# --- the occupancy paths (mv_occ) ---
+
+
+def make_occ_request(p=100000, v=20, hw=480, seed=0, b=1, n_gt=0,
+                     num_classes=81):
+    """``b`` rooms of ``p`` points inside mv_occ's point_cloud_range: a
+    floor at z = -0.7 m, four walls up to 1.7 m (2.4 m: taller than the
+    1.28 m a 9-bit z reaches at 0.0025 m voxels) and a table top, 1 cm
+    noise; ``v`` cameras 7 m above, looking down. With ``n_gt``, also
+    ``gt_occ``: the prior-grid cells (0.16 m) the cloud occupies, labelled
+    by surface (1-6, or with p 0.3 a class of 1 .. num_classes - 1),
+    padded to ``n_gt`` rows, and a visibility mask. Numpy, from a seed."""
+    rng = np.random.RandomState(seed)
+    u = rng.uniform(0, 1, (b, p, 2)).astype(np.float32)
+    a, h = -3.1 + 6.2 * u[..., 0], -0.7 + 2.4 * u[..., 1]
+    which = rng.randint(0, 6, (b, p))
+    const = np.full_like(a, 3.1)
+    pts = np.select(
+        [which[..., None] == k for k in range(6)],
+        [np.stack(c, -1) for c in (
+            (a, -3.1 + 6.2 * u[..., 1], np.full_like(a, -0.7)),  # floor
+            (-const, a, h), (const, a, h), (a, -const, h), (a, const, h),
+            (-1 + 2 * u[..., 0], -0.5 + u[..., 1], np.full_like(a, 0.05)))])
+    pts = (pts + rng.randn(b, p, 3) * 0.01).astype(np.float32)
+    k = np.array([[0.8 * hw, 0, hw / 2, 0], [0, 0.8 * hw, hw / 2, 0],
+                  [0, 0, 1, 0], [0, 0, 0, 1]], np.float32)
+    projs = []
+    for i in range(v):
+        ext = np.eye(4, dtype=np.float32)
+        ext[:3, 3] = [0.3 * i - 0.15 * (v - 1), 0.2 * i - 0.1 * (v - 1), 7.0]
+        projs.append(k @ ext)
+    req = dict(points=pts, points_mask=np.ones((b, p), bool),
+               imgs=rng.randn(b, v, hw, hw, 3).astype(np.float32),
+               proj=np.tile(np.stack(projs)[None], (b, 1, 1, 1)),
+               aug_inv=np.tile(np.eye(4, dtype=np.float32), (b, 1, 1)))
+    if n_gt:
+        gt = np.zeros((b, n_gt, 4), np.float32)
+        gm = np.zeros((b, n_gt), bool)
+        for i in range(b):
+            cells = np.floor((pts[i] - np.array([-3.2, -3.2, -0.78])) /
+                             0.16).astype(np.int64)
+            cells, first = np.unique(cells, axis=0, return_index=True)
+            labels = np.where(rng.uniform(size=len(cells)) < 0.3,
+                              rng.randint(1, num_classes, len(cells)),
+                              which[i][first] + 1)
+            n = min(len(cells), n_gt)
+            gt[i, :n] = np.concatenate([cells, labels[:, None]], 1)[:n]
+            gm[i, :n] = True
+        req.update(gt_occ=gt, gt_occ_mask=gm,
+                   visible_mask=rng.uniform(size=(b, 40, 40, 16)) > 0.15)
+    return req
+
+
+def occ_parts(model, batch, timer=None):
+    """The occupancy request stage by stage (voxelize + MinkResNet, ResNet
+    + FPN, image volume, U-Net, head + argmax), each through ``timer``
+    (``fn -> (ms, out)``) when one is given; returns (ms per stage, the
+    logits, the predicted classes)."""
+    timer = timer or (lambda fn: (0.0, fn()))
+    ms = {}
+
+    def stage(name, fn):
+        ms[name], out = timer(fn)
+        return out
+
+    with torch.no_grad():
+        points = stage('voxelize_mink_resnet34',
+                       lambda: model.point_volume(batch))
+        maps = stage('resnet50_fpn', lambda: model.image_maps(batch['imgs']))
+        image = stage('image_volume', lambda: model.image_volume(batch,
+                                                                 maps))
+        x = model.fuse(image, points)
+        feats = stage('unet', lambda: model.neck(x))
+        logits, pred = stage('head_argmax', lambda: (lambda lg: (
+            lg, model.OccHead_0.predict(lg)))(model.OccHead_0(feats)))
+    return ms, logits, pred
+
+
+@contextlib.contextmanager
+def _timed_init(out):
+    """While active, ``models.detector.init_weights`` (which
+    ``build_model`` calls) adds its host seconds to ``out['init_s']``."""
+    from embodiedscan_torch.models import detector as D
+    init = D.init_weights
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        try:
+            return init(*args)
+        finally:
+            out['init_s'] = out.get('init_s', 0.0) + time.perf_counter() - t0
+
+    D.init_weights = timed
+    try:
+        yield out
+    finally:
+        D.init_weights = init
+
+
+def phase_occ(device, card, cfg=None):
+    """The mv_occ serving path at full width (81 classes, ResNet-50/64 +
+    FPN 256, MinkResNet-34 at 0.0025 m, the 768 -> 1536 -> 3072 U-Net on
+    40 x 40 x 16): one recorded warm-up request, then three timed ones
+    (20 views of 480x480, 100k points), each with its peak memory, its
+    kept voxels and its launch counts against EXPECTED_OCC_LAUNCHES; then
+    the host-clock time of each stage."""
+    from embodiedscan_torch.configs.base import build_model, mv_occ
+    from embodiedscan_torch.ops import pscan as P
+    from embodiedscan_torch.ops import sparse as S
+    cfg = cfg or mv_occ()
+    m, d = cfg.model, cfg.data
+    t0 = time.perf_counter()
+    with _timed_init({}) as init:
+        model = build_model(cfg, device=device)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    unet = sum(p.numel() for p in model.ImVoxelNeck_0.parameters())
+    log(f'[occ] built mv_occ on {device} in {time.perf_counter() - t0:.1f} '
+        f's (seeded host init {init["init_s"]:.1f} s): {n_params} '
+        f'parameters, of which the U-Net {unet}; {card}')
+    requests = [make_occ_request(d.n_points, d.n_views_test, d.image_hw[0],
+                                 seed=s, n_gt=d.max_occ_voxels,
+                                 num_classes=m.occ_classes)
+                for s in range(4)]
+    with Recorder(S, P) as rec:  # warm-up request: record kernel inputs
+        t0 = time.perf_counter()
+        model(to_device(requests[0], device), mode='predict')
+        torch.cuda.synchronize()
+    log(f'[occ] warm-up request {time.perf_counter() - t0:.2f} s, '
+        f'{len(rec.conv)} conv and {len(rec.scan)} join-scan calls recorded')
+    lat, mem, kept, served = [], [], [], []
+    totals = dict.fromkeys(EXPECTED_OCC_LAUNCHES, 0)
+    shape = (1, *m.n_voxels)
+    for i, req in enumerate(requests[1:]):
+        batch = to_device(req, device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(S, P)
+        t0 = time.perf_counter()
+        pred = model(batch, mode='predict')
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        counts = read_counts(S, P)
+        mem.append(torch.cuda.max_memory_allocated() / 2**30)
+        if tuple(pred.shape) != shape or not (
+                (pred >= 0) & (pred < m.occ_classes)).all():
+            raise RuntimeError(f'occupancy request {i}: shape '
+                               f'{tuple(pred.shape)}, classes out of range')
+        check_counts(counts, EXPECTED_OCC_LAUNCHES, f'occupancy request {i}')
+        for name in totals:
+            totals[name] += counts[name]
+        with torch.no_grad():
+            kept.append(int(model.voxelize(batch).mask.sum()))
+        served.append((batch, pred))
+        log(f'[occ] request {i}: {lat[-1] * 1e3:.1f} ms, peak '
+            f'{mem[-1]:.2f} GiB, {kept[-1]} of {d.n_points} points kept as '
+            f'voxels (the 11-bit key reaches 5.12 m of the 6.4 m range), '
+            f'{len(torch.unique(pred))} classes predicted, launches {counts}')
+    log(f'[occ] latency ms per request: {[round(t * 1e3, 3) for t in lat]}, '
+        f'peak GiB {max(mem):.3f}; {card}')
+    stats = dict(latency_ms=[t * 1e3 for t in lat], peak_gib=max(mem),
+                 kept_voxels=kept, parameters=n_params, unet_parameters=unet,
+                 init_s=init['init_s'])
+    batch = served[0][0]
+    stages = occ_parts(model, batch, _host_ms)[0]
+    log('[breakdown] occupancy host ms per stage: ' + ', '.join(
+        f'{k} {v:.2f}' for k, v in stages.items()))
+    stats.update(stages_ms=stages)
+    return rec, totals, stats, model, batch, served
+
+
+def phase_occ_train(device, card, cfg=None):
+    """The mv_occ train step at full width: ``build_train`` (the 2D stem
+    and first stage frozen); 10 views of 480x480, 100k points,
+    ``max_occ_voxels`` padded gt voxels and a visibility mask;
+    :func:`train_steps` against EXPECTED_OCC_TRAIN_LAUNCHES; then every
+    frozen parameter bit-identical, every other one moved and the U-Net's
+    running statistics moved."""
+    from embodiedscan_torch.configs.base import build_train, mv_occ
+    cfg = cfg or mv_occ()
+    d = cfg.data
+    t0 = time.perf_counter()
+    model, opt = build_train(cfg, device=device)
+    batch = to_device(make_occ_request(
+        d.n_points, d.n_views_train, d.image_hw[0], seed=9,
+        n_gt=d.max_occ_voxels, num_classes=cfg.model.occ_classes), device)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    stats0 = {n: b.clone() for n, b in model.ImVoxelNeck_0.named_buffers()}
+    frozen = {n for n, p in model.named_parameters() if not p.requires_grad}
+    log(f'[occ_train] built mv_occ and AdamW on {device} in '
+        f'{time.perf_counter() - t0:.1f} s: frozen '
+        f'{sum(before[n].numel() for n in frozen)} parameters in '
+        f'{len(frozen)} tensors; batch b=1, {d.n_points} points, '
+        f'{d.n_views_train} views, {int(batch["gt_occ_mask"].sum())} of '
+        f'{d.max_occ_voxels} gt voxels valid; {card}')
+    rec, totals, stats = train_steps('occ_train', model, opt, batch,
+                                     EXPECTED_OCC_TRAIN_LAUNCHES)
+    params = dict(model.named_parameters())
+    moved = [n for n in frozen if not torch.equal(params[n], before[n])]
+    # the FPN outputs past the finest are not read: their zero biases get
+    # no gradient and no decay
+    stuck = [n for n in params if n not in frozen and before[n].any() and
+             torch.equal(params[n], before[n])]
+    still = {n: b for n, b in model.ImVoxelNeck_0.named_buffers()
+             if torch.equal(b, stats0[n])}
+    if moved or stuck or still:
+        raise RuntimeError(f'occupancy train: frozen tensors moved {moved}, '
+                           f'trained tensors did not move {stuck}, U-Net '
+                           f'statistics did not move {list(still)}')
+    log(f'[occ_train] after {len(stats["losses"]) + 1} steps: the '
+        f'{len(frozen)} frozen tensors bit-identical, every other nonzero '
+        f'tensor moved, the U-Net\'s {len(stats0)} running statistics '
+        f'moved; {card}')
+    return rec, totals, stats, model, opt, batch
+
+
+def occ_unet_share(model, batch, stats, train_model, train_batch,
+                   train_stats, card):
+    """The U-Net's device time (profiler): its forward on the request's
+    fused volume, and its forward and backward on the train batch's,
+    beside the profiled request's and step's device busy time."""
+    with torch.no_grad():
+        x = model.features(batch)
+    fwd = device_profile(lambda: model.neck(x))
+    with torch.no_grad():
+        xt = train_model.features(train_batch)
+    xt.requires_grad_(True)
+
+    def fwd_bwd():
+        sum(f.sum() for f in train_model.neck(xt)).backward()
+
+    both = device_profile(fwd_bwd)
+    train_model.zero_grad(set_to_none=True)
+    stats.update(unet_launches=fwd[0], unet_device_ms=fwd[1])
+    train_stats.update(unet_launches=both[0], unet_device_ms=both[1])
+    log(f'[breakdown] occupancy U-Net device time: request {fwd[1]:.2f} ms '
+        f'({fwd[0]} launches) of {stats["device_busy_ms"]:.2f} ms busy '
+        f'(share {fwd[1] / stats["device_busy_ms"]:.3f}); train step '
+        f'forward + backward {both[1]:.2f} ms ({both[0]} launches) of '
+        f'{train_stats["device_busy_ms"]:.2f} ms busy (share '
+        f'{both[1] / train_stats["device_busy_ms"]:.3f}); {card}')
+
+
+def phase_occ_eval(served, device):
+    """``occupancy_eval`` over the served requests through
+    ``_append_scene_results``, with the ground truth's label grids built on
+    the card and on the cpu: identical records, identical metric dicts.
+    Each request's gt is its own synthetic one, with a third of its cells
+    relabelled as the prediction so classes overlap."""
+    from embodiedscan_torch.configs.base import mv_occ
+    from embodiedscan_torch.eval.occupancy_metric import occupancy_eval
+    from embodiedscan_torch.train.loop import _append_scene_results
+    cfg = mv_occ()
+    out, ms = {}, {}
+    for dev in (device, 'cpu'):
+        gts, dts = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, (batch, pred) in enumerate(served):
+            b = {k: v.to(dev) for k, v in batch.items()}
+            c = b['gt_occ'][0, :, :3].long()
+            agree = (torch.arange(c.shape[0], device=dev) % 3) == 0
+            b['gt_occ'] = b['gt_occ'].clone()
+            b['gt_occ'][0, :, 3] = torch.where(
+                agree, pred.to(dev)[0, c[:, 0], c[:, 1], c[:, 2]].float(),
+                b['gt_occ'][0, :, 3])
+            _append_scene_results(cfg, b, pred.to(dev), 1, gts, dts, i)
+        res = occupancy_eval(gts, dts, cfg.model.occ_classes)
+        ms[dev] = (time.perf_counter() - t0) * 1e3
+        out[dev] = (gts, dts, res)
+    (gc, dc, rc), (gg, dg, rg) = out['cpu'], out[device]
+    if not all(np.array_equal(a, b) for a, b in zip(gc + dc, gg + dg)):
+        raise RuntimeError('occupancy eval: records differ between the card '
+                           'and the cpu')
+    if rc != rg:
+        raise RuntimeError(f'occupancy eval: {rc} != {rg}')
+    if not rg['mIoU'] > 0:
+        raise RuntimeError(f'occupancy eval: no hit ({rg})')
+    log(f'[occ_eval] occupancy_eval over {len(gg)} scenes: mIoU '
+        f'{rg["mIoU"]:.4f}, empty (geometry) IoU {rg["empty"]:.4f}, '
+        f'{len(rg) - 1} classes scored; card and cpu records and dicts '
+        f'identical; ms with the targets on the card {ms[device]:.1f}, on '
+        f'the cpu {ms["cpu"]:.1f}')
+    return dict(metrics=rg, ms=ms)
+
+
+def _occ_parity_cfg():
+    """The small mv_occ of the parity phases: shipped depths and widths up
+    to the U-Net (ResNet-50/64 + FPN 256, MinkResNet-34, 81 classes, the
+    40 x 40 x 16 grid at 0.0025 m), a 32-channel pre-neck, capacities cut
+    for 6000-point scenes."""
+    from embodiedscan_torch.configs.base import mv_occ
+    cfg = mv_occ()
+    m = cfg.model
+    m.input_capacity = 8192
+    m.backbone_capacities = (8192, 8192, 4096, 2048, 1024, 1024)
+    m.occ_pre_neck_channels = 32
+    return cfg
+
+
+# argmax at the finest scale: where the card and the cpu pick different
+# classes, the two top logits must be a tie within the serving tolerance
+ARGMAX_TIE = dict(atol=1e-4, rtol=1e-5)
+
+
+@torch.no_grad()
+def phase_occ_parity(device):
+    """The small occupancy model (``_occ_parity_cfg``, its norms
+    calibrated on another scene by ``_calibrate_norms``) on ``device``
+    (kernels) and on cpu (plain versions) with the same weights, b = 2
+    rooms of 2.4 m: voxel coordinates and masks and every conv table
+    identical, per-scale logits within atol 1e-4 + rtol 1e-5, the
+    predicted classes identical except where the top two logits tie
+    within that tolerance (reported); then both sides' U-Net and head
+    from the cpu's fused volume against a float64 copy."""
+    from embodiedscan_torch.configs.base import build_model
+    from embodiedscan_torch.ops import pscan as P
+    from embodiedscan_torch.ops import sparse as S
+    cfg = _occ_parity_cfg()
+    cpu = _calibrate_norms(build_model(cfg, device='cpu'), to_device(
+        make_occ_request(p=6000, v=4, hw=96, seed=5, b=2), 'cpu'))
+    gpu = build_model(cfg, device=device)
+    gpu.load_state_dict(cpu.state_dict())
+    req = make_occ_request(p=6000, v=4, hw=96, seed=7, b=2)
+    out = {}
+    for name, model, dev in (('cpu', cpu, 'cpu'), ('cuda', gpu, device)):
+        batch = to_device(req, dev)
+        with Recorder(S, P) as rec:
+            _, logits, pred = occ_parts(model, batch)
+        st = model.voxelize(batch)
+        out[name] = (rec, [t.cpu() for t in logits], pred.cpu(),
+                     st.coords.cpu(), st.mask.cpu())
+    (rc, lc, pc, cc, mc), (rg, lg, pg, cg, mg) = out['cpu'], out['cuda']
+    if len(rc.conv) != len(rg.conv) or not rc.conv:
+        raise RuntimeError('cpu and cuda occupancy models made different '
+                           'conv calls')
+    if not all(torch.equal(a[2], b[2].cpu()) for a, b in zip(rc.conv,
+                                                             rg.conv)):
+        raise RuntimeError('occupancy neighbor tables differ between cpu '
+                           'and cuda')
+    if not (torch.equal(cc, cg) and torch.equal(mc, mg)):
+        raise RuntimeError('occupancy voxels differ between cpu and cuda')
+    z = cc[..., 2][mc]
+    diffs = [_close(a, b, f'occupancy logits scale {i}')
+             for i, (a, b) in enumerate(zip(lc, lg))]
+    flips = (pc != pg).nonzero()
+    for idx in flips.tolist():
+        top = torch.topk(lc[0][tuple(idx)], 2).values
+        tol = ARGMAX_TIE['atol'] + ARGMAX_TIE['rtol'] * float(top[0].abs())
+        if not float(top[0] - top[1]) <= tol:
+            raise RuntimeError(f'occupancy predict: voxel {idx} differs '
+                               f'between cpu and cuda without a tie')
+    # both sides' float32 rounding: the U-Net and head from the cpu's
+    # fused volume against a float64 copy
+    x = cpu.features(to_device(req, 'cpu'))
+    ref = copy.deepcopy(cpu).double()
+    want = ref.OccHead_0(ref.neck(x.double()))[0]
+    err = {name: float((m.OccHead_0(m.neck(x.to(dev)))[0].cpu().double() -
+                        want).abs().max())
+           for name, m, dev in (('cpu', cpu, 'cpu'), ('cuda', gpu, device))}
+    log(f'[parity] occupancy cpu vs cuda: {len(rc.conv)} neighbor tables, '
+        f'{int(mc.sum())} voxels (z spans {int(z.max() - z.min())} of the '
+        f'512 a 9-bit key reaches) identical; logits (max|logit| '
+        f'{float(lc[0].abs().max()):.4g}) within atol 1e-4 + rtol 1e-5 '
+        f'(worst excess {max(diffs):.3g}); predicted classes identical in '
+        f'{pc.numel() - len(flips)} of {pc.numel()} voxels, {len(flips)} '
+        f'top-2 ties within the tolerance; U-Net + head from one fused '
+        f'volume against float64: cuda max|d| {err["cuda"]:.3g}, cpu '
+        f'{err["cpu"]:.3g}')
+    return dict(argmax_ties=len(flips), worst_excess=max(diffs),
+                float64_err=err)
+
+
+@torch.no_grad()
+def _calibrate_norms(model, batch):
+    """A trained model's normalization statistics in place of the identity
+    ones: one training-mode pass over ``batch`` with every batch norm's
+    momentum at 0 keeps each norm's batch statistics; returns the model in
+    eval mode. At identity statistics the random U-Net carries activations
+    of ~50 to the logits, where float32 rounding (~2e-6 of that scale, on
+    the cpu as on the card) reaches the serving gate's atol."""
+    from embodiedscan_torch.models.norm import DenseBatchNorm, MaskedBatchNorm
+    norms = [m for m in model.modules()
+             if isinstance(m, (DenseBatchNorm, MaskedBatchNorm))]
+    for norm in norms:
+        norm.MOMENTUM = 0.0
+    model.train()(batch, mode='feats')
+    for norm in norms:
+        del norm.MOMENTUM  # back to the class's
+    return model.eval()
+
+
+def phase_occ_train_parity(device):
+    """One train step of the small occupancy model with the task's lr
+    multipliers on ``device`` (kernels), then on cpu (plain versions)
+    taking the card's ReLU decisions (``_relu_decisions``), from the same
+    weights and batch (b = 2, 2.4 m rooms, 2048 padded gt voxels): every
+    conv, dgrad and wgrad table identical, each loss within LOSS_RTOL,
+    every gradient leaf (after the clip, as the optimizer used it) and
+    batch statistic within GRAD_GATE x its max|cpu|."""
+    from embodiedscan_torch.configs.base import build_model
+    from embodiedscan_torch.ops import pscan as P
+    from embodiedscan_torch.ops import sparse as S
+    from embodiedscan_torch.train.loop import lr_mult_fn_for
+    from embodiedscan_torch.train.state import make_optimizer, train_step
+    cfg = _occ_parity_cfg()
+    cpu = build_model(cfg, device='cpu').train()
+    gpu = build_model(cfg, device=device).train()
+    gpu.load_state_dict(cpu.state_dict())
+    req = make_occ_request(p=6000, v=4, hw=96, seed=8, b=2, n_gt=2048)
+    out, follow = {}, None
+    for name, model, dev in (('cuda', gpu, device), ('cpu', cpu, 'cpu')):
+        opt = make_optimizer(model, cfg, lr_mult_fn_for('mv_occ'))
+        with Recorder(S, P) as rec, _relu_decisions(follow) as (dec, flips):
+            metrics = train_step(model, opt, to_device(req, dev))
+        follow = dec
+        out[name] = (rec, {k: float(v) for k, v in metrics.items()},
+                     {n: p.grad.cpu() for n, p in model.named_parameters()
+                      if p.grad is not None},
+                     {n: b.cpu() for n, b in model.named_buffers()}, flips)
+    (rg, mg, gg, bg, _), (rc, mc, gc, bc, flips) = out['cuda'], out['cpu']
+    kinds = ('conv', 'dgrad', 'wgrad')
+    if any(len(getattr(rc, k)) != len(getattr(rg, k)) or not getattr(rc, k)
+           for k in kinds):
+        raise RuntimeError('cpu and cuda occupancy train steps made '
+                           'different calls')
+    tables = [(a[2], b[2]) for k in kinds
+              for a, b in zip(getattr(rc, k), getattr(rg, k))]
+    if not all(torch.equal(a, b.cpu()) for a, b in tables):
+        raise RuntimeError('occupancy train step tables differ between cpu '
+                           'and cuda')
+    loss_err = max(abs(mg[k] - v) / abs(v) for k, v in mc.items())
+    if not loss_err <= LOSS_RTOL:
+        raise RuntimeError(f'occupancy train step losses: {mc} vs {mg}')
+    if set(gc) != set(gg):
+        raise RuntimeError('cpu and cuda occupancy models have gradients for '
+                           'different parameters')
+    worst = {'grads': _worst(gc, gg), 'batch stats': _worst(bc, bg)}
+    for what, (ratio, key) in worst.items():
+        if not np.isfinite(ratio) or ratio > GRAD_GATE:
+            raise RuntimeError(f'occupancy train step {what} {key}: '
+                               f'max|d|/max|cpu| {ratio} > {GRAD_GATE}')
+    log(f'[parity] occupancy train step cpu vs cuda: {len(tables)} tables '
+        f'identical, losses within {loss_err:.2e} relative (gate '
+        f'{LOSS_RTOL}), loss_total {mc["loss_total"]:.6g}; '
+        f'{sum(n for _, n, _ in flips)} of the cpu\'s ReLU decisions in '
+        f'{len(flips)} calls took the card\'s, each a tie within '
+        f'{max([w for _, _, w in flips], default=0):.2e} x max|x| (gate '
+        f'{FLIP_ATOL}); worst max|d|/max|cpu| over {len(gc)} gradient '
+        f'leaves and the batch statistics: ' +
+        ', '.join(f'{k} {v:.2e} ({p})' for k, (v, p) in worst.items()) +
+        f' (gate {GRAD_GATE})')
+    return dict(worst=worst, flips=flips, loss_rel=loss_err)
+
+
+def kernel_line(calls, totals, occ_totals):
     """The kernels line: K2 forward and K1 rows (the detector's and the
     grounder's requests and the grounding train step), K2 dgrad and K3
-    rows (the detector's and the grounder's train steps); launches summed
-    over the main paths' timed runs, every other number from this run's
-    replays (summed over one recorded detector request, one grounding
-    request and the grounding train step, or over the two train steps)."""
+    rows (the detector's and the grounder's train steps); then the same
+    kernels' rows on the occupancy paths (``(occ)``: the request and the
+    train step). Launches summed over each group's timed runs, every other
+    number from this run's replays (summed over one recorded request or
+    step of each path)."""
     rows = []
     conv = ('embodiedscan_torch/csrc/sparse_conv.cu',
             'embodiedscan_tpu/experimental/pallas_conv.py:62')
@@ -2156,35 +2661,40 @@ def kernel_line(calls, totals):
     # custom VJPs _subm_bwd and _strided_bwd (no Pallas kernel)
     bwd = 'embodiedscan_tpu/ops/sparse.py:354,413'
     wgrad = 'embodiedscan_torch/csrc/sparse_conv_wgrad.cu'
-    meta = {  # kernel -> (source, replaces, its calls)
-        'sparse_conv_tc': (*conv, [r for r in calls['sparse_conv']
-                                   if r['route'] == 'tc']),
-        'sparse_conv_simt': (*conv, [r for r in calls['sparse_conv']
-                                     if r['route'] == 'simt']),
-        'join_scan': ('embodiedscan_torch/csrc/join_scan.cu',
-                      'embodiedscan_tpu/ops/pscan.py:101',
-                      calls['join_scan']),
-        'sparse_dgrad_tc': (conv[0], bwd, [r for r in calls['sparse_dgrad']
-                                           if r['route'] == 'tc']),
-        'sparse_wgrad_tc': (wgrad, bwd, [r for r in calls['sparse_wgrad']
-                                         if r['route'] == 'tc']),
-        'sparse_wgrad_narrow': (wgrad, bwd,
-                                [r for r in calls['sparse_wgrad']
-                                 if r['route'] == 'narrow']),
-    }
-    for name, (source, replaces, rs) in meta.items():
-        if not rs or not totals[name]:
-            raise RuntimeError(f'{name}: no call on its main path')
-        bound = sum(r['bound_ms'] for r in rs)
-        by_bytes = sum(r['bound_ms'] for r in rs if r['bound_by'] == 'bytes')
-        rows.append(dict(
-            name=name, route='cuda', source=source, replaces=replaces,
-            launches=totals[name],
-            max_abs_err=max(r['max_abs_err'] for r in rs),
-            ms=sum(r['ms'] for r in rs),
-            plain_ms=sum(r['plain_ms'] for r in rs), bound_ms=bound,
-            bound_by='bytes' if by_bytes >= bound / 2 else 'operations',
-            library_ms=sum(r['library_ms'] for r in rs)))
+    occ = ('occ', 'occ_train')
+    for suffix, counts, mine in (
+            ('', totals, lambda r: r['path'] not in occ),
+            (' (occ)', occ_totals, lambda r: r['path'] in occ)):
+        def of(name, route=None):
+            return [r for r in calls[name] if mine(r) and
+                    (route is None or r['route'] == route)]
+
+        meta = {  # kernel -> (source, replaces, its calls)
+            'sparse_conv_tc': (*conv, of('sparse_conv', 'tc')),
+            'sparse_conv_simt': (*conv, of('sparse_conv', 'simt')),
+            'join_scan': ('embodiedscan_torch/csrc/join_scan.cu',
+                          'embodiedscan_tpu/ops/pscan.py:101',
+                          of('join_scan')),
+            'sparse_dgrad_tc': (conv[0], bwd, of('sparse_dgrad', 'tc')),
+            'sparse_wgrad_tc': (wgrad, bwd, of('sparse_wgrad', 'tc')),
+            'sparse_wgrad_narrow': (wgrad, bwd,
+                                    of('sparse_wgrad', 'narrow')),
+        }
+        for name, (source, replaces, rs) in meta.items():
+            if not rs or not counts[name]:
+                raise RuntimeError(f'{name}{suffix}: no call on its main '
+                                   'path')
+            bound = sum(r['bound_ms'] for r in rs)
+            by_bytes = sum(r['bound_ms'] for r in rs
+                           if r['bound_by'] == 'bytes')
+            rows.append(dict(
+                name=name + suffix, route='cuda', source=source,
+                replaces=replaces, launches=counts[name],
+                max_abs_err=max(r['max_abs_err'] for r in rs),
+                ms=sum(r['ms'] for r in rs),
+                plain_ms=sum(r['plain_ms'] for r in rs), bound_ms=bound,
+                bound_by='bytes' if by_bytes >= bound / 2 else 'operations',
+                library_ms=sum(r['library_ms'] for r in rs)))
     return json.dumps({'kernels': rows})
 
 
@@ -2208,21 +2718,37 @@ def main():
         phase_train('cuda')
     gt_rec, gt_totals, gt_stats, gtmodel, gtopt, gtbatch = \
         phase_ground_train('cuda')
+    occ_rec, occ_totals, occ_stats, omodel, obatch, occ_served = \
+        phase_occ('cuda', card)
+    occ_rec.to_host()
+    ot_rec, ot_totals, ot_stats, otmodel, otopt, otbatch = \
+        phase_occ_train('cuda', card)
     # event timings first, every profiler session after them (see cuda_ms)
-    calls = phase_kernels(rec, train_rec, 'cuda', ground_rec, gt_rec)
+    calls = phase_kernels(rec, train_rec, 'cuda', ground_rec, gt_rec,
+                          occ_rec, ot_rec)
     with torch.no_grad():
         main_stats.update(profile_run(
             lambda: model(batch, mode='predict'), 'request'))
         ground_stats.update(profile_run(
             lambda: gmodel(gbatch, mode='predict'), 'grounding request'))
+        occ_stats.update(profile_run(
+            lambda: omodel(obatch, mode='predict'), 'occupancy request'))
     from embodiedscan_torch.train.state import train_step
     train_stats.update(profile_run(lambda: train_step(tmodel, opt, tbatch),
                                    'train step'))
     gt_stats.update(profile_run(lambda: train_step(gtmodel, gtopt, gtbatch),
                                 'grounding train step'))
+    ot_stats.update(profile_run(lambda: train_step(otmodel, otopt, otbatch),
+                                'occupancy train step'))
+    occ_unet_share(omodel, obatch, occ_stats, otmodel, otbatch, ot_stats,
+                   card)
     del rec, ground_rec, train_rec, gt_rec, model, batch, gmodel, gbatch, \
-        tmodel, opt, tbatch, gtmodel, gtopt, gtbatch
+        tmodel, opt, tbatch, gtmodel, gtopt, gtbatch, occ_rec, ot_rec, \
+        omodel, obatch, otmodel, otopt, otbatch
+    torch.cuda.empty_cache()
     eval_stats = phase_eval(det_preds, ground_preds, 'cuda')
+    occ_eval_stats = phase_occ_eval(occ_served, 'cuda')
+    del occ_served
     t0 = time.perf_counter()
     sds = {task: reference_state_dict(task)
            for task in ('mv_det3d', 'mv_grounding')}
@@ -2235,8 +2761,9 @@ def main():
     with open(os.path.join(OUT_DIR, 'chip_smoke_calls.json'), 'w') as f:
         json.dump(dict(card=card, main=main_stats, grounding=ground_stats,
                        train=train_stats, ground_train=gt_stats,
-                       eval=eval_stats, ckpt=ckpt_stats, calls=calls), f,
-                  indent=1)
+                       occ=occ_stats, occ_train=ot_stats,
+                       eval=eval_stats, occ_eval=occ_eval_stats,
+                       ckpt=ckpt_stats, calls=calls), f, indent=1)
     phase_edges('cuda')
     phase_e2e_parity('cuda')
     phase_ground_parity('cuda')
@@ -2244,6 +2771,8 @@ def main():
     del sds
     phase_train_parity('cuda')
     phase_ground_train_parity('cuda')
+    phase_occ_parity('cuda')
+    phase_occ_train_parity('cuda')
     log(f'[done] {time.perf_counter() - t_start:.1f} s')
     for name, n in ground_totals.items():
         totals[name] += n
@@ -2252,7 +2781,9 @@ def main():
             totals[name] = n
     for name, n in gt_totals.items():
         totals[name] += n
-    print(kernel_line(calls, totals))
+    for name, n in ot_totals.items():
+        occ_totals[name] += n
+    print(kernel_line(calls, totals, occ_totals))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

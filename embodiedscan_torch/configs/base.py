@@ -1,5 +1,6 @@
 """Configs, their ``a.b=c`` overrides and the model entry point (port of
-the detection and grounding parts of ``embodiedscan_tpu/configs/base.py``).
+the detection, grounding and multi-view occupancy parts of
+``embodiedscan_tpu/configs/base.py``).
 """
 
 import dataclasses
@@ -43,6 +44,8 @@ class DataConfig:
     image_hw: Sequence[int] = (480, 480)
     n_gt: int = 128  # padded ground-truth boxes per training scene
     max_boxes: int = 200  # padded gt boxes per grounding prompt
+    # padded sparse occupancy ground truth (xyz + label) per training scene
+    max_occ_voxels: int = 16384
     # directory of RoBERTa's vocab.json and merges.txt for models.text.
     # get_tokenizer; '' = the offline hash tokenizer
     tokenizer_path: str = ''
@@ -99,6 +102,16 @@ class ModelConfig:
     cost_l1_weight: float = 2.0
     cost_iou_weight: float = 2.0
     decouple_weights: Sequence[float] = (0.2, 0.2, 0.2, 0.4)
+    # occupancy (configs/occupancy/mv-occ...py): 80 classes + empty, the
+    # prior grid, the PointsRangeFilter bound (also the sparse branch's
+    # origin), the 2D FPN's width, an optional 1x1 projection before the
+    # U-Net (0 = off) and the 2D ResNet's base width
+    occ_classes: int = 81
+    n_voxels: Sequence[int] = (40, 40, 16)
+    point_cloud_range: Sequence[float] = (-3.2, -3.2, -0.78, 3.2, 3.2, 1.78)
+    occ_fpn_channels: int = 256
+    occ_pre_neck_channels: int = 0
+    resnet_base_channels: int = 64
 
 
 @dataclasses.dataclass
@@ -129,14 +142,26 @@ def mv_grounding() -> Config:
     return cfg
 
 
-PRESETS = {'mv_det3d': mv_det3d, 'mv_grounding': mv_grounding}
+def mv_occ() -> Config:
+    """configs/occupancy/mv-occ_8xb1_embodiedscan-occ-80class.py (10 train
+    and 20 test views, the 24-epoch schedule's milestones)."""
+    cfg = Config()
+    cfg.model.task = 'mv_occ'
+    cfg.data.n_views_train = 10
+    cfg.data.n_views_test = 20
+    cfg.schedule.milestones = (16, 22)
+    return cfg
+
+
+PRESETS = {'mv_det3d': mv_det3d, 'mv_grounding': mv_grounding,
+           'mv_occ': mv_occ}
 
 
 def build_model(cfg: Config, device='cuda', img_dtype=torch.float32,
                 generator: torch.Generator | None = None):
-    """The detector or grounder of ``cfg``, initialized from ``generator``
-    (default: a generator seeded with ``cfg.seed``), in eval mode on
-    ``device``.
+    """The detector, grounder or occupancy model of ``cfg``, initialized
+    from ``generator`` (default: a generator seeded with ``cfg.seed``), in
+    eval mode on ``device``.
 
     Raises when ``device`` is CUDA and no CUDA device is present; pass
     ``device='cpu'`` to run the plain versions of the kernels. Turns off
@@ -145,6 +170,7 @@ def build_model(cfg: Config, device='cuda', img_dtype=torch.float32,
     """
     from ..models.detector import SparseFusionDetector, init_weights
     from ..models.grounding import SparseFusionGrounder
+    from ..models.occupancy import DenseFusionOccPredictor
     device = torch.device(device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError('build_model: CUDA is not available; pass '
@@ -177,6 +203,16 @@ def build_model(cfg: Config, device='cuda', img_dtype=torch.float32,
             cost_l1_weight=m.cost_l1_weight,
             cost_iou_weight=m.cost_iou_weight,
             decouple_weights=tuple(m.decouple_weights), img_dtype=img_dtype)
+    elif m.task == 'mv_occ':
+        model = DenseFusionOccPredictor(
+            num_classes=m.occ_classes, n_voxels=tuple(m.n_voxels),
+            point_cloud_range=tuple(m.point_cloud_range),
+            input_capacity=m.input_capacity,
+            backbone_capacities=tuple(m.backbone_capacities),
+            resnet_depth=m.resnet_depth,
+            resnet_base_channels=m.resnet_base_channels,
+            mink_depth=m.mink_depth, fpn_channels=m.occ_fpn_channels,
+            pre_neck_channels=m.occ_pre_neck_channels)
     else:
         raise NotImplementedError(f'task {m.task!r} is not ported yet')
     if generator is None:
@@ -189,7 +225,7 @@ def build_train(cfg: Config, device='cuda'):
     """(model in training mode, its optimizer): :func:`build_model`, then
     ``train.state.make_optimizer`` with the task's lr multipliers
     (``train.loop.lr_mult_fn_for``), which freeze the 2D stem and first
-    stage, and the grounder's text encoder."""
+    stage of every task, and the grounder's text encoder."""
     from ..train.loop import lr_mult_fn_for
     from ..train.state import make_optimizer
     model = build_model(cfg, device=device).train()

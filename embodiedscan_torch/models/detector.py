@@ -72,7 +72,8 @@ def _normal_(t: torch.Tensor, std: float, g: torch.Generator) -> None:
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded initialization in the reference's spirit (He fan-out normal for
     sparse kernels, sparse 1x1 layers and dense layers, zero dense biases
-    as flax's, LeCun normal for the image convs, N(0, 0.02) embeddings as
+    as flax's, LeCun normal with zero biases for the 2D and 3D convs and
+    transposed convs, N(0, 0.02) embeddings as
     HF RoBERTa's, N(0, 0.01) head projections with the prior-probability
     class bias, the grounder's box branch at zero weights and bias
     [0, 0, -2, ...]). Norm layers keep their identity statistics. Runs on
@@ -85,9 +86,15 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             _normal_(mod.weight, math.sqrt(2.0 / mod.out_features), generator)
             if mod.bias is not None:
                 nn.init.zeros_(mod.bias)
-        elif isinstance(mod, nn.Conv2d):
-            fan_in = mod.weight[0].numel()
-            _normal_(mod.weight, math.sqrt(1.0 / fan_in), generator)
+        elif isinstance(mod, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d)):
+            # fan-in over (in, kernel): a ConvTranspose3d keeps (in, out,
+            # kernel), a conv (out, in, kernel)
+            w = mod.weight
+            fan_in = w.shape[0] * w[0, 0].numel() if isinstance(
+                mod, nn.ConvTranspose3d) else w[0].numel()
+            _normal_(w, math.sqrt(1.0 / fan_in), generator)
+            if mod.bias is not None:
+                nn.init.zeros_(mod.bias)
         elif isinstance(mod, nn.Embedding):
             _normal_(mod.weight, 0.02, generator)
         for name, p in mod.named_parameters(recurse=False):

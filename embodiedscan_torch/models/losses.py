@@ -1,4 +1,5 @@
-"""Detection losses, masked over static shapes (port of the FCAF3D parts of
+"""Detection losses, masked over static shapes, and the occupancy head's
+cross-entropy (port of the FCAF3D parts and ``cross_entropy_ignore`` of
 ``embodiedscan_tpu/models/losses.py``).
 
 Where a value has ties on valid rows, the ops are spelled as JAX
@@ -91,3 +92,23 @@ def bbox_cd_loss(src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor,
         return per
     denom = torch.clamp(valid.to(per.dtype).sum() * per.shape[1], min=1.0)
     return per.sum() / denom
+
+
+def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor,
+                         ignore_index: int = 255,
+                         weight: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean cross-entropy over the labels that are not ``ignore_index``
+    (the occupancy head's), optionally class-weighted: the sum over those
+    voxels divided by their count (or weight), at least 1."""
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    if weight is not None:
+        w = weight[safe]
+        nll = nll * w
+        denom = torch.where(valid, w, torch.zeros_like(w)).sum()
+    else:
+        denom = valid.sum().to(nll.dtype)
+    return torch.where(valid, nll, torch.zeros_like(nll)).sum() / \
+        torch.clamp(denom, min=1.0)

@@ -1,5 +1,6 @@
-"""Masked normalization layers for sparse voxel features and the frozen 2D
-BatchNorm (port of ``embodiedscan_tpu/models/norm.py``).
+"""Masked normalization layers for sparse voxel features, the frozen 2D
+BatchNorm (port of ``embodiedscan_tpu/models/norm.py``) and flax's dense
+BatchNorm of the occupancy U-Net (``DenseBatchNorm``).
 
 Parameter and buffer names (``scale``, ``bias``, ``mean``, ``var``) follow the
 reference's flax leaves, so weights carry over leaf for leaf.
@@ -67,6 +68,38 @@ class MaskedInstanceNorm(nn.Module):
         out = out * self.scale + self.bias
         return torch.where(mask[..., None], out,
                            torch.zeros_like(out)).to(feats.dtype)
+
+
+class DenseBatchNorm(nn.Module):
+    """flax's default ``nn.BatchNorm`` over (N, C, ...) volumes: in training
+    mode the batch statistics over every axis but C, with the variance as
+    max(0, E[x^2] - E[x]^2) (``use_fast_variance``, biased) and the running
+    update at momentum 0.99; the running statistics in eval mode.
+    (``torch.nn.BatchNorm3d`` updates at 0.9 with the unbiased variance.)"""
+
+    MOMENTUM = 0.99
+
+    def __init__(self, channels: int, epsilon: float = 1e-5):
+        super().__init__()
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer('mean', torch.zeros(channels))
+        self.register_buffer('var', torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = (1, -1) + (1, ) * (x.dim() - 2)
+        mean, var = self.mean, self.var
+        if self.training:
+            dims = (0, ) + tuple(range(2, x.dim()))
+            mean = x.mean(dim=dims)
+            var = torch.maximum(x.square().mean(dim=dims) - mean.square(),
+                                torch.zeros_like(mean))
+            with torch.no_grad():
+                self.mean.mul_(self.MOMENTUM).add_((1 - self.MOMENTUM) * mean)
+                self.var.mul_(self.MOMENTUM).add_((1 - self.MOMENTUM) * var)
+        mul = torch.rsqrt(var + self.epsilon) * self.scale
+        return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
 
 
 class FrozenBatchNorm(nn.Module):

@@ -85,6 +85,40 @@ def from_points_b(points_xyz: torch.Tensor, feats: torch.Tensor,
     return SparseTensor(uniq.coords, out_feats, uniq.mask)
 
 
+def from_points_per_sample(points_xyz: torch.Tensor, feats: torch.Tensor,
+                           mask: torch.Tensor, voxel_size: float,
+                           capacity: int) -> SparseTensor:
+    """:func:`from_points_b` one sample at a time, each with the B = 1 key
+    layout (11/11/10 coordinate bits), as the reference's
+    ``jax.vmap(from_points)``: the flat call would shave bits off the
+    coordinates (``hashing.key_layout``) and drop what lies beyond them."""
+    levels = [from_points_b(points_xyz[i:i + 1], feats[i:i + 1],
+                            mask[i:i + 1], voxel_size, capacity)
+              for i in range(points_xyz.shape[0])]
+    return SparseTensor(*(torch.cat(t) for t in zip(*levels)))
+
+
+def to_dense_b(st: SparseTensor, origin: torch.Tensor,
+               grid_shape) -> torch.Tensor:
+    """Scatter a batched sparse tensor into dense (B, X, Y, Z, C) volumes
+    (ME ``.dense()``); ``origin`` (3,) is the lattice coordinate of voxel
+    (0, 0, 0). Rows out of the grid or masked are dropped; valid
+    coordinates are unique, so each cell takes at most one row."""
+    gx, gy, gz = grid_shape
+    b, n, c = st.feats.shape
+    cells = gx * gy * gz
+    rel = (st.coords - origin).long()
+    inb = st.mask & (rel >= 0).all(-1) & (rel[..., 0] < gx) & \
+        (rel[..., 1] < gy) & (rel[..., 2] < gz)
+    flat = (rel[..., 0] * gy + rel[..., 1]) * gz + rel[..., 2] + \
+        torch.arange(b, device=rel.device)[:, None] * cells
+    # dropped rows land on one spare cell past the volumes
+    flat = torch.where(inb, flat, torch.full_like(flat, b * cells))
+    vol = st.feats.new_zeros(b * cells + 1, c).index_put(
+        (flat.reshape(-1), ), st.feats.reshape(b * n, c))
+    return vol[:-1].reshape(b, gx, gy, gz, c)
+
+
 def _center_offset(offsets: np.ndarray):
     """Index of the (0,0,0) offset, or None; its table column is identity."""
     center = np.where((np.asarray(offsets) == 0).all(1))[0]

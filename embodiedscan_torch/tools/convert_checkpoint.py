@@ -18,7 +18,9 @@ from ..configs.base import PRESETS, apply_overrides
 from ..train.checkpoint import CheckpointManager
 from ..train.loop import lr_mult_fn_for
 from ..train.state import make_optimizer
-from ..utils.convert_weights import load_reference_model, load_torch_checkpoint
+from ..utils.convert_weights import (check_reference_task,
+                                     load_reference_model,
+                                     load_torch_checkpoint)
 
 
 def main(argv=None):
@@ -40,6 +42,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     cfg = apply_overrides(PRESETS[args.config](), args.overrides)
+    check_reference_task(cfg.model.task)  # before reading the .pth
     model, n, skipped = load_reference_model(
         cfg, load_torch_checkpoint(args.checkpoint), flip=args.flip,
         device=args.device)

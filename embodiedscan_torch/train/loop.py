@@ -1,8 +1,8 @@
 """Per-parameter lr multipliers and the records the eval metrics take
 (port of ``lr_mult_fn_for`` and of ``_append_scene_results`` in
-``embodiedscan_tpu/train/loop.py`` for the detection and grounding tasks;
-the loops that drive them, ``train`` and ``evaluate``, come with the
-runtime)."""
+``embodiedscan_tpu/train/loop.py`` for the detection, grounding and
+multi-view occupancy tasks; the loops that drive them, ``train`` and
+``evaluate``, come with the runtime)."""
 
 from typing import Callable
 
@@ -54,13 +54,27 @@ def _append_scene_results(cfg, batch: dict, preds: dict, real_rows: int,
     ``indoor_eval``'s for ``'mv_det3d'`` (the kept detections, the valid
     ground truth), ``ground_eval``'s for ``'mv_grounding'`` (every query,
     the valid ground truth and the prompt's bucket flags, which the batch
-    must carry).
+    must carry), ``occupancy_eval``'s for ``'mv_occ'`` (the (X, Y, Z)
+    predicted classes; the ground truth ``gt_occ`` / ``gt_occ_mask`` as a
+    label grid at ``cfg.model.n_voxels``, 255 where ``visible_mask`` is
+    False).
 
     The task is ``cfg.model.task``. Rows past ``real_rows`` are tail
     padding (repeated scenes) and dropped. Tensors may lie on any device.
     Returns the updated running row count.
     """
     task = cfg.model.task
+    if task == 'mv_occ':
+        from ..models.occupancy import occ_multiscale_targets
+        vis = batch.get('visible_mask')
+        tgt = occ_multiscale_targets(
+            torch.as_tensor(batch['gt_occ'][:real_rows]),
+            torch.as_tensor(batch['gt_occ_mask'][:real_rows]), 1,
+            tuple(cfg.model.n_voxels),
+            None if vis is None else torch.as_tensor(vis[:real_rows]))
+        dts.extend(_host(preds)[:real_rows])
+        gts.extend(_host(tgt))
+        return n0 + real_rows
     if task not in ('mv_det3d', 'mv_grounding'):
         raise NotImplementedError(f'task {task!r} is not ported yet')
     preds = {k: _host(v) for k, v in preds.items()}

@@ -15,6 +15,10 @@ kernel, bias      (H, Dh)          ``attention.HeadsIn``
 attention out     (H, Dh, D)       (D, H * Dh)
 kernel                             ``attention.HeadsOut``
 Conv kernel       HWIO             OIHW nn.Conv2d
+3D Conv kernel    DHWIO            OIDHW nn.Conv3d
+ConvTranspose     DHWIO            (I, O, D, H, W)
+kernel (3D)                        nn.ConvTranspose3d, the
+                                   spatial axes reversed
 Embed embedding   (V, C)           nn.Embedding weight
 LayerNorm scale   (C,)             nn.LayerNorm weight
 bias/mean/var,    (C,) or as       copied
@@ -68,6 +72,13 @@ def _target(model: nn.Module, path):
         return mod.weight, lambda a: a.T
     if isinstance(mod, nn.Conv2d) and leaf == 'kernel':
         return mod.weight, lambda a: a.transpose(3, 2, 0, 1)
+    if isinstance(mod, nn.Conv3d) and leaf == 'kernel':
+        return mod.weight, lambda a: a.transpose(4, 3, 0, 1, 2)
+    if isinstance(mod, nn.ConvTranspose3d) and leaf == 'kernel':
+        # flax's ConvTranspose does not flip its kernel (transpose_kernel
+        # False); torch's is the adjoint of a conv, which does
+        return mod.weight, lambda a: a[::-1, ::-1, ::-1].transpose(
+            3, 4, 0, 1, 2)
     if isinstance(mod, nn.Embedding) and leaf == 'embedding':
         return mod.weight, lambda a: a
     if isinstance(mod, nn.LayerNorm) and leaf == 'scale':
@@ -121,6 +132,10 @@ def _leaf(mod: nn.Module, name: str, arr: np.ndarray):
         return 'kernel', arr.T
     if isinstance(mod, nn.Conv2d) and name == 'weight':
         return 'kernel', arr.transpose(2, 3, 1, 0)
+    if isinstance(mod, nn.Conv3d) and name == 'weight':
+        return 'kernel', arr.transpose(2, 3, 4, 1, 0)
+    if isinstance(mod, nn.ConvTranspose3d) and name == 'weight':
+        return 'kernel', arr.transpose(2, 3, 4, 0, 1)[::-1, ::-1, ::-1]
     if isinstance(mod, nn.Embedding) and name == 'weight':
         return 'embedding', arr
     if isinstance(mod, nn.LayerNorm) and name == 'weight':
@@ -730,15 +745,30 @@ def load_reference_grounder(model, torch_state_dict, mink_depth=34,
     return model, loaded, skipped
 
 
+# the tasks whose reference checkpoints have converters (the reference
+# package has none for occupancy)
+REFERENCE_TASKS = ('mv_det3d', 'mv_grounding')
+
+
+def check_reference_task(task: str) -> None:
+    """Raises unless ``task`` has a reference-checkpoint converter."""
+    if task not in REFERENCE_TASKS:
+        raise NotImplementedError(
+            f'no converter for a reference {task!r} checkpoint: the '
+            f'converters cover {", ".join(REFERENCE_TASKS)}')
+
+
 def load_reference_model(cfg, state_dict: Dict[str, np.ndarray],
                          flip: bool = False, device='cuda'):
     """``configs.base.build_model(cfg, device)`` with a reference
     checkpoint's weights (a numpy state_dict, as
     :func:`load_torch_checkpoint` gives it) in place of its random init:
     :func:`load_reference_detector` or :func:`load_reference_grounder` by
-    ``cfg.model.task``. Raises on ``device='cuda'`` without a card.
-    Returns (model, n_loaded, skipped)."""
+    ``cfg.model.task``; any other task raises (``check_reference_task``).
+    Raises on ``device='cuda'`` without a card. Returns (model, n_loaded,
+    skipped)."""
     from ..configs.base import build_model
+    check_reference_task(cfg.model.task)
     model = build_model(cfg, device=device)
     m = cfg.model
     if m.task == 'mv_grounding':

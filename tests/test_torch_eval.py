@@ -216,4 +216,4 @@ def test_append_scene_results_matches_reference(task):
             t_append(tc, tbatch, tpreds, 2, [], [], 0)
     with pytest.raises(NotImplementedError):
         t_append(types.SimpleNamespace(model=types.SimpleNamespace(
-            task='mv_occ')), tbatch, tpreds, 2, [], [], 0)
+            task='cont_occ')), tbatch, tpreds, 2, [], [], 0)

@@ -39,10 +39,14 @@ def test_no_reference_imports(path):
     'embodiedscan_torch.eval.grounding_metric',
     'embodiedscan_torch.train.loop', 'embodiedscan_torch.train.checkpoint',
     'embodiedscan_torch.utils.convert_weights',
-    'embodiedscan_torch.tools.convert_checkpoint'])
+    'embodiedscan_torch.tools.convert_checkpoint',
+    'embodiedscan_torch.models.occupancy', 'embodiedscan_torch.models.fpn',
+    'embodiedscan_torch.models.anchors',
+    'embodiedscan_torch.eval.occupancy_metric',
+    'embodiedscan_torch.configs.base'])
 def test_module_is_checked_and_imports(module):
-    """The training, grounding and checkpoint slices' modules are among
-    the files checked above and import on a machine without JAX,
+    """The training, grounding, checkpoint and occupancy slices' modules
+    are among the files checked above and import on a machine without JAX,
     transformers, tokenizers or regex."""
     path = ROOT / (module.replace('.', '/') + '.py')
     assert path in FILES
