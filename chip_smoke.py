@@ -78,15 +78,17 @@ Phases (one line each; any failure exits non-zero before the last line):
      tests/fixtures/roberta_tok); conversion, checkpoint size, restore and
      request times beside the card's name and power limit;
   9. edge shapes: the sparse conv at Cin = 3, K = 1, ragged M, Cout 64 /
-     128 / 512, all-absent and all-masked tables, indices N, N + 5 and -7
-     (absent) on both routes, a misaligned view, split
-     against unsplit; the weight gradient at C of 3, 4, 8 and 12, channels
-     that are not a multiple of the tile, C 128 to 1024, K = 1, ragged R,
-     R = 1, offsets of 0, 1, 31, 32 and 33 pairs, all-absent and
-     all-masked tables, a misaligned view, many pair chunks against one
-     (its pair lists held identical to the plain pair pass everywhere);
-     the join scan at the reference's unit-test cases, one tile, one tile
-     plus one row and ~4M rows;
+     128 / 512, a 50-sweep stem's 50 x 65536 rows (both routes),
+     all-absent and all-masked tables,
+     indices N, N + 5 and -7 (absent) on both routes, a misaligned view,
+     split against unsplit; the weight gradient at C of 3, 4, 8 and 12,
+     channels that are not a multiple of the tile, C 128 to 1024, K = 1,
+     ragged R, R = 1, 50 x 65536 rows, offsets of 0, 1, 31, 32 and 33
+     pairs, all-absent and all-masked tables, a misaligned view, many pair
+     chunks against one (its pair lists held identical to the plain pair
+     pass everywhere); the join scan at the reference's unit-test cases,
+     one tile, one tile plus one row, ~4M rows and the 93.4M rows of a
+     50-sweep request's stem join;
  10. end-to-end parity: a small detector and a small grounder (shipped
      widths, cut capacities) on cuda (kernels) and on cpu (plain versions)
      with the same weights, serving, then the same two loaded from
@@ -98,13 +100,31 @@ Phases (one line each; any failure exits non-zero before the last line):
      + rtol 1e-5, classes identical but for reported top-2 ties; both
      sides' U-Net and head against float64) and one train step (leaves
      within 3e-4 x max|leaf|);
- 11. one JSON line with the kernels (each kernel's row on the detection
-     and grounding paths, then its row on the occupancy paths), then the
-     result line.
-Per-call details go to chiprun_out/chip_smoke_calls.json.
+ 11. the data path and the continuous tasks, in a process of their own
+     (``--cont``, started by this one once its models are freed; each model
+     freed before the next): [data] a synthetic scan of 50 views of
+     480x480 through the port's loaders (``multiview_world_points`` on
+     numpy and on the native host core, which must build, as point sets;
+     ``pack_sweeps`` at 10 and 50 sweeps); [cont_det3d] the detector
+     serving its eval shape, 50 cumulative sweeps of that scan (100k
+     points a sweep), and [cont_det3d_train] 10 sweeps of a 10-view scan
+     with 200 gt boxes visible per sweep; [cont_occ] the occupancy model
+     with the bf16 U-Net serving 20 sweeps and [cont_occ_train] 10, of
+     scans centred on the occupancy range (``occ_sweeps``): latency, peak,
+     kept voxels per row, launches, host ms per stage, idle share, the
+     U-Net's share, the train step's peak against the card (the remat
+     decision); the replays of every K1, K2 and K3 call of the four
+     paths; the small continuous models card vs cpu (3 sweeps), and the
+     bf16 U-Net's error on the card against the cpu's;
+ 12. one JSON line with the kernels (each kernel's row on the detection
+     and grounding paths, then on the occupancy paths, then on the
+     continuous ones), then the result line.
+Per-call details go to chiprun_out/chip_smoke_calls.json and
+chiprun_out/chip_smoke_cont.json.
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1 and 9 and stops
 (no result line): the quickest check that the kernels build and agree.
+``python3 chip_smoke.py --cont`` runs phase 11 alone (no result line).
 """
 
 import contextlib
@@ -180,6 +200,9 @@ SPLIT_GATE = 1e-6  # K3 many chunks vs one: max|d| <= SPLIT_GATE x max
 # cut to single TF32, 0.473 (``kernel_ab.py --tf32-control``)
 GRAD_GATE = 3e-4
 OUT_DIR = 'chiprun_out'
+# padded ground-truth boxes of the detector's training scene (the reference
+# benchmark's, bench.py:make_batch)
+N_GT = 128
 # RoBERTa's byte-level BPE files of the repo's tokenizer fixture
 ROBERTA_TOK = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            'tests', 'fixtures', 'roberta_tok')
@@ -290,11 +313,11 @@ def to_device(batch, device):
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
-def cuda_ms(fn, reps=5):
+def cuda_ms(fn, reps=5, warmup=3):
     """Mean device time of ``fn`` over ``reps`` back-to-back calls, after
-    three warm-up calls. Take it before any torch.profiler session: one
+    ``warmup`` warm-up calls. Take it before any torch.profiler session: one
     leaves the host slower per op for the rest of the process."""
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -381,10 +404,7 @@ def _on(args, device):
 def phase_build():
     import scipy  # the grounder's host matcher: no fallback without it
     from embodiedscan_torch.ops import kernels
-    smi = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_name()
     log(card)
     log(f'[build] python {sys.version.split()[0]}, torch {torch.__version__} '
         f'(CUDA {torch.version.cuda}), scipy {scipy.__version__}')
@@ -592,8 +612,9 @@ def _self_device_us(event):
     raise AttributeError('profiler event without a device time')
 
 
-def _host_ms(fn, reps=3):
-    fn()
+def _host_ms(fn, reps=3, warmup=True):
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
@@ -603,22 +624,27 @@ def _host_ms(fn, reps=3):
 
 
 @torch.no_grad()
-def stage_times(model, batch):
+def stage_times(model, batch, reps=3, warmup=True):
     """Where one request's time goes on the host clock, stage by stage
-    (each ends in a synchronize)."""
+    (each ends in a synchronize; ``reps`` runs of each after a warm-up
+    one if ``warmup``)."""
     from embodiedscan_torch.ops import sparse as S
     trunk, head = model.trunk, model.bbox_head
     pts, pm = batch['points'], batch['points_mask']
     imgs = batch['imgs']
     bi, v, h, w, _ = imgs.shape
-    st_ms, st = _host_ms(lambda: S.from_points_b(
+
+    def timed(fn):
+        return _host_ms(fn, reps, warmup)
+
+    st_ms, st = timed(lambda: S.from_points_b(
         pts, pts, pm, trunk.voxel_size, trunk.input_capacity))
-    mink_ms, _ = _host_ms(lambda: trunk.MinkResNet_0(st))
-    r2d_ms, _ = _host_ms(lambda: trunk.ResNet_0(
+    mink_ms, _ = timed(lambda: trunk.MinkResNet_0(st))
+    r2d_ms, _ = timed(lambda: trunk.ResNet_0(
         imgs.reshape(bi * v, h, w, 3)))
-    trunk_ms, feats = _host_ms(lambda: trunk(batch))
-    head_ms, outs = _host_ms(lambda: head(feats))
-    pred_ms, _ = _host_ms(lambda: head.predict(outs))
+    trunk_ms, feats = timed(lambda: trunk(batch))
+    head_ms, outs = timed(lambda: head(feats))
+    pred_ms, _ = timed(lambda: head.predict(outs))
     # the NMS pairwise IoU alone, on as many boxes as the NMS takes
     from embodiedscan_torch.geometry.iou import boxes3d_iou
     g = torch.Generator(device=pts.device).manual_seed(0)
@@ -627,7 +653,7 @@ def stage_times(model, batch):
                        torch.rand(k, 3, generator=g, device=pts.device) + .2,
                        torch.rand(k, 1, generator=g, device=pts.device) * 6,
                        torch.zeros(k, 2, device=pts.device)], 1)
-    iou_ms, _ = _host_ms(lambda: boxes3d_iou(boxes, boxes))
+    iou_ms, _ = timed(lambda: boxes3d_iou(boxes, boxes))
     stages = dict(voxelize=st_ms, mink_resnet34=mink_ms, resnet50=r2d_ms,
                   fusion=trunk_ms - st_ms - mink_ms - r2d_ms,
                   fcaf3d_head=head_ms, predict_nms=pred_ms,
@@ -649,11 +675,11 @@ def phase_train(device, cfg=None):
     model, opt = build_train(cfg, device=device)
     d = cfg.data
     batch = to_device(make_batch(1, d.n_points, d.n_views_train,
-                                 d.image_hw[0], d.n_gt,
+                                 d.image_hw[0], N_GT,
                                  cfg.model.num_classes), device)
     log(f'[train] built mv_det3d and AdamW on {device} in '
         f'{time.perf_counter() - t0:.1f} s; batch b=1, '
-        f'{d.n_points} points, {d.n_views_train} views, {d.n_gt} GT boxes')
+        f'{d.n_points} points, {d.n_views_train} views, {N_GT} GT boxes')
     rec, totals, stats = train_steps('train', model, opt, batch,
                                      EXPECTED_TRAIN_LAUNCHES)
     rec.conv, rec.scan = [], []  # the serving replay covers K1 and K2 fwd
@@ -834,13 +860,15 @@ def step_split(model, opt, batch, S, P, want):
                 optimizer=(t3 - t2) * 1e3)
 
 
-def profile_run(fn, what):
+def profile_run(fn, what, host=True):
     """One run of ``fn`` under torch.profiler: device busy time and idle
-    share, device time by op."""
+    share, device time by op. ``host=False`` records the device's activity
+    alone (a run of hundreds of thousands of ops, whose host events would
+    take minutes to read back)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -994,9 +1022,10 @@ def _bound(nbytes, flops):
             max(t_bytes, flops / FP32_FLOPS) * 1e3)
 
 
-def _conv_call(S, feats, mask, nbr, w, bias, what, run):
+def _conv_call(S, feats, mask, nbr, w, bias, what, run, timing):
     """One K2 call (forward, or dgrad with ``run`` = conv_dgrad): checked,
-    then timed beside its plain version and the library gather-matmul."""
+    then timed (``cuda_ms(**timing)``) beside its plain version and the
+    library gather-matmul."""
     plan = S.cuda_plan(feats, nbr, w)
     _, err, scale = _check_conv(S, feats, mask, nbr, w, bias, what)
     padded = torch.cat([torch.where(mask[:, None], feats,
@@ -1013,17 +1042,19 @@ def _conv_call(S, feats, mask, nbr, w, bias, what, run):
         route=plan.route, tile=[plan.bm, plan.bn], splits=plan.splits,
         per_split=plan.per_split, hit_share=hits / (m * k),
         work_share=_work_share(mask, nbr, plan.bm), max_abs_err=err,
-        max_abs_ref=scale, deterministic=True, ms=cuda_ms(run),
+        max_abs_ref=scale, deterministic=True, ms=cuda_ms(run, **timing),
         plain_ms=cuda_ms(lambda: S._gather_matmul_conv_plain(
-            feats, mask, nbr, w, bias)),
-        library_ms=cuda_ms(lambda: padded[idx].reshape(-1, kcin) @ w2),
+            feats, mask, nbr, w, bias), **timing),
+        library_ms=cuda_ms(lambda: padded[idx].reshape(-1, kcin) @ w2,
+                           **timing),
         bytes=nbytes, flops=flops, bound_ms=bound, bound_by=by,
         bound_fp32_ms=bound32)
 
 
-def _wgrad_call(S, x, xm, idx, y, ym):
-    """One K3 call: checked, then timed beside its plain version and the
-    library product of x^T with the gathered y rows."""
+def _wgrad_call(S, x, xm, idx, y, ym, timing):
+    """One K3 call: checked, then timed (``cuda_ms(**timing)``) beside its
+    plain version and the library product of x^T with the gathered y
+    rows."""
     plan = S.cuda_wgrad_plan(x, idx, y)
     _, err, scale, counts = _check_wgrad(S, x, xm, idx, y, ym, 'main')
     r, k, cy = x.shape[0], idx.shape[1], y.shape[1]
@@ -1040,30 +1071,30 @@ def _wgrad_call(S, x, xm, idx, y, ym):
         work_share=_wgrad_work_share(S, plan, counts, r, k),
         max_abs_err=err, max_abs_ref=scale,
         deterministic=True, ms=cuda_ms(lambda: S.conv_wgrad(x, xm, idx, y,
-                                                            ym)),
-        plain_ms=cuda_ms(lambda: S._conv_wgrad_plain(x, xm, idx, y, ym)),
-        library_ms=cuda_ms(lambda: xs.T @ ypad[gi].reshape(r, k * cy)),
+                                                            ym), **timing),
+        plain_ms=cuda_ms(lambda: S._conv_wgrad_plain(x, xm, idx, y, ym),
+                         **timing),
+        library_ms=cuda_ms(lambda: xs.T @ ypad[gi].reshape(r, k * cy),
+                           **timing),
         bytes=nbytes, flops=flops, bound_ms=bound, bound_by=by,
         bound_fp32_ms=bound32)
 
 
 @torch.no_grad()
-def phase_kernels(rec, train_rec, device, ground_rec, ground_train_rec,
-                  occ_rec, occ_train_rec):
-    """Every recorded call of the serving requests (K2 forward, K1: the
-    detector's, the grounder's and the occupancy model's warm-up
-    requests), of the detector's warm-up step's backward (K2 dgrad, K3)
-    and of the grounder's and the occupancy model's whole warm-up steps
-    (K1, K2 forward and dgrad, K3) on the card, one call's inputs on the
-    device at a time; the profiler only after all timings. Each row names
-    its path (det, grounding, occ, train, ground_train or occ_train)."""
+def phase_kernels(fwd, bwd, device, timing=None, release=False):
+    """Every recorded call of the paths' warm-up runs on the card, one
+    call's inputs on the device at a time, each checked against its plain
+    version and timed (``cuda_ms(**timing)``); the profiler only after all
+    timings. ``fwd``: (path, recorder) pairs whose K1 and K2 forward calls
+    are replayed (serving requests, whole train steps); ``bwd``: (path,
+    recorder) pairs whose K2 dgrad and K3 calls are replayed. Each row names
+    its path (det, grounding, occ, train, ground_train, occ_train, or a
+    continuous one). ``release``: return the caching allocator's free
+    blocks to the card before each call (with models resident, a 50-sweep
+    call's library gather needs one 42 GiB block)."""
     from embodiedscan_torch.ops import pscan as P
     from embodiedscan_torch.ops import sparse as S
-    fwd = (('det', rec), ('grounding', ground_rec),
-           ('ground_train', ground_train_rec), ('occ', occ_rec),
-           ('occ_train', occ_train_rec))
-    bwd = (('train', train_rec), ('ground_train', ground_train_rec),
-           ('occ_train', occ_train_rec))
+    timing = timing or {}
     runs = {
         'sparse_conv': ([(p, a) for p, r in fwd for a in r.conv],
                         lambda a: S.gather_matmul_conv(*a)),
@@ -1077,13 +1108,15 @@ def phase_kernels(rec, train_rec, device, ground_rec, ground_train_rec,
     calls = {name: [] for name in runs}
     for name, (recs, run) in runs.items():
         for path, args in recs:
+            if release:
+                torch.cuda.empty_cache()
             a = _on(args, device)
             if name == 'join_scan':
-                row = _scan_call(P, *a, time_it=True)
+                row = _scan_call(P, *a, time_it=True, timing=timing)
             elif name == 'sparse_wgrad':
-                row = _wgrad_call(S, *a)
+                row = _wgrad_call(S, *a, timing)
             else:
-                row = _conv_call(S, *a, name, lambda: run(a))
+                row = _conv_call(S, *a, name, lambda: run(a), timing)
             row['path'] = path
             calls[name].append(row)
     # launches and device time per call, after every timing (see cuda_ms)
@@ -1137,7 +1170,7 @@ def phase_kernels(rec, train_rec, device, ground_rec, ground_train_rec,
     return calls
 
 
-def _scan_call(P, skey, saux, ranges, sbits, time_it):
+def _scan_call(P, skey, saux, ranges, sbits, time_it, timing=None):
     sb = int(sbits) & 0xFFFFFFFF
     sb = sb - (1 << 32) if sb >= 1 << 31 else sb
     ref = P._join_scan_plain(skey, saux, ranges, sb)
@@ -1153,11 +1186,14 @@ def _scan_call(P, skey, saux, ranges, sbits, time_it):
     masked = [torch.where((saux >= lo) & (saux < hi), skey, kfill)
               for lo, hi in ranges]
     nbytes = 8 * n + 8 * k * n
+    timing = timing or {}
     return dict(n=n, k=k, max_abs_err=0, ms=cuda_ms(
-        lambda: P.join_scan(skey, saux, ranges, sbits), reps=20),
-        plain_ms=cuda_ms(lambda: P._join_scan_plain(skey, saux, ranges, sb)),
+        lambda: P.join_scan(skey, saux, ranges, sbits),
+        **{'reps': 20, **timing}),
+        plain_ms=cuda_ms(lambda: P._join_scan_plain(skey, saux, ranges, sb),
+                         **timing),
         library_ms=cuda_ms(lambda: [torch.cummax(x, 0) for x in masked +
-                                    masked]),
+                                    masked], **timing),
         bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
         bound_by='bytes')
 
@@ -1213,6 +1249,13 @@ def phase_edges(device):
     conv('cout128', 8000, 8191, 27, 128, 128, route='tc')
     conv('cout512', 4000, 2047, 27, 512, 512, route='tc')
     conv('wide_m', 70000, 65536, 27, 128, 128, route='tc', hit=0.25)
+    # the most rows a call takes on the continuous paths: the stem conv of
+    # a 50-sweep request (50 x 65536 output rows over 50 x 98304 input
+    # voxels), on both routes
+    conv('stem_50_sweeps', CONT_ROWS, 50 * 65536, 27, 3, 32, route='simt',
+         hit=0.1)
+    conv('rows_50_sweeps', CONT_ROWS, 50 * 65536, 27, 32, 32, route='tc',
+         hit=0.1)
     for what in ('all_absent', 'all_masked'):
         feats, mask, nbr, w, b = _conv_case(g, 2000, 1500, 27, 64, 128,
                                             device=device)
@@ -1312,6 +1355,8 @@ def phase_edges(device):
     wgrad('c64x512', 4096, 2048, 27, 64, 512, route='tc')
     wgrad('c512x128', 2048, 4096, 27, 512, 128, route='tc')
     wgrad('c1024', 2048, 2048, 27, 1024, 1024, route='tc')
+    wgrad('rows_50_sweeps', 50 * 65536, CONT_ROWS, 27, 32, 64, route='tc',
+          hit=0.1)
     _, counts, _ = wgrad('counts_1_31_32_33', 3000, 3000, 27, 64, 64,
                          route='tc', edit=set_counts)
     if counts[:4].tolist() != [1, 31, 32, 33]:
@@ -1382,6 +1427,17 @@ def phase_edges(device):
                        for i in range(k))
         _scan_call(P, skey, saux, ranges, sbits, time_it=False)
         checked.append(f'join_scan n={n} k={k}')
+    # the longest join of the continuous paths: the stem's strided join of
+    # a 50-sweep request (50 x (98304 table + 65536 x 27 query rows))
+    n = 50 * (98304 + 65536 * 27)
+    skey = torch.sort(torch.randint(-2**31, 2**31 - 1, (n, ), generator=g,
+                                    device=device, dtype=torch.int32)).values
+    saux = torch.randperm(n, generator=g, device=device, dtype=torch.int32)
+    cuts = sorted(rng.choice(n, 2, replace=False))
+    _scan_call(P, skey, saux, ((int(cuts[0]), int(cuts[1])), ), 0,
+               time_it=False)
+    checked.append(f'join_scan n={n} k=1')
+    del skey, saux
     log('[edges] kernel == plain (join scan bit-exact, sparse conv and '
         f'weight gradient within {CONV_GATE} x max|ref| and the same bits '
         'twice): ' +
@@ -1463,9 +1519,11 @@ def _parity_cfg():
     return cfg
 
 
-def train_parity(device):
-    """One train step of the small detector on ``device`` (kernels) and on
-    cpu (plain versions) from the same weights and batch. Raises unless the
+def train_parity(device, cfg=None, batch=None):
+    """One train step of the small detector (``cfg``, default
+    ``_parity_cfg()``) on ``device`` (kernels) and on cpu (plain versions)
+    from the same weights and batch (default: ``make_batch``'s scene of
+    6000 points, 4 views of 96x96 and 16 gt boxes). Raises unless the
     integer tables are identical; returns the cpu and cuda metrics and, per
     kind (losses, grads, batch stats), the worst max|d|/max|cpu| over its
     leaves with that leaf's path."""
@@ -1474,11 +1532,12 @@ def train_parity(device):
     from embodiedscan_torch.ops import sparse as S
     from embodiedscan_torch.train.state import make_optimizer, train_step
     from embodiedscan_torch.utils.convert_weights import export_jax_tree
-    cfg = _parity_cfg()
+    cfg = cfg or _parity_cfg()
     cpu = build_model(cfg, device='cpu').train()
     gpu = build_model(cfg, device=device).train()
     gpu.load_state_dict(cpu.state_dict())
-    batch = make_batch(1, 6000, 4, 96, 16, cfg.model.num_classes, seed=7)
+    if batch is None:
+        batch = make_batch(1, 6000, 4, 96, 16, cfg.model.num_classes, seed=7)
     out = {}
     for name, model, dev in (('cpu', cpu, 'cpu'), ('cuda', gpu, device)):
         with Recorder(S, P) as rec:
@@ -1518,16 +1577,16 @@ def _worst(cpu, cuda, scales=None):
     return worst
 
 
-def phase_train_parity(device):
+def phase_train_parity(device, cfg=None, batch=None, what='train step'):
     """:func:`train_parity`: losses, every gradient leaf the optimizer used
     and the batch statistics after the step within GRAD_GATE x max|cpu| of
     each leaf."""
-    n_tables, mc, mg, worst = train_parity(device)
-    for what, (ratio, path) in worst.items():
+    n_tables, mc, mg, worst = train_parity(device, cfg, batch)
+    for kind, (ratio, path) in worst.items():
         if not np.isfinite(ratio) or ratio > GRAD_GATE:
-            raise RuntimeError(f'train step {what} {path}: max|d|/max|cpu| '
+            raise RuntimeError(f'{what} {kind} {path}: max|d|/max|cpu| '
                                f'{ratio} > {GRAD_GATE}')
-    log(f'[parity] train step cpu vs cuda: {n_tables} tables identical '
+    log(f'[parity] {what} cpu vs cuda: {n_tables} tables identical '
         f'(forward, dgrad, wgrad), loss_total {mc["loss_total"]:.6g} vs '
         f'{mg["loss_total"]:.6g}; worst max|d|/max|cpu| per leaf: ' +
         ', '.join(f'{k} {v:.2e} ({p})' for k, (v, p) in worst.items()) +
@@ -2497,11 +2556,13 @@ ARGMAX_TIE = dict(atol=1e-4, rtol=1e-5)
 
 
 @torch.no_grad()
-def phase_occ_parity(device):
-    """The small occupancy model (``_occ_parity_cfg``, its norms
-    calibrated on another scene by ``_calibrate_norms``) on ``device``
-    (kernels) and on cpu (plain versions) with the same weights, b = 2
-    rooms of 2.4 m: voxel coordinates and masks and every conv table
+def phase_occ_parity(device, cfg=None, req=None, calib=None,
+                     what='occupancy'):
+    """The small occupancy model (``cfg``, default ``_occ_parity_cfg()``;
+    its norms calibrated on the scene ``calib`` by ``_calibrate_norms``) on
+    ``device`` (kernels) and on cpu (plain versions) with the same weights,
+    on ``req`` (default: b = 2 rooms of 2.4 m): voxel coordinates and
+    masks and every conv table
     identical, per-scale logits within atol 1e-4 + rtol 1e-5, the
     predicted classes identical except where the top two logits tie
     within that tolerance (reported); then both sides' U-Net and head
@@ -2509,12 +2570,15 @@ def phase_occ_parity(device):
     from embodiedscan_torch.configs.base import build_model
     from embodiedscan_torch.ops import pscan as P
     from embodiedscan_torch.ops import sparse as S
-    cfg = _occ_parity_cfg()
-    cpu = _calibrate_norms(build_model(cfg, device='cpu'), to_device(
-        make_occ_request(p=6000, v=4, hw=96, seed=5, b=2), 'cpu'))
+    cfg = cfg or _occ_parity_cfg()
+    if calib is None:
+        calib = make_occ_request(p=6000, v=4, hw=96, seed=5, b=2)
+    if req is None:
+        req = make_occ_request(p=6000, v=4, hw=96, seed=7, b=2)
+    cpu = _calibrate_norms(build_model(cfg, device='cpu'),
+                           to_device(calib, 'cpu'))
     gpu = build_model(cfg, device=device)
     gpu.load_state_dict(cpu.state_dict())
-    req = make_occ_request(p=6000, v=4, hw=96, seed=7, b=2)
     out = {}
     for name, model, dev in (('cpu', cpu, 'cpu'), ('cuda', gpu, device)):
         batch = to_device(req, dev)
@@ -2525,33 +2589,34 @@ def phase_occ_parity(device):
                      st.coords.cpu(), st.mask.cpu())
     (rc, lc, pc, cc, mc), (rg, lg, pg, cg, mg) = out['cpu'], out['cuda']
     if len(rc.conv) != len(rg.conv) or not rc.conv:
-        raise RuntimeError('cpu and cuda occupancy models made different '
+        raise RuntimeError(f'{what}: cpu and cuda models made different '
                            'conv calls')
     if not all(torch.equal(a[2], b[2].cpu()) for a, b in zip(rc.conv,
                                                              rg.conv)):
-        raise RuntimeError('occupancy neighbor tables differ between cpu '
+        raise RuntimeError(f'{what} neighbor tables differ between cpu '
                            'and cuda')
     if not (torch.equal(cc, cg) and torch.equal(mc, mg)):
-        raise RuntimeError('occupancy voxels differ between cpu and cuda')
+        raise RuntimeError(f'{what} voxels differ between cpu and cuda')
     z = cc[..., 2][mc]
-    diffs = [_close(a, b, f'occupancy logits scale {i}')
+    diffs = [_close(a, b, f'{what} logits scale {i}')
              for i, (a, b) in enumerate(zip(lc, lg))]
     flips = (pc != pg).nonzero()
     for idx in flips.tolist():
         top = torch.topk(lc[0][tuple(idx)], 2).values
         tol = ARGMAX_TIE['atol'] + ARGMAX_TIE['rtol'] * float(top[0].abs())
         if not float(top[0] - top[1]) <= tol:
-            raise RuntimeError(f'occupancy predict: voxel {idx} differs '
+            raise RuntimeError(f'{what} predict: voxel {idx} differs '
                                f'between cpu and cuda without a tie')
     # both sides' float32 rounding: the U-Net and head from the cpu's
     # fused volume against a float64 copy
     x = cpu.features(to_device(req, 'cpu'))
     ref = copy.deepcopy(cpu).double()
+    ref.ImVoxelNeck_0.dtype = torch.float64  # the U-Net's compute dtype
     want = ref.OccHead_0(ref.neck(x.double()))[0]
     err = {name: float((m.OccHead_0(m.neck(x.to(dev)))[0].cpu().double() -
                         want).abs().max())
            for name, m, dev in (('cpu', cpu, 'cpu'), ('cuda', gpu, device))}
-    log(f'[parity] occupancy cpu vs cuda: {len(rc.conv)} neighbor tables, '
+    log(f'[parity] {what} cpu vs cuda: {len(rc.conv)} neighbor tables, '
         f'{int(mc.sum())} voxels (z spans {int(z.max() - z.min())} of the '
         f'512 a 9-bit key reaches) identical; logits (max|logit| '
         f'{float(lc[0].abs().max()):.4g}) within atol 1e-4 + rtol 1e-5 '
@@ -2583,11 +2648,12 @@ def _calibrate_norms(model, batch):
     return model.eval()
 
 
-def phase_occ_train_parity(device):
-    """One train step of the small occupancy model with the task's lr
-    multipliers on ``device`` (kernels), then on cpu (plain versions)
-    taking the card's ReLU decisions (``_relu_decisions``), from the same
-    weights and batch (b = 2, 2.4 m rooms, 2048 padded gt voxels): every
+def phase_occ_train_parity(device, cfg=None, req=None, what='occupancy'):
+    """One train step of the small occupancy model (``cfg``, default
+    ``_occ_parity_cfg()``) with the task's lr multipliers on ``device``
+    (kernels), then on cpu (plain versions) taking the card's ReLU
+    decisions (``_relu_decisions``), from the same weights and batch
+    (``req``, default: b = 2, 2.4 m rooms, 2048 padded gt voxels): every
     conv, dgrad and wgrad table identical, each loss within LOSS_RTOL,
     every gradient leaf (after the clip, as the optimizer used it) and
     batch statistic within GRAD_GATE x its max|cpu|."""
@@ -2596,14 +2662,15 @@ def phase_occ_train_parity(device):
     from embodiedscan_torch.ops import sparse as S
     from embodiedscan_torch.train.loop import lr_mult_fn_for
     from embodiedscan_torch.train.state import make_optimizer, train_step
-    cfg = _occ_parity_cfg()
+    cfg = cfg or _occ_parity_cfg()
     cpu = build_model(cfg, device='cpu').train()
     gpu = build_model(cfg, device=device).train()
     gpu.load_state_dict(cpu.state_dict())
-    req = make_occ_request(p=6000, v=4, hw=96, seed=8, b=2, n_gt=2048)
+    if req is None:
+        req = make_occ_request(p=6000, v=4, hw=96, seed=8, b=2, n_gt=2048)
     out, follow = {}, None
     for name, model, dev in (('cuda', gpu, device), ('cpu', cpu, 'cpu')):
-        opt = make_optimizer(model, cfg, lr_mult_fn_for('mv_occ'))
+        opt = make_optimizer(model, cfg, lr_mult_fn_for(cfg.model.task))
         with Recorder(S, P) as rec, _relu_decisions(follow) as (dec, flips):
             metrics = train_step(model, opt, to_device(req, dev))
         follow = dec
@@ -2615,25 +2682,25 @@ def phase_occ_train_parity(device):
     kinds = ('conv', 'dgrad', 'wgrad')
     if any(len(getattr(rc, k)) != len(getattr(rg, k)) or not getattr(rc, k)
            for k in kinds):
-        raise RuntimeError('cpu and cuda occupancy train steps made '
+        raise RuntimeError(f'{what}: cpu and cuda train steps made '
                            'different calls')
     tables = [(a[2], b[2]) for k in kinds
               for a, b in zip(getattr(rc, k), getattr(rg, k))]
     if not all(torch.equal(a, b.cpu()) for a, b in tables):
-        raise RuntimeError('occupancy train step tables differ between cpu '
+        raise RuntimeError(f'{what} train step tables differ between cpu '
                            'and cuda')
     loss_err = max(abs(mg[k] - v) / abs(v) for k, v in mc.items())
     if not loss_err <= LOSS_RTOL:
-        raise RuntimeError(f'occupancy train step losses: {mc} vs {mg}')
+        raise RuntimeError(f'{what} train step losses: {mc} vs {mg}')
     if set(gc) != set(gg):
-        raise RuntimeError('cpu and cuda occupancy models have gradients for '
+        raise RuntimeError(f'{what}: cpu and cuda models have gradients for '
                            'different parameters')
     worst = {'grads': _worst(gc, gg), 'batch stats': _worst(bc, bg)}
-    for what, (ratio, key) in worst.items():
+    for kind, (ratio, key) in worst.items():
         if not np.isfinite(ratio) or ratio > GRAD_GATE:
-            raise RuntimeError(f'occupancy train step {what} {key}: '
+            raise RuntimeError(f'{what} train step {kind} {key}: '
                                f'max|d|/max|cpu| {ratio} > {GRAD_GATE}')
-    log(f'[parity] occupancy train step cpu vs cuda: {len(tables)} tables '
+    log(f'[parity] {what} train step cpu vs cuda: {len(tables)} tables '
         f'identical, losses within {loss_err:.2e} relative (gate '
         f'{LOSS_RTOL}), loss_total {mc["loss_total"]:.6g}; '
         f'{sum(n for _, n, _ in flips)} of the cpu\'s ReLU decisions in '
@@ -2646,14 +2713,672 @@ def phase_occ_train_parity(device):
     return dict(worst=worst, flips=flips, loss_rel=loss_err)
 
 
-def kernel_line(calls, totals, occ_totals):
-    """The kernels line: K2 forward and K1 rows (the detector's and the
-    grounder's requests and the grounding train step), K2 dgrad and K3
-    rows (the detector's and the grounder's train steps); then the same
-    kernels' rows on the occupancy paths (``(occ)``: the request and the
-    train step). Launches summed over each group's timed runs, every other
-    number from this run's replays (summed over one recorded request or
-    step of each path)."""
+# --- the data path and the continuous tasks (cont_det3d, cont_occ) ---
+
+# wrapper calls per request and per step of the continuous paths: a sweep
+# pseudo-batch is a batch, so each runs the layers of its multi-view model
+CONT_LAUNCHES = {'cont_det3d': EXPECTED_LAUNCHES,
+                 'cont_det3d_train': EXPECTED_TRAIN_LAUNCHES,
+                 'cont_occ': EXPECTED_OCC_LAUNCHES,
+                 'cont_occ_train': EXPECTED_OCC_TRAIN_LAUNCHES}
+CONT_DET_PATHS = ('cont_det3d', 'cont_det3d_train')
+# input voxels of a 50-sweep cont_det3d request: its calls' most rows
+CONT_ROWS = 50 * 98304
+CONT_OCC_PATHS = ('cont_occ', 'cont_occ_train')
+# the continuous paths' replays (up to 50x the rows of the multi-view
+# ones): one warm-up call and two timed ones each
+CONT_TIMING = dict(warmup=1, reps=2)
+# cont_occ's train step takes remat (recomputation) only if its peak leaves
+# less than this much of the card
+HEADROOM_GIB = 10.0
+# bf16 U-Net, card vs cpu: each side's bf16 logits against its own float32
+# logits; the card's error at most twice the cpu's plus this many units of
+# max|float32 logit| (one bf16 rounding step, 2^-8)
+BF16_SLACK = 2.0**-8
+# the synthetic room (data/synthetic.py): 6 x 6 m, floor at z = 0
+ROOM_XY = 6.0
+
+
+def card_name():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def _views(scan, ids):
+    views = [scan['views'][i] for i in ids]
+    return ([v['depth'] for v in views], [v['intrinsic'] for v in views],
+            [v['extrinsic'] for v in views])
+
+
+def phase_data(card):
+    """[data]: a full-width synthetic scan (50 views of 480x480, 32 boxes)
+    through the port's data path. Its depth maps go through
+    ``multiview_world_points`` (10000 points a view) on both backends: the
+    native core must build (no numpy fallback); each backend's rows lie on
+    the full back-projected set of their view (the two sample different
+    rows); host ms per call of each, then of ``pack_sweeps`` at 10 and 50
+    sweeps (100k points a sweep, 200 boxes). Returns the scan."""
+    from scipy.spatial import cKDTree
+
+    from embodiedscan_torch import native
+    from embodiedscan_torch.data import pipeline as pl
+    from embodiedscan_torch.data.synthetic import box_visibility, make_scan
+    t0 = time.perf_counter()
+    scan = make_scan(seed=0, n_views=50, hw=(480, 480), g=32)
+    scan_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if not native.available():
+        raise RuntimeError('[data] the native host core did not build')
+    build_s = time.perf_counter() - t0
+    ids = range(len(scan['views']))
+    depths, ks, exts = _views(scan, ids)
+    ms, rows = {}, {}
+    for backend in ('numpy', 'auto'):
+        ms[backend] = []
+        for rep in range(3):
+            t0 = time.perf_counter()
+            rows[backend] = pl.multiview_world_points(
+                depths, ks, exts, 10000, np.random.RandomState(rep),
+                native=backend)
+            ms[backend].append((time.perf_counter() - t0) * 1e3)
+    full = pl.aggregate_points_list(
+        [pl.rgbd_to_points(d, k) for d, k in zip(depths, ks)], exts)
+    dist = {b: max(float(cKDTree(whole).query(r[i])[0].max())
+                   for i, whole in enumerate(full))
+            for b, r in rows.items()}
+    if not max(dist.values()) <= 1e-4:
+        raise RuntimeError(f'[data] a sampled row is off its view\'s '
+                           f'back-projected set: {dist}')
+    if np.array_equal(rows['numpy'][0], rows['auto'][0]):
+        raise RuntimeError('[data] the native backend returned the numpy '
+                           'rows')
+    vis = box_visibility(scan, ids, (480, 480))
+    imgs = np.stack([pl.normalize_imgs(v['rgb'][None])[0]
+                     for v in scan['views']])
+    pack_ms = {}
+    for n in (10, 50):
+        t0 = time.perf_counter()
+        sweeps = pl.pack_sweeps(rows['auto'][:n], vis[:n], imgs[:n], ks[:n],
+                                exts[:n], scan['gt_boxes'], scan['gt_labels'],
+                                None, 100000, 200, np.random.RandomState(0))
+        pack_ms[n] = (time.perf_counter() - t0) * 1e3
+        if sweeps['points'].shape != (n, 100000, 3):
+            raise RuntimeError(f'[data] pack_sweeps: {sweeps["points"].shape}')
+    kept = [len(p) for p in full]
+    log(f'[data] synthetic scan of 50 views of 480x480 and 32 boxes in '
+        f'{scan_s:.2f} s ({min(kept)}-{max(kept)} depth points a view); '
+        f'native core built and loaded in {build_s:.2f} s; '
+        f'multiview_world_points (10000 points a view) host ms per call: '
+        f'numpy {[round(t, 1) for t in ms["numpy"]]}, native '
+        f'{[round(t, 1) for t in ms["auto"]]}; every row within '
+        f'{max(dist.values()):.2e} m of its view\'s back-projected set on '
+        f'both backends; pack_sweeps host ms: 10 sweeps {pack_ms[10]:.1f}, '
+        f'50 sweeps {pack_ms[50]:.1f}; {card}')
+    return scan, dict(scan_s=scan_s, native_build_s=build_s,
+                      world_points_ms=ms, pack_sweeps_ms=pack_ms,
+                      max_row_distance_m=dist)
+
+
+def occ_sweeps(scan, cfg, n_views, seed, train):
+    """The continuous occupancy pseudo-batch of a synthetic scan through the
+    port's data path, as ``EmbodiedScanLoader`` builds it for cont_occ:
+    views selected, back-projected and sampled (``multiview_world_points``
+    on ``cfg.data.native_pipeline``); the scan moved so the room's centre
+    in x and y is the range's and its floor lies 8 cm above the range's
+    bottom (one translation of every view's points and extrinsic, and of the
+    boxes); ``points_range_filter`` per view; in training the rotation,
+    scale and translation augmentation (the occupancy tasks take no flip);
+    ``pack_sweeps`` with each view's box visibility and its frustum's prior
+    grid cells as the view's occupancy visibility (cumulative per sweep).
+    ``gt_occ``: the prior-grid cells the views' points occupy, with labels
+    drawn from the seed, padded to ``max_occ_voxels`` and tiled per
+    sweep."""
+    from embodiedscan_torch.data import pipeline as pl
+    from embodiedscan_torch.data.synthetic import box_visibility
+    m, d = cfg.model, cfg.data
+    rng = np.random.RandomState(seed)
+    ids = pl.select_views(len(scan['views']), n_views, ordered=not train,
+                          rng=rng)
+    depths, ks, exts = _views(scan, ids)
+    h, w = depths[0].shape
+    pcr = np.asarray(m.point_cloud_range, np.float32)
+    shift = np.array([(pcr[0] + pcr[3] - ROOM_XY) / 2,
+                      (pcr[1] + pcr[4] - ROOM_XY) / 2, pcr[2] + 0.08],
+                     np.float32)
+    move = np.eye(4, dtype=np.float32)
+    move[:3, 3] = -shift  # world = moved - shift
+    exts = [ext @ move for ext in exts]
+    imgs = np.stack([pl.normalize_imgs(scan['views'][i]['rgb'][None])[0]
+                     for i in ids])
+    view_pts = pl.multiview_world_points(depths, ks, exts, d.points_per_view,
+                                         rng, native=d.native_pipeline)
+    filtered = [pl.points_range_filter(p, pcr) for p in view_pts]
+    if sum(len(p) for p in filtered) >= 100:
+        view_pts = filtered
+    boxes = scan['gt_boxes'].copy()
+    boxes[:, :3] += shift
+    aug = None
+    if train:
+        sizes = np.cumsum([len(p) for p in view_pts])[:-1]
+        points, boxes, aug = pl.global_rot_scale_trans(
+            np.concatenate(view_pts), boxes, rng)
+        view_pts = np.split(points, sizes)
+    nv = np.asarray(m.n_voxels)
+    cell = (pcr[3:] - pcr[:3]) / nv
+    grid = np.stack(np.meshgrid(*[np.arange(n) for n in nv], indexing='ij'),
+                    -1).reshape(-1, 3)
+    centres = np.concatenate([pcr[:3] + (grid + 0.5) * cell,
+                              np.ones((len(grid), 1))], -1)
+    occ_vis = []
+    for k, ext in zip(ks, exts):
+        cam = centres @ ext.T
+        z = np.maximum(cam[:, 2], 1e-6)
+        u = cam[:, 0] / z * k[0, 0] + k[0, 2]
+        v = cam[:, 1] / z * k[1, 1] + k[1, 2]
+        occ_vis.append(((cam[:, 2] > 0.05) & (u >= 0) & (u < w) & (v >= 0) &
+                        (v < h)).reshape(tuple(nv)))
+    sample = pl.pack_sweeps(view_pts, box_visibility(scan, ids, (h, w)),
+                            imgs, ks, exts, boxes, scan['gt_labels'], aug,
+                            d.n_points, d.max_boxes, rng,
+                            occ_visible=occ_vis)
+    cells = np.floor((np.concatenate(view_pts) - pcr[:3]) / cell).astype(
+        np.int64)
+    cells = np.unique(cells[((cells >= 0) & (cells < nv)).all(1)], axis=0)
+    n = min(len(cells), d.max_occ_voxels)
+    gt = np.zeros((d.max_occ_voxels, 4), np.float32)
+    gt[:n, :3] = cells[:n]
+    gt[:n, 3] = rng.randint(1, m.occ_classes, n)
+    gm = np.arange(d.max_occ_voxels) < n
+    rows = sample['points'].shape[0]
+    sample['gt_occ'] = np.tile(gt[None], (rows, 1, 1))
+    sample['gt_occ_mask'] = np.tile(gm[None], (rows, 1))
+    return sample
+
+
+def _key_reach(n_rows, voxel):
+    """The key layout at ``n_rows`` rows and the metres it reaches from a
+    row's minimum at ``voxel``."""
+    from embodiedscan_torch.ops.hashing import key_layout
+    bits = key_layout(n_rows)
+    return bits, tuple(round(2**b * voxel, 2) for b in bits)
+
+
+def _serve(tag, model, batches, want, check, device):
+    """One recorded warm-up request, then one timed request per remaining
+    batch (host clock, each ending in a synchronize): its peak memory, its
+    launch counts against ``want`` and ``check(batch, out)`` -> a dict of
+    numbers to report. Returns (recorder on the host, launch totals,
+    latencies ms, peaks GiB, reports)."""
+    from embodiedscan_torch.data.loader import to_device
+    from embodiedscan_torch.ops import pscan as P
+    from embodiedscan_torch.ops import sparse as S
+    with Recorder(S, P) as rec:
+        t0 = time.perf_counter()
+        model(to_device(batches[0], device), mode='predict')
+        torch.cuda.synchronize()
+    rec.to_host()
+    log(f'[{tag}] warm-up request {time.perf_counter() - t0:.2f} s, '
+        f'{len(rec.conv)} conv and {len(rec.scan)} join-scan calls recorded')
+    lat, mem, reports = [], [], []
+    totals = dict.fromkeys(want, 0)
+    for i, req in enumerate(batches[1:]):
+        batch = to_device(req, device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(S, P)
+        t0 = time.perf_counter()
+        out = model(batch, mode='predict')
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts(S, P)
+        mem.append(torch.cuda.max_memory_allocated() / 2**30)
+        check_counts(counts, want, f'{tag} request {i}')
+        for name in totals:
+            totals[name] += counts[name]
+        reports.append(check(batch, out))
+        log(f'[{tag}] request {i}: {lat[-1]:.1f} ms, peak {mem[-1]:.2f} GiB, '
+            f'{reports[-1]}, launches {counts}')
+    return rec, totals, lat, mem, reports
+
+
+def phase_cont_det3d(card, scan, device='cuda', cfg=None):
+    """[cont_det3d]: the preset's detector at full width (the mv_det3d
+    widths, class bias 0 so NMS has work) serving its eval shape: 50
+    cumulative sweeps of one scan of 50 views of 480x480 from
+    ``scan_to_sweeps`` (100k points a sweep, 10000 a view, 200 boxes), a
+    pseudo-batch of 50 point rows over one image set. One recorded warm-up
+    and three timed requests (peak, kept voxels and detections per row,
+    launches), the host ms of each stage once, the idle share of one
+    profiled request."""
+    from embodiedscan_torch.configs.base import build_model, cont_det3d
+    from embodiedscan_torch.data.synthetic import scan_to_sweeps
+    from embodiedscan_torch.ops import sparse as S
+    from embodiedscan_torch.utils.convert_weights import load_jax_variables
+    cfg = cfg or cont_det3d()
+    m, d = cfg.model, cfg.data
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=device)
+    load_jax_variables(model, {'bbox_head': {'conv_cls': {'bias': np.zeros(
+        m.num_classes, np.float32)}}}, strict=False)
+    build_s = time.perf_counter() - t0
+    n = d.n_views_test
+    t0 = time.perf_counter()
+    batches = [scan_to_sweeps(scan, n_views=n, num_points=d.n_points,
+                              num_boxes=d.max_boxes, seed=s, train=False,
+                              points_per_view=d.points_per_view)
+               for s in range(4)]
+    pack_s = (time.perf_counter() - t0) / 4
+    bits, reach = _key_reach(n, m.voxel_size)
+    log(f'[cont_det3d] built on {device} in {build_s:.1f} s; {n} sweeps of one '
+        f'scan ({n} views of {d.image_hw[0]}x{d.image_hw[1]}), '
+        f'{batches[0]["points_mask"].sum(1).min()}-{d.n_points} points a '
+        f'row, scan_to_sweeps {pack_s:.2f} s a request; key layout {bits} '
+        f'bits at {n} rows: {reach} m from each row\'s minimum')
+
+    def check(batch, preds):
+        for key, val in preds.items():
+            if val.is_floating_point() and not torch.isfinite(val).all():
+                raise RuntimeError(f'cont_det3d: non-finite {key}')
+        if preds['bboxes'].shape != (n, m.max_dets, 9):
+            raise RuntimeError(f'bboxes {tuple(preds["bboxes"].shape)}')
+        with torch.no_grad():
+            st = S.from_points_b(batch['points'], batch['points'],
+                                 batch['points_mask'], m.voxel_size,
+                                 m.input_capacity)
+        kept = st.mask.sum(1).tolist()
+        dets = preds['mask'].sum(1).tolist()
+        if not min(dets):
+            raise RuntimeError('cont_det3d: a sweep kept no detection')
+        return dict(kept_voxels=kept, detections=dets)
+
+    rec, totals, lat, mem, reports = _serve(
+        'cont_det3d', model, batches, CONT_LAUNCHES['cont_det3d'], check,
+        device)
+    kept = reports[0]['kept_voxels']
+    log(f'[cont_det3d] latency ms per request {[round(t, 3) for t in lat]}, '
+        f'peak GiB {max(mem):.3f}; kept voxels per row (request 0) '
+        f'{min(kept)}-{max(kept)} of {m.input_capacity}, first rows '
+        f'{kept[:5]}, last {kept[-1]}; detections per row '
+        f'{min(reports[0]["detections"])}-'
+        f'{max(reports[0]["detections"])}; {card}')
+    from embodiedscan_torch.data.loader import to_device
+    batch = to_device(batches[1], device)
+    del batches
+    stats = dict(latency_ms=lat, peak_gib=mem, reports=reports,
+                 key_layout=bits, key_reach_m=reach, build_s=build_s)
+    stats.update(stage_times(model, batch, reps=1, warmup=False))
+
+    @torch.no_grad()
+    def profile():
+        stats.update(profile_run(lambda: model(batch, mode='predict'),
+                                 'cont_det3d request', host=False))
+
+    return rec, totals, stats, profile
+
+
+def phase_cont_det3d_train(card, device='cuda', cfg=None):
+    """[cont_det3d_train]: ``build_train`` of the preset (lr multipliers,
+    clip 10, AdamW) on 10 cumulative sweeps of a 10-view scan of 480x480
+    (``scan_to_sweeps(train=True)``: flip, rotation, scale and translation)
+    with 200 padded gt boxes, visible per sweep; :func:`train_steps`, then
+    the idle share of one profiled step."""
+    from embodiedscan_torch.configs.base import build_train, cont_det3d
+    from embodiedscan_torch.data.loader import to_device
+    from embodiedscan_torch.data.synthetic import make_scan, scan_to_sweeps
+    from embodiedscan_torch.train.state import train_step
+    cfg = cfg or cont_det3d()
+    d = cfg.data
+    t0 = time.perf_counter()
+    model, opt = build_train(cfg, device=device)
+    scan = make_scan(seed=1, n_views=d.n_views_train, hw=tuple(d.image_hw),
+                     g=32)
+    batch = to_device(scan_to_sweeps(
+        scan, n_views=d.n_views_train, num_points=d.n_points,
+        num_boxes=d.max_boxes, seed=0, train=True,
+        points_per_view=d.points_per_view), device)
+    bits, reach = _key_reach(d.n_views_train, cfg.model.voxel_size)
+    log(f'[cont_det3d_train] built cont_det3d and AdamW and the batch in '
+        f'{time.perf_counter() - t0:.1f} s: {d.n_views_train} sweeps, '
+        f'points per row {batch["points_mask"].sum(1).tolist()}, visible gt '
+        f'per sweep {batch["gt_mask"].sum(1).tolist()} of {d.max_boxes}; '
+        f'key layout {bits} bits: {reach} m; {card}')
+    rec, totals, stats = train_steps('cont_det3d_train', model, opt, batch,
+                                     CONT_LAUNCHES['cont_det3d_train'])
+    model.zero_grad(set_to_none=True)
+
+    def profile():
+        stats.update(profile_run(lambda: train_step(model, opt, batch),
+                                 'cont_det3d train step'))
+        model.zero_grad(set_to_none=True)
+
+    return rec, totals, stats, profile
+
+
+def _unet_share(model, batch, stats, train):
+    """The U-Net's device time (profiler) in a request (its forward on the
+    request's fused volume) or a step (forward and backward), beside the
+    profiled run's busy time."""
+    with torch.no_grad():
+        x = model.features(batch)
+    if train:
+        x.requires_grad_(True)
+
+        def fwd_bwd():
+            sum(f.sum() for f in model.neck(x)).backward()
+
+        n, ms = device_profile(fwd_bwd)
+        model.zero_grad(set_to_none=True)
+    else:
+        with torch.no_grad():
+            n, ms = device_profile(lambda: model.neck(x))
+    stats.update(unet_launches=n, unet_device_ms=ms,
+                 unet_share=ms / stats['device_busy_ms'])
+    return ms
+
+
+def phase_cont_occ(card, device='cuda', cfg=None):
+    """[cont_occ]: the preset (mv_occ's widths, the U-Net in bfloat16) at
+    full width serving 20 cumulative sweeps (mv_occ's n_views_test) of a
+    20-view scan of 480x480 through :func:`occ_sweeps`. One recorded
+    warm-up and three timed requests (peak, kept voxels per row, launches),
+    the host ms of each stage once, the idle share of one profiled request
+    and the U-Net's share of its device time."""
+    from embodiedscan_torch.configs.base import build_model, cont_occ
+    from embodiedscan_torch.data.loader import to_device
+    from embodiedscan_torch.data.synthetic import make_scan
+    cfg = cfg or cont_occ()
+    m, d = cfg.model, cfg.data
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n = d.n_views_test
+    scan = make_scan(seed=2, n_views=n, hw=tuple(d.image_hw), g=32)
+    batches = [occ_sweeps(scan, cfg, n, s, train=False) for s in range(4)]
+    log(f'[cont_occ] built on {device} in {build_s:.1f} s (U-Net in '
+        f'{model.ImVoxelNeck_0.dtype}); {n} sweeps, points per row '
+        f'{batches[0]["points_mask"].sum(1).min()}-'
+        f'{batches[0]["points_mask"].sum(1).max()}, visible prior cells per '
+        f'sweep {batches[0]["visible_mask"].reshape(n, -1).sum(1)[[0, -1]]}'
+        f' of {np.prod(m.n_voxels)}, {int(batches[0]["gt_occ_mask"][0].sum())}'
+        f' of {d.max_occ_voxels} gt voxels valid; {card}')
+
+    def check(batch, pred):
+        if tuple(pred.shape) != (n, *m.n_voxels) or not (
+                (pred >= 0) & (pred < m.occ_classes)).all():
+            raise RuntimeError(f'cont_occ: shape {tuple(pred.shape)}, '
+                               'classes out of range')
+        with torch.no_grad():
+            kept = model.voxelize(batch).mask.sum(1).tolist()
+        return dict(kept_voxels=kept, classes=len(torch.unique(pred)))
+
+    rec, totals, lat, mem, reports = _serve(
+        'cont_occ', model, batches, CONT_LAUNCHES['cont_occ'], check,
+        device)
+    kept = reports[0]['kept_voxels']
+    log(f'[cont_occ] latency ms per request {[round(t, 3) for t in lat]}, '
+        f'peak GiB {max(mem):.3f}; kept voxels per row {min(kept)}-'
+        f'{max(kept)} (the 11-bit key reaches 5.12 m of the 6 m room); '
+        f'{card}')
+    batch = to_device(batches[1], device)
+    del batches
+    stats = dict(latency_ms=lat, peak_gib=mem, reports=reports,
+                 build_s=build_s)
+    stages = occ_parts(model, batch,
+                       lambda fn: _host_ms(fn, reps=1, warmup=False))[0]
+    log('[breakdown] cont_occ host ms per stage: ' + ', '.join(
+        f'{k} {v:.2f}' for k, v in stages.items()))
+    stats.update(stages_ms=stages)
+
+    def profile():
+        with torch.no_grad():
+            stats.update(profile_run(lambda: model(batch, mode='predict'),
+                                     'cont_occ request'))
+        ms = _unet_share(model, batch, stats, train=False)
+        log(f'[breakdown] cont_occ U-Net device time {ms:.2f} ms of '
+            f'{stats["device_busy_ms"]:.2f} busy (share '
+            f'{stats["unet_share"]:.3f})')
+
+    return rec, totals, stats, profile
+
+
+def phase_cont_occ_train(card, device='cuda', cfg=None):
+    """[cont_occ_train]: ``build_train`` of the preset on 10 cumulative
+    sweeps of a 10-view scan (:func:`occ_sweeps`, training); train_steps,
+    then the peak against the card's memory (the remat decision), the idle
+    share of one profiled step and the U-Net's share of its device time."""
+    from embodiedscan_torch.configs.base import build_train, cont_occ
+    from embodiedscan_torch.data.loader import to_device
+    from embodiedscan_torch.data.synthetic import make_scan
+    from embodiedscan_torch.train.state import train_step
+    cfg = cfg or cont_occ()
+    d = cfg.data
+    resident = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    model, opt = build_train(cfg, device=device)
+    scan = make_scan(seed=3, n_views=d.n_views_train, hw=tuple(d.image_hw),
+                     g=32)
+    batch = to_device(occ_sweeps(scan, cfg, d.n_views_train, 0, train=True),
+                      device)
+    log(f'[cont_occ_train] built cont_occ and AdamW and the batch in '
+        f'{time.perf_counter() - t0:.1f} s: {d.n_views_train} sweeps, '
+        f'points per row {batch["points_mask"].sum(1).tolist()}, '
+        f'{int(batch["gt_occ_mask"][0].sum())} of {d.max_occ_voxels} gt '
+        f'voxels valid; {card}')
+    rec, totals, stats = train_steps('cont_occ_train', model, opt, batch,
+                                     CONT_LAUNCHES['cont_occ_train'])
+    model.zero_grad(set_to_none=True)
+    card_gib = torch.cuda.get_device_properties(0).total_memory / 2**30
+    own = max(stats['peak_gib']) - resident
+    left = card_gib - own
+    stats.update(card_gib=card_gib, own_peak_gib=own, headroom_gib=left,
+                 remat_needed=left < HEADROOM_GIB)
+    log(f'[cont_occ_train] peak {max(stats["peak_gib"]):.3f} GiB, of which '
+        f'{resident:.3f} GiB the earlier phases\' models: {own:.3f} GiB of '
+        f'the card\'s {card_gib:.1f} GiB with no other model resident, '
+        f'{left:.1f} GiB left, remat '
+        f'{"needed" if left < HEADROOM_GIB else "not needed"} (threshold '
+        f'{HEADROOM_GIB} GiB); {card}')
+
+    def profile():
+        stats.update(profile_run(lambda: train_step(model, opt, batch),
+                                 'cont_occ train step'))
+        ms = _unet_share(model, batch, stats, train=True)
+        model.zero_grad(set_to_none=True)
+        log(f'[breakdown] cont_occ train step U-Net forward + backward '
+            f'device time {ms:.2f} ms of {stats["device_busy_ms"]:.2f} busy '
+            f'(share {stats["unet_share"]:.3f})')
+
+    return rec, totals, stats, profile
+
+
+@torch.no_grad()
+def _bf16_gate(cfg, batch, calib, device):
+    """The small occupancy model's U-Net in bfloat16 on ``device`` and on
+    cpu, with the float32 model's weights and calibrated statistics: each
+    side's bf16 logits against its own float32 logits; the card's error at
+    most twice the cpu's plus BF16_SLACK x max|logit|; the classes of the two
+    bf16 models identical except where the cpu's top two bf16 logits are
+    closer than the larger error (counted)."""
+    from embodiedscan_torch.configs.base import build_model
+    f32 = _calibrate_norms(build_model(cfg, device='cpu'),
+                           to_device(calib, 'cpu'))
+    c16 = copy.deepcopy(cfg)
+    c16.model.occ_neck_bf16 = True
+    logits = {}
+    for dev in ('cpu', device):
+        b = to_device(batch, dev)
+        for name, c in (('f32', cfg), ('bf16', c16)):
+            model = build_model(c, device=dev)
+            model.load_state_dict(f32.state_dict())
+            logits[dev, name] = [t.cpu() for t in model.logits(b)]
+    errs = []
+    for i, ref in enumerate(logits['cpu', 'f32']):
+        e_cpu = float((logits['cpu', 'bf16'][i] - ref).abs().max())
+        e_card = float((logits[device, 'bf16'][i] -
+                        logits[device, 'f32'][i]).abs().max())
+        slack = BF16_SLACK * float(ref.abs().max())
+        if not e_card <= 2 * e_cpu + slack:
+            raise RuntimeError(f'bf16 U-Net scale {i}: card error {e_card} > '
+                               f'2 x cpu error {e_cpu} + {slack}')
+        errs.append((e_card, e_cpu, slack))
+    top = max(errs[0][:2])
+    pc = logits['cpu', 'bf16'][0]
+    flips = pc.argmax(-1) != logits[device, 'bf16'][0].argmax(-1)
+    top2 = torch.topk(pc, 2).values
+    margin = (top2[..., 0] - top2[..., 1])[flips]
+    if flips.any() and float(margin.max()) > top:
+        raise RuntimeError(f'bf16 U-Net: a class differs at a top-2 margin '
+                           f'{float(margin.max())} above the error {top}')
+    log(f'[parity] cont_occ bf16 U-Net: max|bf16 - float32 logit| per scale, '
+        f'card vs cpu: ' + ', '.join(
+            f'{a:.3g} vs {b:.3g} (gate {2 * b + s:.3g})' for a, b, s in errs) +
+        f'; classes of the two bf16 models identical in '
+        f'{flips.numel() - int(flips.sum())} of {flips.numel()} voxels, '
+        f'{int(flips.sum())} at top-2 margins within {top:.3g}')
+    return dict(errors=errs, flips=int(flips.sum()))
+
+
+def phase_cont_parity(device):
+    """Both continuous models at a small size on ``device`` (kernels) and on
+    cpu (plain versions) with the same weights, on 3-sweep pseudo-batches
+    from the port's data path (synthetic scans of 3 views of 96x96): the
+    small detector (``_parity_cfg``) serving (``det_parity``) and one train
+    step (``phase_train_parity``); the small occupancy model
+    (``_occ_parity_cfg``, the U-Net in float32) serving and one train step
+    with the multi-view occupancy gates; then its U-Net in bfloat16
+    (``_bf16_gate``)."""
+    from embodiedscan_torch.configs.base import build_model
+    from embodiedscan_torch.data.synthetic import make_scan, scan_to_sweeps
+    cfg = _parity_cfg()
+    cfg.model.task = 'cont_det3d'
+    scan = make_scan(seed=5, n_views=3, hw=(96, 96), g=8,
+                     num_classes=cfg.model.num_classes)
+    kw = dict(n_views=3, num_points=6000, num_boxes=16, points_per_view=2500)
+    cpu = build_model(cfg, device='cpu')
+    with torch.no_grad():
+        cpu.bbox_head.conv_cls.bias.zero_()
+    gpu = build_model(cfg, device=device)
+    gpu.load_state_dict(cpu.state_dict())
+    det_parity(cpu, gpu, scan_to_sweeps(scan, seed=7, train=False, **kw),
+               device, 'cont_det3d (3 sweeps) cpu vs cuda')
+    del cpu, gpu
+    phase_train_parity(device, cfg, scan_to_sweeps(scan, seed=8, train=True,
+                                                   **kw),
+                       'cont_det3d train step (3 sweeps)')
+    ocfg = _occ_parity_cfg()
+    ocfg.model.task = 'cont_occ'
+    d = ocfg.data
+    d.points_per_view, d.n_points, d.max_occ_voxels, d.max_boxes = \
+        2000, 6000, 2048, 16
+    oscan = make_scan(seed=6, n_views=3, hw=(96, 96), g=8)
+    calib, req = (occ_sweeps(oscan, ocfg, 3, s, train=False) for s in (5, 7))
+    phase_occ_parity(device, ocfg, req, calib, 'cont_occ (3 sweeps)')
+    phase_occ_train_parity(device, ocfg,
+                           occ_sweeps(oscan, ocfg, 3, 8, train=True),
+                           'cont_occ (3 sweeps)')
+    return _bf16_gate(ocfg, req, calib, device)
+
+
+def main_cont():
+    """``chip_smoke.py --cont``: [data], [cont_det3d], [cont_det3d_train],
+    [cont_occ] and [cont_occ_train] (each model kept on the card, with the
+    resident memory it starts from printed), the replays of their kernel
+    calls, then one profiled request or step of each (the models freed
+    after it), and the small continuous models' card-vs-cpu parity. Writes the kernel rows (groups ``(cont_det3d)``
+    and ``(cont_occ)``) and the numbers to chiprun_out/chip_smoke_cont.json
+    for the parent run's kernels line."""
+    from embodiedscan_torch.ops import kernels
+    card = card_name()
+    kernels.library()
+    torch.manual_seed(0)
+    t0 = time.perf_counter()
+    scan, data_stats = phase_data(card)
+    stats, recs, totals, profiles = dict(data=data_stats), {}, {}, []
+    took = dict(data=time.perf_counter() - t0)
+    for name, phase in (('cont_det3d', lambda: phase_cont_det3d(card, scan)),
+                        ('cont_det3d_train',
+                         lambda: phase_cont_det3d_train(card)),
+                        ('cont_occ', lambda: phase_cont_occ(card)),
+                        ('cont_occ_train',
+                         lambda: phase_cont_occ_train(card))):
+        t0 = time.perf_counter()
+        log(f'[cont] {name} starts with '
+            f'{torch.cuda.memory_allocated() / 2**30:.3f} GiB of the earlier '
+            f'phases\' models and batches on the card')
+        recs[name], totals[name], stats[name], profile = phase()
+        profiles.append(profile)
+        took[name] = time.perf_counter() - t0
+    del scan
+    # every replay before the first profiler session of this process: a
+    # session leaves the host slower per op, and later sessions lose events
+    t0 = time.perf_counter()
+    calls = phase_kernels([(p, recs[p]) for p in CONT_LAUNCHES],
+                          [(p, recs[p]) for p in ('cont_det3d_train',
+                                                  'cont_occ_train')],
+                          'cuda', CONT_TIMING, release=True)
+    took['replays'] = time.perf_counter() - t0
+    for path in CONT_LAUNCHES:
+        most = {name: max(r.get('m', r.get('r', r.get('n'))) for r in rows
+                          if r['path'] == path)
+                for name, rows in calls.items()
+                if any(r['path'] == path for r in rows)}
+        log(f'[kernels] most rows a call of {path} takes: {most}')
+    del recs
+    t0 = time.perf_counter()
+    for profile in profiles:
+        profile()
+    del profiles
+    torch.cuda.empty_cache()
+    took['profiles'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stats['parity'] = phase_cont_parity('cuda')
+    took['parity'] = time.perf_counter() - t0
+    log('[cont] seconds per part: ' + ', '.join(
+        f'{k} {v:.1f}' for k, v in took.items()))
+    stats['seconds'] = took
+
+    def add(a, b):
+        return {k: a[k] + b[k] for k in a}
+
+    rows = kernel_rows(calls, (
+        (' (cont_det3d)', add(*(totals[p] for p in CONT_DET_PATHS)),
+         CONT_DET_PATHS),
+        (' (cont_occ)', add(*(totals[p] for p in CONT_OCC_PATHS)),
+         CONT_OCC_PATHS)))
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, 'chip_smoke_cont.json'), 'w') as f:
+        json.dump(dict(card=card, rows=rows, stats=stats, calls=calls), f,
+                  indent=1, default=float)
+    return 0
+
+
+def run_cont():
+    """Runs ``chip_smoke.py --cont`` in a process of its own (a fresh
+    caching allocator and no earlier profiler session; its output joins
+    this one's) and returns what it wrote."""
+    path = os.path.join(OUT_DIR, 'chip_smoke_cont.json')
+    if os.path.exists(path):
+        os.remove(path)
+    torch.cuda.empty_cache()
+    sys.stdout.flush()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           '--cont'], timeout=1000)
+    if proc.returncode != 0:
+        raise RuntimeError(f'chip_smoke.py --cont exited {proc.returncode}')
+    with open(path) as f:
+        return json.load(f)
+
+
+def kernel_rows(calls, groups):
+    """The kernels line's rows: for each group (suffix, launch totals, its
+    paths), the K2 forward, K1, K2 dgrad and K3 rows of its paths. Launches
+    summed over each group's timed runs, every other number from this
+    run's replays (summed over one recorded request or step of each
+    path)."""
     rows = []
     conv = ('embodiedscan_torch/csrc/sparse_conv.cu',
             'embodiedscan_tpu/experimental/pallas_conv.py:62')
@@ -2661,12 +3386,9 @@ def kernel_line(calls, totals, occ_totals):
     # custom VJPs _subm_bwd and _strided_bwd (no Pallas kernel)
     bwd = 'embodiedscan_tpu/ops/sparse.py:354,413'
     wgrad = 'embodiedscan_torch/csrc/sparse_conv_wgrad.cu'
-    occ = ('occ', 'occ_train')
-    for suffix, counts, mine in (
-            ('', totals, lambda r: r['path'] not in occ),
-            (' (occ)', occ_totals, lambda r: r['path'] in occ)):
+    for suffix, counts, paths in groups:
         def of(name, route=None):
-            return [r for r in calls[name] if mine(r) and
+            return [r for r in calls[name] if r['path'] in paths and
                     (route is None or r['route'] == route)]
 
         meta = {  # kernel -> (source, replaces, its calls)
@@ -2695,13 +3417,19 @@ def kernel_line(calls, totals, occ_totals):
                 plain_ms=sum(r['plain_ms'] for r in rs), bound_ms=bound,
                 bound_by='bytes' if by_bytes >= bound / 2 else 'operations',
                 library_ms=sum(r['library_ms'] for r in rs)))
-    return json.dumps({'kernels': rows})
+    return rows
+
+
+DET_PATHS = ('det', 'grounding', 'train', 'ground_train')
+OCC_PATHS = ('occ', 'occ_train')
 
 
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 2
+    if sys.argv[1:] == ['--cont']:
+        return main_cont()
     t_start = time.perf_counter()
     card = phase_build()
     if sys.argv[1:] == ['--kernels-only']:
@@ -2724,8 +3452,11 @@ def main():
     ot_rec, ot_totals, ot_stats, otmodel, otopt, otbatch = \
         phase_occ_train('cuda', card)
     # event timings first, every profiler session after them (see cuda_ms)
-    calls = phase_kernels(rec, train_rec, 'cuda', ground_rec, gt_rec,
-                          occ_rec, ot_rec)
+    calls = phase_kernels(
+        (('det', rec), ('grounding', ground_rec), ('ground_train', gt_rec),
+         ('occ', occ_rec), ('occ_train', ot_rec)),
+        (('train', train_rec), ('ground_train', gt_rec),
+         ('occ_train', ot_rec)), 'cuda')
     with torch.no_grad():
         main_stats.update(profile_run(
             lambda: model(batch, mode='predict'), 'request'))
@@ -2773,6 +3504,7 @@ def main():
     phase_ground_train_parity('cuda')
     phase_occ_parity('cuda')
     phase_occ_train_parity('cuda')
+    cont = run_cont()
     log(f'[done] {time.perf_counter() - t_start:.1f} s')
     for name, n in ground_totals.items():
         totals[name] += n
@@ -2783,7 +3515,9 @@ def main():
         totals[name] += n
     for name, n in ot_totals.items():
         occ_totals[name] += n
-    print(kernel_line(calls, totals, occ_totals))
+    rows = kernel_rows(calls, (('', totals, DET_PATHS),
+                               (' (occ)', occ_totals, OCC_PATHS)))
+    print(json.dumps({'kernels': rows + cont['rows']}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -1,6 +1,6 @@
 """Configs, their ``a.b=c`` overrides and the model entry point (port of
-the detection, grounding and multi-view occupancy parts of
-``embodiedscan_tpu/configs/base.py``).
+``embodiedscan_tpu/configs/base.py``: the seven presets, the model and
+data fields the port reads).
 """
 
 import dataclasses
@@ -38,17 +38,36 @@ def apply_overrides(cfg: Any, overrides: Sequence[str]):
 
 @dataclasses.dataclass
 class DataConfig:
+    """The data path's settings: the reference package's fields, names and
+    defaults, so its ``data.x=y`` overrides apply unchanged."""
+    data_root: str = 'data'
+    ann_file: str = 'embodiedscan_infos_train.pkl'
+    val_ann_file: str = 'embodiedscan_infos_val.pkl'
+    vg_file: str = ''
+    batch_size: int = 4
     n_views_train: int = 20
     n_views_test: int = 50
     n_points: int = 100000
+    points_per_view: int = 10000
     image_hw: Sequence[int] = (480, 480)
-    n_gt: int = 128  # padded ground-truth boxes per training scene
-    max_boxes: int = 200  # padded gt boxes per grounding prompt
+    max_boxes: int = 200
     # padded sparse occupancy ground truth (xyz + label) per training scene
     max_occ_voxels: int = 16384
+    repeat_times: int = 1
+    synthetic: bool = False  # the synthetic fixture instead of disk data
     # directory of RoBERTa's vocab.json and merges.txt for models.text.
     # get_tokenizer; '' = the offline hash tokenizer
     tokenizer_path: str = ''
+    # host pipeline backend: 'auto' takes the threaded C++ core
+    # (embodiedscan_torch/native) where it builds, 'numpy' the numpy path;
+    # the synthetic fixture always takes numpy
+    native_pipeline: str = 'auto'
+    # host/device overlap (reference num_workers=4, persistent_workers=True,
+    # mv-det3d...py:182-183): num_workers threads build the samples of one
+    # batch; prefetch_depth batches are staged ahead of the step by a
+    # producer thread (0 = no prefetch)
+    num_workers: int = 4
+    prefetch_depth: int = 2
 
 
 @dataclasses.dataclass
@@ -111,6 +130,9 @@ class ModelConfig:
     point_cloud_range: Sequence[float] = (-3.2, -3.2, -0.78, 3.2, 3.2, 1.78)
     occ_fpn_channels: int = 256
     occ_pre_neck_channels: int = 0
+    # the U-Net computes in bfloat16 (parameters and batch-norm statistics
+    # stay float32; cont_occ)
+    occ_neck_bf16: bool = False
     resnet_base_channels: int = 64
 
 
@@ -125,20 +147,48 @@ class Config:
 
 def mv_det3d() -> Config:
     """configs/detection/mv-det3d_8xb4_embodiedscan-3d-284class-9dof.py."""
-    return Config()
+    cfg = Config()
+    cfg.data.repeat_times = 10
+    return cfg
+
+
+def cont_det3d() -> Config:
+    """configs/detection/cont-det3d_8xb1_embodiedscan-3d-284class-9dof.py:
+    the detector over a pseudo-batch of 1..V cumulative sweeps (10 train
+    sweeps, cont-det3d...py:138 n_images=10)."""
+    cfg = Config()
+    cfg.model.task = 'cont_det3d'
+    cfg.data.batch_size = 1
+    cfg.data.n_views_train = 10
+    return cfg
 
 
 def mv_grounding() -> Config:
-    """configs/grounding/mv-grounding_8xb12_embodiedscan-vg-9dof.py (the
-    model, the schedule and the gt padding; its data files wait for the
-    data slice)."""
+    """configs/grounding/mv-grounding_8xb12_embodiedscan-vg-9dof.py."""
     cfg = Config()
     cfg.model.task = 'mv_grounding'
     cfg.model.fpn_capacities = (1024, 1024, 1024, 2048)
+    cfg.data.batch_size = 12
     # 64 padded gt boxes bound every published prompt family
     cfg.data.max_boxes = 64
+    cfg.data.vg_file = 'embodiedscan_train_vg.json'
     cfg.schedule.lr = 5e-4
     cfg.schedule.weight_decay = 5e-4
+    return cfg
+
+
+def mv_grounding_mini() -> Config:
+    """configs/grounding/mv-grounding_8xb12_embodiedscan-vg-9dof-mini.py:
+    the 20%-data warm-up variant."""
+    cfg = mv_grounding()
+    cfg.data.vg_file = 'embodiedscan_train_mini_vg.json'
+    return cfg
+
+
+def mv_grounding_complex() -> Config:
+    """The mv-grounding complex-all variant: adds the complex prompts."""
+    cfg = mv_grounding()
+    cfg.data.vg_file = 'embodiedscan_train_vg_complex_all.json'
     return cfg
 
 
@@ -147,14 +197,33 @@ def mv_occ() -> Config:
     and 20 test views, the 24-epoch schedule's milestones)."""
     cfg = Config()
     cfg.model.task = 'mv_occ'
+    cfg.data.batch_size = 1
     cfg.data.n_views_train = 10
     cfg.data.n_views_test = 20
     cfg.schedule.milestones = (16, 22)
     return cfg
 
 
-PRESETS = {'mv_det3d': mv_det3d, 'mv_grounding': mv_grounding,
-           'mv_occ': mv_occ}
+def cont_occ() -> Config:
+    """configs/occupancy/cont-occ_8xb1_embodiedscan-occ-80class.py: mv_occ's
+    network over the sweep pseudo-batch, its U-Net in bfloat16. The
+    reference package's ``remat='all'`` has no counterpart: on the 80 GB
+    card the step fits without recomputation (PERF.md)."""
+    cfg = mv_occ()
+    cfg.model.task = 'cont_occ'
+    cfg.model.occ_neck_bf16 = True
+    return cfg
+
+
+PRESETS = {
+    'mv_det3d': mv_det3d,
+    'cont_det3d': cont_det3d,
+    'mv_grounding': mv_grounding,
+    'mv_grounding_mini': mv_grounding_mini,
+    'mv_grounding_complex': mv_grounding_complex,
+    'mv_occ': mv_occ,
+    'cont_occ': cont_occ,
+}
 
 
 def build_model(cfg: Config, device='cuda', img_dtype=torch.float32,
@@ -178,7 +247,7 @@ def build_model(cfg: Config, device='cuda', img_dtype=torch.float32,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     m = cfg.model
-    if m.task == 'mv_det3d':
+    if m.task in ('mv_det3d', 'cont_det3d'):
         model = SparseFusionDetector(
             num_classes=m.num_classes, voxel_size=m.voxel_size,
             input_capacity=m.input_capacity,
@@ -203,7 +272,7 @@ def build_model(cfg: Config, device='cuda', img_dtype=torch.float32,
             cost_l1_weight=m.cost_l1_weight,
             cost_iou_weight=m.cost_iou_weight,
             decouple_weights=tuple(m.decouple_weights), img_dtype=img_dtype)
-    elif m.task == 'mv_occ':
+    elif m.task in ('mv_occ', 'cont_occ'):
         model = DenseFusionOccPredictor(
             num_classes=m.occ_classes, n_voxels=tuple(m.n_voxels),
             point_cloud_range=tuple(m.point_cloud_range),
@@ -212,9 +281,10 @@ def build_model(cfg: Config, device='cuda', img_dtype=torch.float32,
             resnet_depth=m.resnet_depth,
             resnet_base_channels=m.resnet_base_channels,
             mink_depth=m.mink_depth, fpn_channels=m.occ_fpn_channels,
-            pre_neck_channels=m.occ_pre_neck_channels)
+            pre_neck_channels=m.occ_pre_neck_channels,
+            neck_dtype=torch.bfloat16 if m.occ_neck_bf16 else torch.float32)
     else:
-        raise NotImplementedError(f'task {m.task!r} is not ported yet')
+        raise ValueError(f'unknown task {m.task!r}')
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
     init_weights(model, generator)

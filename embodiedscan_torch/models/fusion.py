@@ -11,6 +11,13 @@ import torch
 from ..geometry.projection import _pad_to_4x4
 from ..ops.segment import gather_rows
 
+# the most (point, view, channel) samples held at once: a pseudo-batch of
+# many sweeps over many views (cont_det3d's 50 x 50 at 24576 points and 64
+# channels: 15.7 GB of float32 samples, three copies live) is sampled a
+# chunk of sweeps at a time, with the same values (each sweep's mean is
+# its own)
+MAX_SAMPLES = 2**28
+
 
 def point_image_sample_batched(points: torch.Tensor, point_mask: torch.Tensor,
                                img_feats: torch.Tensor, proj: torch.Tensor,
@@ -57,35 +64,48 @@ def point_image_sample_batched(points: torch.Tensor, point_mask: torch.Tensor,
     vbase = (torch.arange(bi * v, dtype=torch.int64, device=points.device) *
              (hf * wf)).reshape(bi, 1, v, 1)
 
-    def gather(yi, xi):
-        yi = torch.clamp(yi, 0, hf - 1)
-        xi = torch.clamp(xi, 0, wf - 1)
-        # out-of-frustum pairs read row 0; their samples are zeroed below
-        idx = torch.where(valid, vbase + yi * wf + xi,
-                          torch.zeros_like(yi)).reshape(-1)
-        return gather_rows(flat, idx).reshape(bi, s, v, n, c).to(torch.float32)
+    def sweeps(sl):
+        """The (BI, S', N, C) means of the sweeps ``sl``."""
+        ok, xs, ys = valid[:, sl], xf[:, sl], yf[:, sl]
+        s_ = ok.shape[1]
 
-    if mode == 'nearest':
-        sampled = gather(torch.round(yf).long(), torch.round(xf).long())
-    else:
-        x0 = torch.floor(xf).long()
-        y0 = torch.floor(yf).long()
-        tx = (xf - x0)[..., None]
-        ty = (yf - y0)[..., None]
+        def gather(yi, xi):
+            yi = torch.clamp(yi, 0, hf - 1)
+            xi = torch.clamp(xi, 0, wf - 1)
+            # out-of-frustum pairs read row 0; their samples are zeroed below
+            idx = torch.where(ok, vbase + yi * wf + xi,
+                              torch.zeros_like(yi)).reshape(-1)
+            return gather_rows(flat, idx).reshape(bi, s_, v, n, c).to(
+                torch.float32)
 
-        def inb(yi, xi):
-            return ((yi >= 0) & (yi < hf) & (xi >= 0) &
-                    (xi < wf)).to(torch.float32)[..., None]
+        if mode == 'nearest':
+            sampled = gather(torch.round(ys).long(), torch.round(xs).long())
+        else:
+            x0 = torch.floor(xs).long()
+            y0 = torch.floor(ys).long()
+            tx = (xs - x0)[..., None]
+            ty = (ys - y0)[..., None]
 
-        sampled = (
-            gather(y0, x0) * inb(y0, x0) * (1 - tx) * (1 - ty) +
-            gather(y0, x0 + 1) * inb(y0, x0 + 1) * tx * (1 - ty) +
-            gather(y0 + 1, x0) * inb(y0 + 1, x0) * (1 - tx) * ty +
-            gather(y0 + 1, x0 + 1) * inb(y0 + 1, x0 + 1) * tx * ty)
+            def inb(yi, xi):
+                return ((yi >= 0) & (yi < hf) & (xi >= 0) &
+                        (xi < wf)).to(torch.float32)[..., None]
 
-    sampled = torch.where(valid[..., None], sampled, torch.zeros_like(sampled))
-    cnt = valid.sum(dim=2)  # (BI, S, N)
-    total = sampled.sum(dim=2)  # (BI, S, N, C)
-    out = total / torch.clamp(cnt, min=1)[..., None]
-    keep = (cnt > 0)[..., None] & point_mask[..., None]
-    return torch.where(keep, out, torch.zeros_like(out))
+            sampled = (
+                gather(y0, x0) * inb(y0, x0) * (1 - tx) * (1 - ty) +
+                gather(y0, x0 + 1) * inb(y0, x0 + 1) * tx * (1 - ty) +
+                gather(y0 + 1, x0) * inb(y0 + 1, x0) * (1 - tx) * ty +
+                gather(y0 + 1, x0 + 1) * inb(y0 + 1, x0 + 1) * tx * ty)
+
+        sampled = torch.where(ok[..., None], sampled,
+                              torch.zeros_like(sampled))
+        cnt = ok.sum(dim=2)  # (BI, S', N)
+        total = sampled.sum(dim=2)  # (BI, S', N, C)
+        out = total / torch.clamp(cnt, min=1)[..., None]
+        keep = (cnt > 0)[..., None] & point_mask[:, sl, :, None]
+        return torch.where(keep, out, torch.zeros_like(out))
+
+    step = max(1, MAX_SAMPLES // (bi * v * n * c))
+    if step >= s:
+        return sweeps(slice(None))
+    return torch.cat([sweeps(slice(i, i + step)) for i in range(0, s, step)],
+                     dim=1)

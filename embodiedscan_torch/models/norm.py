@@ -75,7 +75,9 @@ class DenseBatchNorm(nn.Module):
     mode the batch statistics over every axis but C, with the variance as
     max(0, E[x^2] - E[x]^2) (``use_fast_variance``, biased) and the running
     update at momentum 0.99; the running statistics in eval mode.
-    (``torch.nn.BatchNorm3d`` updates at 0.9 with the unbiased variance.)"""
+    (``torch.nn.BatchNorm3d`` updates at 0.9 with the unbiased variance.)
+    A bfloat16 input is normalized as flax's ``BatchNorm(dtype=bfloat16)``:
+    statistics and arithmetic in float32, the result rounded to bfloat16."""
 
     MOMENTUM = 0.99
 
@@ -92,14 +94,16 @@ class DenseBatchNorm(nn.Module):
         mean, var = self.mean, self.var
         if self.training:
             dims = (0, ) + tuple(range(2, x.dim()))
-            mean = x.mean(dim=dims)
-            var = torch.maximum(x.square().mean(dim=dims) - mean.square(),
+            xf = x.to(torch.float32)
+            mean = xf.mean(dim=dims)
+            var = torch.maximum(xf.square().mean(dim=dims) - mean.square(),
                                 torch.zeros_like(mean))
             with torch.no_grad():
                 self.mean.mul_(self.MOMENTUM).add_((1 - self.MOMENTUM) * mean)
                 self.var.mul_(self.MOMENTUM).add_((1 - self.MOMENTUM) * var)
         mul = torch.rsqrt(var + self.epsilon) * self.scale
-        return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        out = (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return out.to(x.dtype)
 
 
 class FrozenBatchNorm(nn.Module):

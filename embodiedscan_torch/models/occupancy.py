@@ -1,4 +1,4 @@
-"""Multi-view semantic occupancy (port of the ``mv_occ`` parts of
+"""Semantic occupancy, multi-view and continuous (port of
 ``embodiedscan_tpu/models/occupancy.py``).
 
 - ``ImVoxelNeck``: the reference's 3-scale dense 3D residual U-Net
@@ -9,7 +9,10 @@
   scales at weights 0.5^i; predict is the argmax at the finest scale.
 - ``DenseFusionOccPredictor``: image features sampled at the prior
   voxel-centre grid, concatenated with the sparse point branch
-  (MinkResNet on kernels K1 and K2, densified at stride 64).
+  (MinkResNet on kernels K1 and K2, densified at stride 64). The
+  continuous variant (cont_occ) is the same network over a sweep
+  pseudo-batch (``data.pipeline.pack_sweeps``), its U-Net in bfloat16
+  (``neck_dtype``).
 
 Volumes enter and leave as (B, X, Y, Z, C), as the reference's; inside the
 U-Net they are (B, C, X, Y, Z), so X, Y and Z are ``Conv3d``'s D, H and W.
@@ -39,9 +42,23 @@ def _conv3(cin, cout, stride=1):
     return nn.Conv3d(cin, cout, 3, stride=stride, padding=1, bias=False)
 
 
+def _conv(mod, x):
+    """``mod(x)`` (a bias-free ``nn.Conv3d`` or ``nn.ConvTranspose3d``)
+    computed in ``x``'s dtype: the float32 weight is cast to it, as flax's
+    ``Conv(dtype=...)``."""
+    w = mod.weight.to(x.dtype)
+    if isinstance(mod, nn.ConvTranspose3d):
+        return F.conv_transpose3d(x, w, None, mod.stride, mod.padding,
+                                  mod.output_padding, mod.groups,
+                                  mod.dilation)
+    return F.conv3d(x, w, None, mod.stride, mod.padding, mod.dilation,
+                    mod.groups)
+
+
 class ResBlock3D(nn.Module):
     """Conv3d-BN-ReLU-Conv3d-BN + identity (a strided 1x1x1 conv and BN
-    where the shape changes), ReLU (imvoxel_neck.py:111-144)."""
+    where the shape changes), ReLU (imvoxel_neck.py:111-144), in the
+    input's dtype."""
 
     def __init__(self, in_channels: int, features: int, stride: int = 1):
         super().__init__()
@@ -56,9 +73,10 @@ class ResBlock3D(nn.Module):
             self.BatchNorm_2 = DenseBatchNorm(features)
 
     def forward(self, x):
-        out = F.relu(self.BatchNorm_0(self.Conv_0(x)))
-        out = self.BatchNorm_1(self.Conv_1(out))
-        identity = self.BatchNorm_2(self.Conv_2(x)) if self.has_down else x
+        out = F.relu(self.BatchNorm_0(_conv(self.Conv_0, x)))
+        out = self.BatchNorm_1(_conv(self.Conv_1, out))
+        identity = self.BatchNorm_2(_conv(self.Conv_2, x)) \
+            if self.has_down else x
         return F.relu(out + identity)
 
 
@@ -67,11 +85,18 @@ class ImVoxelNeck(nn.Module):
     scale past the first halves the grid and doubles the channels; the
     decoder goes back up by a k2 s2 transposed conv + BN + ReLU + conv3 +
     BN + ReLU and adds the encoder's output; each scale ends in conv3 + BN
-    + ReLU to ``out_channels``. Returns the scales finest first."""
+    + ReLU to ``out_channels``. Returns the scales finest first, in the
+    input's dtype.
+
+    ``dtype`` is the compute dtype (flax's ``dtype=``): the input is cast to
+    it, the convs run in it on float32 weights, the batch norms compute in
+    float32 and round to it (``norm.DenseBatchNorm``)."""
 
     def __init__(self, in_channels: int, out_channels: int = 128,
-                 n_blocks: Sequence[int] = (1, 1, 1)):
+                 n_blocks: Sequence[int] = (1, 1, 1),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.n_blocks = tuple(n_blocks)
         chans, c = [], in_channels
         for i, blocks in enumerate(self.n_blocks):
@@ -98,6 +123,8 @@ class ImVoxelNeck(nn.Module):
             k += 1
 
     def forward(self, x: torch.Tensor):
+        out_dtype = x.dtype
+        x = x.to(self.dtype)
         down = []
         for i, blocks in enumerate(self.n_blocks):
             for j in range(blocks):
@@ -106,14 +133,15 @@ class ImVoxelNeck(nn.Module):
         outs, k = [], 0
         for i in range(len(self.n_blocks) - 1, -1, -1):
             if i < len(self.n_blocks) - 1:
-                x = getattr(self, f'up_{i + 1}_t')(x)
+                x = _conv(getattr(self, f'up_{i + 1}_t'), x)
                 x = F.relu(getattr(self, f'BatchNorm_{k}')(x))
-                x = getattr(self, f'up_{i + 1}_c')(x)
+                x = _conv(getattr(self, f'up_{i + 1}_c'), x)
                 x = F.relu(getattr(self, f'BatchNorm_{k + 1}')(x))
                 x = down[i] + x
                 k += 2
-            out = getattr(self, f'out_{i}_c')(x)
-            outs.append(F.relu(getattr(self, f'BatchNorm_{k}')(out)))
+            out = _conv(getattr(self, f'out_{i}_c'), x)
+            outs.append(F.relu(getattr(self, f'BatchNorm_{k}')(out)).to(
+                out_dtype))
             k += 1
         return outs[::-1]
 
@@ -257,7 +285,8 @@ class DenseFusionOccPredictor(nn.Module):
                  backbone_capacities=(49152, 32768, 24576, 8192, 4096, 2048),
                  resnet_depth: int = 50, resnet_base_channels: int = 64,
                  mink_depth: int = 34, neck3d_channels: int = 128,
-                 fpn_channels: int = 256, pre_neck_channels: int = 0):
+                 fpn_channels: int = 256, pre_neck_channels: int = 0,
+                 neck_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_voxels = tuple(n_voxels)
         self.point_cloud_range = tuple(point_cloud_range)
@@ -277,7 +306,8 @@ class DenseFusionOccPredictor(nn.Module):
         if pre_neck_channels:
             self.pre_neck = nn.Linear(c, pre_neck_channels)
             c = pre_neck_channels
-        self.ImVoxelNeck_0 = ImVoxelNeck(c, neck3d_channels)
+        self.ImVoxelNeck_0 = ImVoxelNeck(c, neck3d_channels,
+                                         dtype=neck_dtype)
         self.OccHead_0 = OccHead(neck3d_channels, num_classes)
 
     def image_maps(self, imgs: torch.Tensor) -> torch.Tensor:

@@ -73,9 +73,14 @@ def from_points_b(points_xyz: torch.Tensor, feats: torch.Tensor,
                   mask: torch.Tensor, voxel_size: float,
                   capacity: int) -> SparseTensor:
     """Voxelize (B, N, 3) points into a stride-1 sparse tensor: coordinates
-    are floor(p / voxel_size); duplicate voxels keep the first point's
+    are floor(p * r) with r = 1 / voxel_size rounded to float32, as XLA
+    computes the reference's ``floor(p / voxel_size)`` under ``jit`` (a
+    division by a constant becomes a product with its reciprocal; a point
+    within an ulp of a voxel face can land in the other voxel than a true
+    division puts it in). Duplicate voxels keep the first point's
     features."""
-    coords = torch.floor(points_xyz / voxel_size).to(torch.int32)
+    recip = float(np.float32(1.0) / np.float32(voxel_size))
+    coords = torch.floor(points_xyz * recip).to(torch.int32)
     uniq = unique_coords_b(coords, mask, capacity)
     c = feats.shape[-1]
     gathered = torch.gather(feats, 1, uniq.rows.long()[..., None].expand(

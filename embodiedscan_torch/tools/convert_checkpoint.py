@@ -28,7 +28,9 @@ def main(argv=None):
     returns (model, n_loaded, skipped)."""
     parser = argparse.ArgumentParser(
         description='reference .pth -> checkpoint of the port')
-    parser.add_argument('config', help='preset: mv_det3d | mv_grounding')
+    parser.add_argument('config', help='preset: mv_det3d | cont_det3d | '
+                        'mv_grounding | mv_grounding_mini | '
+                        'mv_grounding_complex')
     parser.add_argument('checkpoint', help='path to the reference .pth')
     parser.add_argument('overrides', nargs='*',
                         help='dot-path config overrides (key.subkey=value)')

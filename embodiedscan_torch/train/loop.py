@@ -1,10 +1,10 @@
-"""Per-parameter lr multipliers and the records the eval metrics take
-(port of ``lr_mult_fn_for`` and of ``_append_scene_results`` in
-``embodiedscan_tpu/train/loop.py`` for the detection, grounding and
-multi-view occupancy tasks; the loops that drive them, ``train`` and
-``evaluate``, come with the runtime)."""
+"""Per-parameter lr multipliers, the loader of a config and the records
+the eval metrics take (port of ``lr_mult_fn_for``, ``make_dataset``,
+``_append_scene_results`` and ``_stack_eval_batches`` in
+``embodiedscan_tpu/train/loop.py`` for all five tasks; the loops that
+drive them, ``train`` and ``evaluate``, come with the runtime)."""
 
-from typing import Callable
+from typing import Callable, Iterable
 
 import numpy as np
 import torch
@@ -42,6 +42,25 @@ def lr_mult_fn_for(task: str) -> Callable[[tuple], float]:
     return base_freeze
 
 
+def make_dataset(cfg, train: bool = True) -> Iterable:
+    """Collated numpy batches of ``cfg``'s task (``data.loader.
+    build_loader``); a train loader yields them forever, an eval one makes
+    one pass."""
+    from ..data.loader import build_loader
+    return build_loader(cfg, train=train)
+
+
+def _stack_eval_batches(batches):
+    """Concatenate per-scene collated batches along the leading axis: both
+    the standard and the sweep collate layouts stack there."""
+    if len(batches) == 1:
+        return batches[0]
+    return {
+        k: np.concatenate([b[k] for b in batches], axis=0)
+        for k in batches[0]
+    }
+
+
 def _host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
@@ -51,20 +70,22 @@ def _host(x) -> np.ndarray:
 def _append_scene_results(cfg, batch: dict, preds: dict, real_rows: int,
                           gts: list, dts: list, n0: int) -> int:
     """Unpack one predict output and its batch into per-row gt / dt records:
-    ``indoor_eval``'s for ``'mv_det3d'`` (the kept detections, the valid
-    ground truth), ``ground_eval``'s for ``'mv_grounding'`` (every query,
-    the valid ground truth and the prompt's bucket flags, which the batch
-    must carry), ``occupancy_eval``'s for ``'mv_occ'`` (the (X, Y, Z)
+    ``indoor_eval``'s for ``'mv_det3d'`` and ``'cont_det3d'`` (the kept
+    detections, the valid ground truth; a sweep pseudo-batch gives one
+    record per sweep row, with the gt visible up to that sweep),
+    ``ground_eval``'s for ``'mv_grounding'`` (every query, the valid ground
+    truth and the prompt's bucket flags, which the batch must carry),
+    ``occupancy_eval``'s for ``'mv_occ'`` and ``'cont_occ'`` (the (X, Y, Z)
     predicted classes; the ground truth ``gt_occ`` / ``gt_occ_mask`` as a
     label grid at ``cfg.model.n_voxels``, 255 where ``visible_mask`` is
-    False).
+    False; one record per sweep row).
 
     The task is ``cfg.model.task``. Rows past ``real_rows`` are tail
     padding (repeated scenes) and dropped. Tensors may lie on any device.
     Returns the updated running row count.
     """
     task = cfg.model.task
-    if task == 'mv_occ':
+    if task in ('mv_occ', 'cont_occ'):
         from ..models.occupancy import occ_multiscale_targets
         vis = batch.get('visible_mask')
         tgt = occ_multiscale_targets(
@@ -75,8 +96,8 @@ def _append_scene_results(cfg, batch: dict, preds: dict, real_rows: int,
         dts.extend(_host(preds)[:real_rows])
         gts.extend(_host(tgt))
         return n0 + real_rows
-    if task not in ('mv_det3d', 'mv_grounding'):
-        raise NotImplementedError(f'task {task!r} is not ported yet')
+    if task not in ('mv_det3d', 'cont_det3d', 'mv_grounding'):
+        raise ValueError(f'unknown task {task!r}')
     preds = {k: _host(v) for k, v in preds.items()}
     gt_mask = _host(batch['gt_mask'])
     gt_boxes = _host(batch['gt_boxes'])
@@ -93,7 +114,7 @@ def _append_scene_results(cfg, batch: dict, preds: dict, real_rows: int,
                                               'is_unique')}
     for i in range(real_rows):
         gm = gt_mask[i]
-        if task == 'mv_det3d':
+        if task != 'mv_grounding':
             keep = preds['mask'][i]
             dts.append(dict(bboxes=preds['bboxes'][i][keep],
                             scores=preds['scores'][i][keep],

@@ -746,8 +746,8 @@ def load_reference_grounder(model, torch_state_dict, mink_depth=34,
 
 
 # the tasks whose reference checkpoints have converters (the reference
-# package has none for occupancy)
-REFERENCE_TASKS = ('mv_det3d', 'mv_grounding')
+# package has none for occupancy); cont_det3d is mv_det3d's detector
+REFERENCE_TASKS = ('mv_det3d', 'cont_det3d', 'mv_grounding')
 
 
 def check_reference_task(task: str) -> None:

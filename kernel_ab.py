@@ -175,7 +175,7 @@ def train(S, P):
     model, opt = build_train(cfg, device='cuda')
     d = cfg.data
     batch = cs.to_device(cs.make_batch(1, d.n_points, d.n_views_train,
-                                       d.image_hw[0], d.n_gt,
+                                       d.image_hw[0], cs.N_GT,
                                        cfg.model.num_classes), 'cuda')
     with cs.Recorder(S, P) as rec:
         train_step(model, opt, batch)

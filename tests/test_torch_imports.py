@@ -43,12 +43,19 @@ def test_no_reference_imports(path):
     'embodiedscan_torch.models.occupancy', 'embodiedscan_torch.models.fpn',
     'embodiedscan_torch.models.anchors',
     'embodiedscan_torch.eval.occupancy_metric',
-    'embodiedscan_torch.configs.base'])
+    'embodiedscan_torch.configs.base',
+    'embodiedscan_torch.geometry.np_boxes',
+    'embodiedscan_torch.native',
+    'embodiedscan_torch.data.pipeline', 'embodiedscan_torch.data.synthetic',
+    'embodiedscan_torch.data.loader', 'embodiedscan_torch.data.dataset'])
 def test_module_is_checked_and_imports(module):
-    """The training, grounding, checkpoint and occupancy slices' modules
-    are among the files checked above and import on a machine without JAX,
-    transformers, tokenizers or regex."""
+    """The training, grounding, checkpoint, occupancy and data slices'
+    modules are among the files checked above and import on a machine
+    without JAX, transformers, tokenizers or regex."""
     path = ROOT / (module.replace('.', '/') + '.py')
+    if not path.exists():  # a package
+        path = ROOT / module.replace('.', '/') / '__init__.py'
+
     assert path in FILES
     code = (f'import sys; sys.modules.update(dict.fromkeys({FORBIDDEN!r}));'
             f' import {module}')
