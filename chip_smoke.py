@@ -116,15 +116,33 @@ Phases (one line each; any failure exits non-zero before the last line):
      decision); the replays of every K1, K2 and K3 call of the four
      paths; the small continuous models card vs cpu (3 sweeps), and the
      bf16 U-Net's error on the card against the cpu's;
- 12. one JSON line with the kernels (each kernel's row on the detection
+ 12. the runtime, in another process of its own (``--loop``): [loop] a
+     dataset of 4 train and 4 val scenes of 50 views of 480x480 written in
+     the reference layout (jpg, uint16 png, info pkls), a one-rank NCCL
+     process group, one loop batch of the shipped mv_det3d preset (b = 4,
+     20 views, 100k points) through a bare train step (recorded and
+     timed), the gradients' all-reduce alone and the loader alone,
+     the replays of that step's K1, K2 and K3 calls, then
+     ``embodiedscan_torch.tools.train.main`` for 12 steps (past the
+     epoch's end at 10; steps 6-10 profiled into a chrome trace) and again
+     with ``--resume auto`` for 3 (wrapper calls per step equal to the
+     train step's; checkpoints, save and restore seconds, the count and
+     rate after the resume, the loop's sec/it from its own log, peak
+     memory, the profiled steps' device busy time and idle share),
+     ``tools.test.main`` over the val scenes from the last checkpoint, and
+     a small checkpoint's ``evaluate`` on the card and on the cpu over the
+     val scenes with gt boxes added at its detections (metrics within
+     1e-6, mAP_0.25 > 0 on both);
+ 13. one JSON line with the kernels (each kernel's row on the detection
      and grounding paths, then on the occupancy paths, then on the
-     continuous ones), then the result line.
-Per-call details go to chiprun_out/chip_smoke_calls.json and
-chiprun_out/chip_smoke_cont.json.
+     continuous ones, then on the loop's step), then the result line.
+Per-call details go to chiprun_out/chip_smoke_calls.json,
+chiprun_out/chip_smoke_cont.json and chiprun_out/chip_smoke_loop.json.
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1 and 9 and stops
 (no result line): the quickest check that the kernels build and agree.
-``python3 chip_smoke.py --cont`` runs phase 11 alone (no result line).
+``python3 chip_smoke.py --cont`` runs phase 11 alone and ``--loop``
+phase 12 alone (no result line).
 """
 
 import contextlib
@@ -199,6 +217,9 @@ SPLIT_GATE = 1e-6  # K3 many chunks vs one: max|d| <= SPLIT_GATE x max
 # shipped kernels' worst leaf is 9.95e-5 and, with K2's and K3's products
 # cut to single TF32, 0.473 (``kernel_ab.py --tf32-control``)
 GRAD_GATE = 3e-4
+# the schedule's epoch (updates) of the train phases outside [loop]: they
+# take a few steps each, all before its first milestone, at the base rate
+PHASE_EPOCH = 1000
 OUT_DIR = 'chiprun_out'
 # padded ground-truth boxes of the detector's training scene (the reference
 # benchmark's, bench.py:make_batch)
@@ -672,7 +693,8 @@ def phase_train(device, cfg=None):
     from embodiedscan_torch.configs.base import build_train, mv_det3d
     cfg = cfg or mv_det3d()
     t0 = time.perf_counter()
-    model, opt = build_train(cfg, device=device)
+    model, opt = build_train(cfg, device=device,
+                             steps_per_epoch=PHASE_EPOCH)
     d = cfg.data
     batch = to_device(make_batch(1, d.n_points, d.n_views_train,
                                  d.image_hw[0], N_GT,
@@ -719,7 +741,8 @@ def phase_ground_train(device, cfg=None):
     cfg = cfg or mv_grounding()
     d = cfg.data
     t0 = time.perf_counter()
-    model, opt = build_train(cfg, device=device)
+    model, opt = build_train(cfg, device=device,
+                             steps_per_epoch=PHASE_EPOCH)
     _box_branch(model, 0)
     batch = to_device(make_ground_train_batch(
         cfg, d.n_points, d.n_views_train, d.image_hw[0]), device)
@@ -1133,7 +1156,8 @@ def phase_kernels(fwd, bwd, device, timing=None, release=False):
                 f'{sum(r["plain_ms"] for r in rs):.3f} ms, library '
                 f'{sum(r["library_ms"] for r in rs):.3f} ms, bound '
                 f'{sum(r["bound_ms"] for r in rs):.3f} ms per '
-                f'{"step" if "train" in path else "request"}; '
+                f'{"step" if "train" in path or path == "loop" else "request"}'
+                f'; '
                 f'max|d| '
                 f'{max(r["max_abs_err"] for r in rs)}; CUDA launches '
                 f'{sum(r["cuda_launches"] for r in rs)}, device-only '
@@ -1458,20 +1482,96 @@ def phase_e2e_parity(device):
                'cpu vs cuda')
 
 
+@contextlib.contextmanager
+def fusion_calls():
+    """Records each call of the detectors' fusion (``models.trunk``'s
+    ``point_image_sample_batched``) while active: its arguments and its
+    output."""
+    from embodiedscan_torch.models import trunk
+    fuse = trunk.point_image_sample_batched
+    calls = []
+
+    def recorded(*args):
+        out = fuse(*args)
+        calls.append((args, out.detach()))
+        return out
+
+    trunk.point_image_sample_batched = recorded
+    try:
+        yield calls
+    finally:
+        trunk.point_image_sample_batched = fuse
+
+
+def fusion_pixels(args):
+    """(BI, S, V, N) the flat pixel of its view's feature map that each
+    point reads in a recorded 'nearest' fusion call, -1 where the view
+    does not see it: the fusion run again on the call's device, one view
+    at a time, over a map that holds each pixel's index + 1."""
+    from embodiedscan_torch.models.fusion import point_image_sample_batched
+    points, mask, feats, proj, aug_inv, pad_hw, mode, view_mask = args
+    bi, v, hf, wf, _ = feats.shape
+    index = torch.arange(1, hf * wf + 1, dtype=torch.float32,
+                         device=feats.device).reshape(1, 1, hf, wf, 1)
+    out = []
+    for j in range(v):
+        one = torch.zeros_like(view_mask)
+        one[:, :, j] = view_mask[:, :, j]
+        out.append(point_image_sample_batched(
+            points, mask, index.expand(bi, v, hf, wf, 1), proj, aug_inv,
+            pad_hw, mode, one)[..., 0])
+    return torch.stack(out, 2).round().long() - 1
+
+
+def fusion_report(cpu_calls, cuda_calls):
+    """One line per pair of recorded fusion calls (:func:`fusion_calls`) of
+    a cpu and a cuda run: the (point, view) pairs whose nearest pixel
+    differs, and the largest |d| of the fused features."""
+    lines = []
+    for i, ((ac, oc), (ag, og)) in enumerate(zip(cpu_calls, cuda_calls)):
+        try:
+            pc, pg = fusion_pixels(ac).cpu(), fusion_pixels(ag).cpu()
+            where = torch.nonzero(pc != pg)[:8].tolist()
+            lines.append(
+                f'fusion call {i}: {int((pc != pg).sum())} of {pc.numel()} '
+                f'(point, view) nearest pixels differ (first (b, s, v, n): '
+                f'{where}), fused features max|d| '
+                f'{float((oc.cpu() - og.cpu()).abs().max()):.3g}')
+        except Exception as err:  # the report must not hide the failure
+            lines.append(f'fusion call {i}: no report ({err!r})')
+    if len(cpu_calls) != len(cuda_calls):
+        lines.append(f'{len(cpu_calls)} fusion calls on the cpu, '
+                     f'{len(cuda_calls)} on the card')
+    return lines
+
+
 def det_parity(cpu, gpu, req, device, what):
     """One request of a detector on cpu (plain versions) and its twin on
     ``device`` (kernels): neighbor tables, feature coordinates and masks,
     labels and keep masks identical; head outputs, boxes and scores within
-    atol 1e-4 + rtol 1e-5."""
+    atol 1e-4 + rtol 1e-5. Where a check fails, the log names the field
+    and the element, then compares the two runs' fusions
+    (:func:`fusion_report`)."""
     from embodiedscan_torch.ops import pscan as P
     from embodiedscan_torch.ops import sparse as S
     out = {}
     for name, model, dev in (('cpu', cpu, 'cpu'), ('cuda', gpu, device)):
-        with Recorder(S, P) as rec:
+        with Recorder(S, P) as rec, fusion_calls() as fused:
             feats = model(to_device(req, dev), mode='feats')
             preds = model(to_device(req, dev), mode='predict')
-        out[name] = (rec, feats, {k: v.cpu() for k, v in preds.items()})
-    (rc, fc, pc), (rg, fg, pg) = out['cpu'], out['cuda']
+        out[name] = (rec, feats, {k: v.cpu() for k, v in preds.items()},
+                     fused)
+    try:
+        _det_checks(out, what)
+    except RuntimeError:
+        for line in fusion_report(out['cpu'][3], out['cuda'][3]):
+            log(f'[parity] {what}: {line}')
+        raise
+
+
+def _det_checks(out, what):
+    """:func:`det_parity`'s checks of the cpu and cuda runs ``out``."""
+    (rc, fc, pc, _), (rg, fg, pg, _) = out['cpu'], out['cuda']
     if len(rc.conv) != len(rg.conv) or not rc.conv:
         raise RuntimeError('cpu and cuda runs made different conv calls')
     for ac, ag in zip(rc.conv, rg.conv):
@@ -1499,11 +1599,15 @@ def det_parity(cpu, gpu, req, device, what):
 
 def _close(a, b, what):
     tol = 1e-4 + 1e-5 * b.abs()
-    excess = float(((a - b).abs() - tol).max())
-    if excess > 0:
-        raise RuntimeError(f'{what}: cpu and cuda differ beyond tolerance '
-                           f'(max excess {excess})')
-    return excess
+    excess = (a - b).abs() - tol
+    worst = float(excess.max())
+    if worst > 0:
+        i = int(excess.argmax())
+        raise RuntimeError(
+            f'{what}: cpu and cuda differ beyond tolerance (max excess '
+            f'{worst} at flat index {i} of {tuple(a.shape)}: cpu '
+            f'{float(a.reshape(-1)[i])}, cuda {float(b.reshape(-1)[i])})')
+    return worst
 
 
 def _parity_cfg():
@@ -1541,7 +1645,8 @@ def train_parity(device, cfg=None, batch=None):
     out = {}
     for name, model, dev in (('cpu', cpu, 'cpu'), ('cuda', gpu, device)):
         with Recorder(S, P) as rec:
-            metrics = train_step(model, make_optimizer(model, cfg),
+            metrics = train_step(model, make_optimizer(
+                model, cfg, steps_per_epoch=PHASE_EPOCH),
                                  to_device(batch, dev))
         out[name] = (rec, {k: float(v) for k, v in metrics.items()},
                      export_jax_tree(model, 'grads'),
@@ -1675,7 +1780,8 @@ def _ground_step(model, cfg, batch, dev, follow=None):
     from embodiedscan_torch.ops import sparse as S
     from embodiedscan_torch.train.loop import lr_mult_fn_for
     from embodiedscan_torch.train.state import make_optimizer, train_step
-    opt = make_optimizer(model, cfg, lr_mult_fn_for(cfg.model.task))
+    opt = make_optimizer(model, cfg, lr_mult_fn_for(cfg.model.task),
+                         steps_per_epoch=PHASE_EPOCH)
     seen = []
     match = model.match
     model.match = lambda *a: seen.append(match(*a)) or seen[-1]
@@ -2123,15 +2229,8 @@ def phase_eval(det_preds, ground_preds, device):
         t2 = time.perf_counter()
         ms[dev] = dict(indoor_eval=(t1 - t0) * 1e3,
                        ground_eval=(t2 - t1) * 1e3)
-    worst = 0.0
-    for what in ('det', 'ground'):
-        a, b = out[device, what], out['cpu', what]
-        if set(a) != set(b):
-            raise RuntimeError(f'{what} eval: keys differ between the card '
-                               'and the cpu')
-        worst = max([worst] + [abs(a[k] - b[k]) for k in a])
-    if not worst <= EVAL_GATE:
-        raise RuntimeError(f'eval: card and cpu metrics differ by {worst}')
+    worst = max(_metrics_diff(out[device, what], out['cpu', what],
+                              f'{what} eval') for what in ('det', 'ground'))
     det, grd = out[device, 'det'], out[device, 'ground']
     if not det['mAP_0.25'] > 0 or not grd['Overall@0.25'] > 0:
         raise RuntimeError(f'eval: no hit (mAP_0.25 {det["mAP_0.25"]}, '
@@ -2432,7 +2531,8 @@ def phase_occ_train(device, card, cfg=None):
     cfg = cfg or mv_occ()
     d = cfg.data
     t0 = time.perf_counter()
-    model, opt = build_train(cfg, device=device)
+    model, opt = build_train(cfg, device=device,
+                             steps_per_epoch=PHASE_EPOCH)
     batch = to_device(make_occ_request(
         d.n_points, d.n_views_train, d.image_hw[0], seed=9,
         n_gt=d.max_occ_voxels, num_classes=cfg.model.occ_classes), device)
@@ -2670,7 +2770,8 @@ def phase_occ_train_parity(device, cfg=None, req=None, what='occupancy'):
         req = make_occ_request(p=6000, v=4, hw=96, seed=8, b=2, n_gt=2048)
     out, follow = {}, None
     for name, model, dev in (('cuda', gpu, device), ('cpu', cpu, 'cpu')):
-        opt = make_optimizer(model, cfg, lr_mult_fn_for(cfg.model.task))
+        opt = make_optimizer(model, cfg, lr_mult_fn_for(cfg.model.task),
+                             steps_per_epoch=PHASE_EPOCH)
         with Recorder(S, P) as rec, _relu_decisions(follow) as (dec, flips):
             metrics = train_step(model, opt, to_device(req, dev))
         follow = dec
@@ -3032,7 +3133,8 @@ def phase_cont_det3d_train(card, device='cuda', cfg=None):
     cfg = cfg or cont_det3d()
     d = cfg.data
     t0 = time.perf_counter()
-    model, opt = build_train(cfg, device=device)
+    model, opt = build_train(cfg, device=device,
+                             steps_per_epoch=PHASE_EPOCH)
     scan = make_scan(seed=1, n_views=d.n_views_train, hw=tuple(d.image_hw),
                      g=32)
     batch = to_device(scan_to_sweeps(
@@ -3158,7 +3260,8 @@ def phase_cont_occ_train(card, device='cuda', cfg=None):
     d = cfg.data
     resident = torch.cuda.memory_allocated() / 2**30
     t0 = time.perf_counter()
-    model, opt = build_train(cfg, device=device)
+    model, opt = build_train(cfg, device=device,
+                             steps_per_epoch=PHASE_EPOCH)
     scan = make_scan(seed=3, n_views=d.n_views_train, hw=tuple(d.image_hw),
                      g=32)
     batch = to_device(occ_sweeps(scan, cfg, d.n_views_train, 0, train=True),
@@ -3356,23 +3459,6 @@ def main_cont():
     return 0
 
 
-def run_cont():
-    """Runs ``chip_smoke.py --cont`` in a process of its own (a fresh
-    caching allocator and no earlier profiler session; its output joins
-    this one's) and returns what it wrote."""
-    path = os.path.join(OUT_DIR, 'chip_smoke_cont.json')
-    if os.path.exists(path):
-        os.remove(path)
-    torch.cuda.empty_cache()
-    sys.stdout.flush()
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                           '--cont'], timeout=1000)
-    if proc.returncode != 0:
-        raise RuntimeError(f'chip_smoke.py --cont exited {proc.returncode}')
-    with open(path) as f:
-        return json.load(f)
-
-
 def kernel_rows(calls, groups):
     """The kernels line's rows: for each group (suffix, launch totals, its
     paths), the K2 forward, K1, K2 dgrad and K3 rows of its paths. Launches
@@ -3420,6 +3506,530 @@ def kernel_rows(calls, groups):
     return rows
 
 
+# --- the runtime: the train and eval CLIs on an on-disk dataset ([loop]) ---
+
+# the written dataset: train and val scenes, views a scene, gt boxes a scene
+LOOP_SCENES = 4
+LOOP_VIEWS = 50
+LOOP_BOXES = 32
+# the first run's steps: the preset's epoch is 10 (repeat_times 10 over 4
+# scenes at b = 4), so 12 reach past its end and past the profiled steps
+# 6-10; the resumed run's
+LOOP_STEPS = 12
+LOOP_RESUME_STEPS = 3
+# the loop's replays (calls at b = 4): one warm-up call and two timed ones
+LOOP_TIMING = dict(warmup=1, reps=2)
+
+
+def write_dataset(root, n_train=LOOP_SCENES, n_val=LOOP_SCENES,
+                  n_views=LOOP_VIEWS, hw=(480, 480), g=LOOP_BOXES,
+                  num_classes=284):
+    """An on-disk dataset in the reference layout (the structure of
+    tests/conftest.py's fake_data) under ``root``: ``n_train`` and ``n_val``
+    synthetic scans (``data/synthetic.py:make_scan``, seeds 0.. and 100..)
+    of ``n_views`` views, each an RGB jpg and a uint16 depth png in
+    millimetres, its camera-to-global pose and the gt boxes whose centres
+    it sees; the train and val info pkls with ``num_classes`` categories.
+    Returns the seconds it took."""
+    import pickle
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    from embodiedscan_torch.data.synthetic import box_visibility, make_scan
+    t0 = time.perf_counter()
+    jobs = []
+
+    def scene_info(seed, name):
+        scan = make_scan(seed=seed, n_views=n_views, hw=hw, g=g,
+                         num_classes=num_classes)
+        vis = box_visibility(scan, range(n_views), hw)
+        images = []
+        for v, view in enumerate(scan['views']):
+            stem = f'scannet/{name}/{v:05d}'
+            jobs.append((os.path.join(root, stem + '.jpg'), view['rgb']))
+            jobs.append((os.path.join(root, stem + '.png'),
+                         np.round(view['depth'] * 1000).astype(np.uint16)))
+            images.append(dict(
+                img_path=stem + '.jpg', depth_path=stem + '.png',
+                cam2global=np.linalg.inv(view['extrinsic'].astype(
+                    np.float64)),
+                visible_instance_ids=vis[v].tolist()))
+        k = scan['views'][0]['intrinsic']
+        return dict(sample_idx=f'scannet/{name}', axis_align_matrix=np.eye(4),
+                    cam2img=k, depth_cam2img=k, images=images,
+                    instances=[dict(bbox_3d=b.tolist(), bbox_label_3d=int(c))
+                               for b, c in zip(scan['gt_boxes'],
+                                               scan['gt_labels'])])
+
+    meta = dict(categories={f'class{i}': i for i in range(num_classes)})
+    for split, seeds in (('train', range(n_train)),
+                         ('val', range(100, 100 + n_val))):
+        infos = []
+        for seed in seeds:
+            name = f'scene{seed:04d}_00'
+            os.makedirs(os.path.join(root, 'scannet', name), exist_ok=True)
+            infos.append(scene_info(seed, name))
+        with open(os.path.join(root, f'embodiedscan_infos_{split}.pkl'),
+                  'wb') as f:
+            pickle.dump(dict(data_list=infos, metainfo=meta), f)
+
+    def save(job):
+        Image.fromarray(job[1]).save(job[0])
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(save, jobs))
+    return time.perf_counter() - t0
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('localhost', 0))
+        return sock.getsockname()[1]
+
+
+class _Timed:
+    """Wall seconds of every call of ``obj.name`` while active."""
+
+    def __init__(self, obj, name):
+        self.obj, self.name, self.seconds = obj, name, []
+
+    def __enter__(self):
+        fn = self.fn = getattr(self.obj, self.name)
+
+        @functools.wraps(fn)
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.seconds.append(time.perf_counter() - t0)
+
+        setattr(self.obj, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.obj, self.name, self.fn)
+
+
+def trace_busy(path):
+    """(device busy ms, window ms) of a chrome trace written by
+    torch.profiler: the union of its kernel, memcpy and memset intervals,
+    and the span of all its events."""
+    with open(path) as f:
+        events = [e for e in json.load(f)['traceEvents']
+                  if e.get('ph') == 'X' and 'dur' in e]
+    spans = sorted((float(e['ts']), float(e['ts']) + float(e['dur']))
+                   for e in events
+                   if e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset'))
+    busy, end = 0.0, -np.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    lo = min(float(e['ts']) for e in events)
+    hi = max(float(e['ts']) + float(e['dur']) for e in events)
+    return busy / 1e3, (hi - lo) / 1e3
+
+
+def _loop_small_cfg(root):
+    """The small detector of the eval check over the written val scenes:
+    ``_parity_cfg``'s, 4 views of 96x96 and 6000 points a scene."""
+    cfg = _parity_cfg()
+    d = cfg.data
+    d.data_root, d.n_views_test, d.image_hw = root, 4, (96, 96)
+    d.n_points, d.points_per_view = 6000, 1500
+    return cfg
+
+
+def small_eval(root, work, device):
+    """A small checkpoint (``_loop_small_cfg``, class bias 0) in ``work``,
+    evaluated by ``train.loop.evaluate`` on ``device`` and on the cpu over
+    the val scenes of ``root`` with gt boxes added where its cpu detections
+    lie (:func:`add_hit_boxes`): metrics within EVAL_GATE and mAP_0.25 > 0
+    on both. Returns (max|d|, the card's mAP_0.25)."""
+    from embodiedscan_torch.configs.base import build_model
+    from embodiedscan_torch.train import loop as L
+    from embodiedscan_torch.train.checkpoint import CheckpointManager
+    cfg = _loop_small_cfg(root)
+    cfg.work_dir = work
+    model = build_model(cfg, 'cpu')
+    with torch.no_grad():
+        model.bbox_head.conv_cls.bias.zero_()
+    n_hit = add_hit_boxes(cfg, model)
+    CheckpointManager(work).save(0, model)
+    del model
+    out = {dev: L.evaluate(cfg, device=dev) for dev in (device, 'cpu')}
+    worst = _metrics_diff(out[device], out['cpu'], '[loop] small eval')
+    hits = {dev: out[dev]['mAP_0.25'] for dev in out}
+    if not all(v > 0 for v in hits.values()):
+        raise RuntimeError(f'[loop] small eval: no hit (mAP_0.25 {hits})')
+    log(f'[loop] small checkpoint evaluated on {device} and cpu over the '
+        f'val scenes ({n_hit} gt boxes added at its cpu detections): '
+        f'mAP_0.25 {hits[device]:.4f} mAR_0.25 '
+        f'{out[device]["mAR_0.25"]:.4f} mAP_0.50 '
+        f'{out[device]["mAP_0.50"]:.4f}; {len(out["cpu"])} metrics, card '
+        f'vs cpu max|d| {worst} (gate {EVAL_GATE})')
+    return worst, hits[device]
+
+
+def add_hit_boxes(cfg, model, per_scene=8):
+    """Writes ``cfg``'s val split again, as ``embodiedscan_infos_val_hits.pkl``
+    beside it, and points ``cfg`` at it: each scene's gt boxes and, as
+    ``eval_records`` builds its gt, up to ``per_scene`` of the kept
+    detections of ``model`` (on the cpu, over ``cfg``'s val loader) moved
+    by N(0, 5 cm), with their labels; the loader draws the same points
+    again, since the boxes take no draw. Returns the boxes added."""
+    import pickle
+
+    from embodiedscan_torch.train import loop as L
+    d = cfg.data
+    with open(os.path.join(d.data_root, d.val_ann_file), 'rb') as f:
+        val = pickle.load(f)
+    rng = np.random.RandomState(300)
+    added = 0
+    model.eval()
+    with torch.no_grad():
+        for info, batch in zip(val['data_list'],
+                               L.make_dataset(cfg, train=False)):
+            preds = model(to_device(batch, 'cpu'), mode='predict')
+            keep = preds['mask'][0].numpy()
+            boxes = preds['bboxes'][0].numpy()[keep][:per_scene]
+            labels = preds['labels'][0].numpy()[keep][:per_scene]
+            boxes = boxes + rng.normal(0, 0.05, boxes.shape)
+            info['instances'] = info['instances'] + [
+                dict(bbox_3d=b.tolist(), bbox_label_3d=int(c))
+                for b, c in zip(boxes, labels)]
+            added += len(boxes)
+    d.val_ann_file = 'embodiedscan_infos_val_hits.pkl'
+    with open(os.path.join(d.data_root, d.val_ann_file), 'wb') as f:
+        pickle.dump(val, f)
+    return added
+
+
+def _metrics_diff(a, b, what):
+    """max|a - b| over two metric dicts (card and cpu) with the same keys,
+    strings equal; raises past EVAL_GATE."""
+    if set(a) != set(b):
+        raise RuntimeError(f'{what}: metric keys differ')
+    worst = 0.0
+    for k in a:
+        if isinstance(a[k], str):
+            if a[k] != b[k]:
+                raise RuntimeError(f'{what}: {k} differs')
+        else:
+            worst = max(worst, abs(float(a[k]) - float(b[k])))
+    if not worst <= EVAL_GATE:
+        raise RuntimeError(f'{what}: card and cpu metrics differ by {worst}')
+    return worst
+
+
+def _loop_cfg(root, overrides=()):
+    """The [loop] phase's train overrides and config: the mv_det3d preset
+    over the written dataset, every step logged, ``overrides`` (a
+    rehearsal's small sizes)."""
+    from embodiedscan_torch.configs.base import PRESETS, apply_overrides
+    over = [f'data.data_root={root}', 'log_interval=1', *overrides]
+    cfg = apply_overrides(PRESETS['mv_det3d'](), over)
+    return over, cfg
+
+
+def loop_step(cfg, device='cuda'):
+    """One loop step outside the loop, in the process group already
+    joined: ``build_train`` of ``cfg`` with its loader's epoch, the
+    loader's first batch through ``train_step`` (recorded for the
+    replays), three timed steps, the gradients' all-reduce alone
+    (``pmean_`` of the step's gradients, three times), then the loader
+    alone. Returns (recorder on the host, stats)."""
+    from embodiedscan_torch.configs.base import build_train
+    from embodiedscan_torch.data.loader import to_device
+    from embodiedscan_torch.ops import pscan as P
+    from embodiedscan_torch.ops import sparse as S
+    from embodiedscan_torch.train import loop as L
+    from embodiedscan_torch.parallel.multihost import pmean_
+    from embodiedscan_torch.train.state import train_step
+    loader = L.make_dataset(cfg)
+    t0 = time.perf_counter()
+    model, opt = build_train(cfg, device=device,
+                             steps_per_epoch=loader.steps_per_epoch)
+    build_s = time.perf_counter() - t0
+    it = iter(loader)
+    batch = to_device(next(it), device)
+    with Recorder(S, P) as rec:
+        train_step(model, opt, batch)
+        if device == 'cuda':
+            torch.cuda.synchronize()
+    rec.to_host()
+    bare_ms, pmean_ms = [], []
+    for _ in range(3):
+        if device == 'cuda':
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = train_step(model, opt, batch)
+        float(metrics['loss_total'])
+        bare_ms.append((time.perf_counter() - t0) * 1e3)
+    grads = [p.grad for g in opt.param_groups for p in g['params']]
+    grad_mb = sum(t.numel() * t.element_size() for t in grads) / 1e6
+    for _ in range(3):
+        if device == 'cuda':
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pmean_(grads)
+        if device == 'cuda':
+            torch.cuda.synchronize()
+        pmean_ms.append((time.perf_counter() - t0) * 1e3)
+    del model, opt, batch, metrics, grads
+    if device == 'cuda':
+        torch.cuda.empty_cache()
+    # the prefetch queue's batches first, then the pipeline's own pace
+    d = cfg.data
+    load_ms = []
+    for _ in range(d.prefetch_depth + 5):
+        t0 = time.perf_counter()
+        next(it)
+        load_ms.append((time.perf_counter() - t0) * 1e3)
+    del it, loader
+    log(f'[loop] one loop batch (b={d.batch_size}) through a bare '
+        f'train_step (model built in {build_s:.1f} s): ms '
+        f'{[round(t, 1) for t in bare_ms]}; the gradients\' all-reduce '
+        f'alone ({grad_mb:.1f} MB, one rank): ms '
+        f'{[round(t, 2) for t in pmean_ms]}; {len(rec.conv)} conv, '
+        f'{len(rec.dgrad)} dgrad, {len(rec.wgrad)} wgrad and '
+        f'{len(rec.scan)} join-scan calls recorded; the loader alone '
+        f'(prefetch {d.prefetch_depth}, {d.num_workers} workers) ms per '
+        f'batch {[round(t, 1) for t in load_ms]} (median of the last 4 '
+        f'{np.median(load_ms[-4:]):.1f})')
+    return rec, dict(bare_step_ms=bare_ms, grad_pmean_ms=pmean_ms,
+                     grad_mb=grad_mb,
+                     build_s=build_s, loader_ms=load_ms)
+
+
+def phase_loop(card, root, work, device='cuda', overrides=(),
+               n_val=LOOP_SCENES):
+    """[loop]: the port's CLIs on the dataset at ``root``:
+    ``tools.train.main`` for the mv_det3d preset as shipped (b = 4, 20
+    views of 480x480, 100k points, 284 classes; ``overrides`` for a
+    rehearsal at a small size) in the process group already joined,
+    ``LOOP_STEPS`` steps past the first epoch's end with steps 6-10
+    profiled, then ``--resume auto`` for ``LOOP_RESUME_STEPS`` more;
+    wrapper calls per step against EXPECTED_TRAIN_LAUNCHES;
+    ``tools.test.main`` from the last checkpoint over the ``n_val`` val
+    scenes (50 views, b = 1); :func:`small_eval`. Returns (launch totals
+    of the CLI runs, stats)."""
+    import logging
+
+    from embodiedscan_torch.ops import pscan as P
+    from embodiedscan_torch.ops import sparse as S
+    from embodiedscan_torch.tools import test as test_cli
+    from embodiedscan_torch.tools import train as train_cli
+    from embodiedscan_torch.train import loop as L
+    from embodiedscan_torch.train.checkpoint import CheckpointManager
+    lines = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    keep = Keep()
+    logging.getLogger('embodiedscan_torch').addHandler(keep)
+    try:
+        prof_dir = os.path.join(work, 'profile')
+        over, cfg = _loop_cfg(root, overrides)
+        common = ['mv_det3d', *over, '--work-dir', work, '--device', device]
+        d = cfg.data
+        # the first run, then the resumed one
+        with _Timed(CheckpointManager, 'save') as saves, \
+                _Timed(CheckpointManager, 'restore') as restores:
+            if device == 'cuda':
+                torch.cuda.reset_peak_memory_stats()
+            reset_counts(S, P)
+            t0 = time.perf_counter()
+            model, opt = train_cli.main(
+                [common[0], f'profile_dir={prof_dir}', *common[1:],
+                 '--multihost', '--max-steps', str(LOOP_STEPS)])
+            if device == 'cuda':
+                torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**30 \
+                if device == 'cuda' else 0.0
+            counts = read_counts(S, P)
+            steps_per_epoch = L.make_dataset(cfg).steps_per_epoch
+            del model, opt
+            reset_counts(S, P)
+            t0 = time.perf_counter()
+            model, opt = train_cli.main(
+                common + ['--multihost', '--max-steps',
+                          str(LOOP_RESUME_STEPS), '--resume', 'auto'])
+            resume_run_s = time.perf_counter() - t0
+            counts2 = read_counts(S, P)
+        steps = LOOP_STEPS + LOOP_RESUME_STEPS
+        totals = {k: counts[k] + counts2[k] for k in counts}
+        for name, per in EXPECTED_TRAIN_LAUNCHES.items():
+            if counts[name] != per * LOOP_STEPS or \
+                    counts2[name] != per * LOOP_RESUME_STEPS:
+                raise RuntimeError(
+                    f'[loop] {name}: {counts[name]} calls in '
+                    f'{LOOP_STEPS} steps and {counts2[name]} in '
+                    f'{LOOP_RESUME_STEPS}; {per} a step expected ([train])')
+        step_lines = [ln for ln in lines if ln.startswith('step ')]
+        sec_it = [float(ln.split()[2][:-4]) for ln in step_lines]
+        if len(sec_it) != steps:
+            raise RuntimeError(f'[loop] {len(sec_it)} step lines: '
+                               f'{step_lines}')
+        resumed = [ln for ln in lines if ln.startswith('resumed from step')]
+        if resumed != [f'resumed from step {LOOP_STEPS}']:
+            raise RuntimeError(f'[loop] resume: {resumed}')
+        ckpts = CheckpointManager(work).steps()
+        want = [steps_per_epoch, LOOP_STEPS, steps]
+        if ckpts != want:
+            raise RuntimeError(f'[loop] checkpoints {ckpts}, expected {want}')
+        ckpt_mb = os.path.getsize(os.path.join(
+            work, 'checkpoints', f'{steps}.pt')) / 1e6
+        count, lr = opt.param_groups[0]['count'], opt.param_groups[0]['lr']
+        if count != steps:
+            raise RuntimeError(f'[loop] optimizer count {count} after the '
+                               f'resume, expected {steps}')
+        del model, opt
+        with open(os.path.join(work, 'scalars.jsonl')) as f:
+            rows = [json.loads(ln) for ln in f]
+        if [r['step'] for r in rows] != list(range(1, steps + 1)) or not all(
+                np.isfinite(v) for r in rows for v in r.values()):
+            raise RuntimeError('[loop] scalars.jsonl: steps or values wrong')
+        busy_ms, window_ms = trace_busy(os.path.join(prof_dir,
+                                                     'trace_rank0.json'))
+        if device == 'cuda' and not busy_ms > 0:
+            raise RuntimeError('[loop] the profiled steps show no device '
+                               'time')
+        # outside the first run's warm-up step, its profiled steps 6-10 and
+        # step 11 (its time holds the trace's export and the epoch's
+        # checkpoint)
+        loop_ms = float(np.median(sec_it[1:5] + sec_it[11:])) * 1e3
+        log(f'[loop] train: {LOOP_STEPS} steps in {run_s:.1f} s (epoch '
+            f'{steps_per_epoch} steps), resumed for {LOOP_RESUME_STEPS} in '
+            f'{resume_run_s:.1f} s; sec/it from the loop\'s log {sec_it} '
+            f'(median {loop_ms:.1f} ms outside steps 1 and 6-11); peak '
+            f'{peak:.3f} GiB at b={d.batch_size}; wrapper calls per step '
+            f'{({k: v // steps for k, v in totals.items()})} = [train]\'s; '
+            f'checkpoints at steps {ckpts}, {ckpt_mb:.1f} MB, save s '
+            f'{[round(t, 3) for t in saves.seconds]}, restore s '
+            f'{[round(t, 3) for t in restores.seconds]}; after the resume: '
+            f'optimizer count {count}, lr {lr}; profiled steps 6-10: device '
+            f'busy {busy_ms:.1f} of {window_ms:.1f} ms (idle share '
+            f'{1 - busy_ms / window_ms:.3f}); {card}')
+        # eval from the last checkpoint over the val scenes
+        if device == 'cuda':
+            torch.cuda.empty_cache()
+        with _Timed(CheckpointManager, 'restore') as restored:
+            t0 = time.perf_counter()
+            metrics = test_cli.main(common)
+            eval_s = time.perf_counter() - t0
+        keys = sorted(k for k in metrics if not isinstance(metrics[k], str))
+        if not keys or not all(np.isfinite(metrics[k]) for k in keys):
+            raise RuntimeError(f'[loop] eval metrics: {metrics}')
+        log(f'[loop] eval (tools.test, {d.n_views_test} views, b=1) over '
+            f'{n_val} val scenes in {eval_s:.1f} s '
+            f'({(eval_s - sum(restored.seconds)) / n_val:.2f} s a scene, '
+            f'the model\'s build included; restore '
+            f'{sum(restored.seconds):.2f} s); {len(keys)} metrics, keys '
+            f'{keys[:6]}...; mAP_0.25 {metrics.get("mAP_0.25")}')
+        worst, map25 = small_eval(root, os.path.join(work, 'small'), device)
+        return totals, dict(
+            run_s=run_s, resume_run_s=resume_run_s, sec_per_iter=sec_it,
+            loop_ms=loop_ms, peak_gib=peak, steps_per_epoch=steps_per_epoch,
+            counts_first=counts, counts_resumed=counts2, checkpoints=ckpts,
+            ckpt_mb=ckpt_mb, save_s=saves.seconds,
+            restore_s=restores.seconds, count_after_resume=count,
+            lr_after_resume=lr, profiled_busy_ms=busy_ms,
+            profiled_window_ms=window_ms, eval_s=eval_s,
+            eval_metrics={k: metrics[k] for k in keys},
+            small_eval_max_abs_diff=worst, small_eval_map_25=map25)
+    finally:
+        logging.getLogger('embodiedscan_torch').removeHandler(keep)
+
+
+def main_loop():
+    """``chip_smoke.py --loop``: the dataset written, a one-rank NCCL process group joined, one loop step
+    recorded and timed alone (:func:`loop_step`), the replays of its K1, K2
+    and K3 calls (before any profiler session of this process), then
+    :func:`phase_loop`; writes the kernel rows (group ``(loop)``) and the
+    numbers to chiprun_out/chip_smoke_loop.json for the parent run's
+    kernels line."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from embodiedscan_torch.ops import kernels
+    from embodiedscan_torch.parallel.multihost import init_distributed
+    card = card_name()
+    kernels.library()
+    torch.manual_seed(0)
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_loop_')
+    try:
+        root, work = os.path.join(tmp, 'data'), os.path.join(tmp, 'work')
+        t0 = time.perf_counter()
+        write_dataset(root)
+        took = dict(dataset=time.perf_counter() - t0)
+        _, cfg = _loop_cfg(root)
+        d = cfg.data
+        log(f'[loop] dataset: written in {took["dataset"]:.1f} s ({LOOP_SCENES} train and {LOOP_SCENES}'
+            f' val scenes of {LOOP_VIEWS} views of 480x480); mv_det3d '
+            f'b={d.batch_size}, {d.n_views_train} views of '
+            f'{d.image_hw[0]}x{d.image_hw[1]}, {d.n_points} points, '
+            f'{cfg.model.num_classes} classes; {card}')
+        os.environ.update(RANK='0', WORLD_SIZE='1', LOCAL_RANK='0',
+                          MASTER_ADDR='localhost',
+                          MASTER_PORT=str(_free_port()))
+        init_distributed('cuda')
+        t0 = time.perf_counter()
+        rec, stats = loop_step(cfg)
+        took['step'] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        calls = phase_kernels([('loop', rec)], [('loop', rec)], 'cuda',
+                              LOOP_TIMING)
+        took['replays'] = time.perf_counter() - t0
+        del rec
+        t0 = time.perf_counter()
+        totals, loop_stats = phase_loop(card, root, work)
+        took['cli'] = time.perf_counter() - t0
+        stats.update(loop_stats)
+        log(f'[loop] the loop\'s median {stats["loop_ms"]:.1f} ms/it against '
+            f'the bare step\'s best {min(stats["bare_step_ms"]):.1f} ms: '
+            f'loop overhead {stats["loop_ms"] - min(stats["bare_step_ms"]):.1f}'
+            f' ms a step')
+        dist.destroy_process_group()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log('[loop] seconds per part: ' + ', '.join(
+        f'{k} {v:.1f}' for k, v in took.items()))
+    stats.update(seconds=took)
+    rows = kernel_rows(calls, ((' (loop)', totals, ('loop', )), ))
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, 'chip_smoke_loop.json'), 'w') as f:
+        json.dump(dict(card=card, rows=rows, stats=stats, calls=calls), f,
+                  indent=1, default=float)
+    return 0
+
+
+def run_child(flag):
+    """Runs ``chip_smoke.py <flag>`` in a process of its own (a fresh
+    caching allocator and no earlier profiler session; its output joins
+    this one's) and returns what it wrote to
+    chiprun_out/chip_smoke_<flag>.json."""
+    path = os.path.join(OUT_DIR, f'chip_smoke_{flag.lstrip("-")}.json')
+    if os.path.exists(path):
+        os.remove(path)
+    torch.cuda.empty_cache()
+    sys.stdout.flush()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), flag],
+                          timeout=1000)
+    if proc.returncode != 0:
+        raise RuntimeError(f'chip_smoke.py {flag} exited {proc.returncode}')
+    with open(path) as f:
+        return json.load(f)
+
+
 DET_PATHS = ('det', 'grounding', 'train', 'ground_train')
 OCC_PATHS = ('occ', 'occ_train')
 
@@ -3430,6 +4040,8 @@ def main():
         return 2
     if sys.argv[1:] == ['--cont']:
         return main_cont()
+    if sys.argv[1:] == ['--loop']:
+        return main_loop()
     t_start = time.perf_counter()
     card = phase_build()
     if sys.argv[1:] == ['--kernels-only']:
@@ -3504,7 +4116,8 @@ def main():
     phase_ground_train_parity('cuda')
     phase_occ_parity('cuda')
     phase_occ_train_parity('cuda')
-    cont = run_cont()
+    cont = run_child('--cont')
+    loop = run_child('--loop')
     log(f'[done] {time.perf_counter() - t_start:.1f} s')
     for name, n in ground_totals.items():
         totals[name] += n
@@ -3517,7 +4130,7 @@ def main():
         occ_totals[name] += n
     rows = kernel_rows(calls, (('', totals, DET_PATHS),
                                (' (occ)', occ_totals, OCC_PATHS)))
-    print(json.dumps({'kernels': rows + cont['rows']}))
+    print(json.dumps({'kernels': rows + cont['rows'] + loop['rows']}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

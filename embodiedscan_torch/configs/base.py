@@ -72,14 +72,21 @@ class DataConfig:
 
 @dataclasses.dataclass
 class ScheduleConfig:
-    """AdamW + global-norm clip + MultiStepLR
-    (configs/detection/mv-det3d...py:215-231); an epoch is
-    ``steps_per_epoch`` updates."""
+    """AdamW + global-norm clip + MultiStepLR over epochs
+    (configs/detection/mv-det3d...py:215-231). An epoch's length is the
+    train loader's ``steps_per_epoch``, which ``train.loop.train`` passes
+    to ``train.state.make_optimizer``."""
+    max_epochs: int = 12
     lr: float = 1e-3
     weight_decay: float = 1e-4
     clip_norm: float = 10.0
     milestones: Sequence[int] = (8, 11)
-    steps_per_epoch: int = 1000
+    gamma: float = 0.1
+    val_interval: int = 1
+    # the global batch the preset's lr was tuned at (8 GPUs x the per-GPU
+    # batch of the 8xbN config name): the --auto-scale-lr denominator
+    # (reference tools/train.py:98-109, mmengine auto_scale_lr)
+    base_batch_size: int = 32
 
 
 @dataclasses.dataclass
@@ -142,12 +149,29 @@ class Config:
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     schedule: ScheduleConfig = dataclasses.field(
         default_factory=ScheduleConfig)
+    work_dir: str = 'work_dirs/default'
     seed: int = 0
+    log_interval: int = 50
+    # scalar-curve backends: 'jsonl' appends work_dir/scalars.jsonl; add
+    # 'tensorboard' (log_backends=jsonl,tensorboard) for event files in
+    # work_dir/tb
+    log_backends: Sequence[str] = ('jsonl', )
+    resume: str = ''  # '', 'auto' (the latest checkpoint), or a step
+    # the reference package's device count (0 = all); here one process
+    # drives one card, so the count is the torch.distributed world size
+    n_devices: int = 0
+    profile_dir: str = ''  # if set, a torch.profiler trace of steps 5-10
+    # evaluate() exports a scene PLY with the score-filtered predicted
+    # boxes every vis_interval scenes into vis_dir (when set)
+    vis_dir: str = ''
+    vis_interval: int = 50
+    vis_score_thr: float = 0.15
 
 
 def mv_det3d() -> Config:
     """configs/detection/mv-det3d_8xb4_embodiedscan-3d-284class-9dof.py."""
     cfg = Config()
+    cfg.work_dir = 'work_dirs/mv_det3d'
     cfg.data.repeat_times = 10
     return cfg
 
@@ -160,6 +184,8 @@ def cont_det3d() -> Config:
     cfg.model.task = 'cont_det3d'
     cfg.data.batch_size = 1
     cfg.data.n_views_train = 10
+    cfg.schedule.base_batch_size = 8  # 8xb1
+    cfg.work_dir = 'work_dirs/cont_det3d'
     return cfg
 
 
@@ -174,6 +200,8 @@ def mv_grounding() -> Config:
     cfg.data.vg_file = 'embodiedscan_train_vg.json'
     cfg.schedule.lr = 5e-4
     cfg.schedule.weight_decay = 5e-4
+    cfg.schedule.base_batch_size = 96  # 8xb12
+    cfg.work_dir = 'work_dirs/mv_grounding'
     return cfg
 
 
@@ -182,6 +210,7 @@ def mv_grounding_mini() -> Config:
     the 20%-data warm-up variant."""
     cfg = mv_grounding()
     cfg.data.vg_file = 'embodiedscan_train_mini_vg.json'
+    cfg.work_dir = 'work_dirs/mv_grounding_mini'
     return cfg
 
 
@@ -189,18 +218,22 @@ def mv_grounding_complex() -> Config:
     """The mv-grounding complex-all variant: adds the complex prompts."""
     cfg = mv_grounding()
     cfg.data.vg_file = 'embodiedscan_train_vg_complex_all.json'
+    cfg.work_dir = 'work_dirs/mv_grounding_complex'
     return cfg
 
 
 def mv_occ() -> Config:
     """configs/occupancy/mv-occ_8xb1_embodiedscan-occ-80class.py (10 train
-    and 20 test views, the 24-epoch schedule's milestones)."""
+    and 20 test views, the 24-epoch schedule)."""
     cfg = Config()
     cfg.model.task = 'mv_occ'
     cfg.data.batch_size = 1
     cfg.data.n_views_train = 10
     cfg.data.n_views_test = 20
+    cfg.schedule.max_epochs = 24
     cfg.schedule.milestones = (16, 22)
+    cfg.schedule.base_batch_size = 8  # 8xb1
+    cfg.work_dir = 'work_dirs/mv_occ'
     return cfg
 
 
@@ -212,6 +245,7 @@ def cont_occ() -> Config:
     cfg = mv_occ()
     cfg.model.task = 'cont_occ'
     cfg.model.occ_neck_bf16 = True
+    cfg.work_dir = 'work_dirs/cont_occ'
     return cfg
 
 
@@ -291,12 +325,14 @@ def build_model(cfg: Config, device='cuda', img_dtype=torch.float32,
     return model.to(device).eval()
 
 
-def build_train(cfg: Config, device='cuda'):
+def build_train(cfg: Config, device='cuda', *, steps_per_epoch: int):
     """(model in training mode, its optimizer): :func:`build_model`, then
     ``train.state.make_optimizer`` with the task's lr multipliers
     (``train.loop.lr_mult_fn_for``), which freeze the 2D stem and first
-    stage of every task, and the grounder's text encoder."""
+    stage of every task, and the grounder's text encoder; an epoch of the
+    schedule is ``steps_per_epoch`` updates."""
     from ..train.loop import lr_mult_fn_for
     from ..train.state import make_optimizer
     model = build_model(cfg, device=device).train()
-    return model, make_optimizer(model, cfg, lr_mult_fn_for(cfg.model.task))
+    return model, make_optimizer(model, cfg, lr_mult_fn_for(cfg.model.task),
+                                 steps_per_epoch=steps_per_epoch)

@@ -6,6 +6,7 @@ sampled (one flat row gather for all (scan, sweep, view, point) tuples) and
 the samples are averaged over the views that see the point.
 """
 
+import numpy as np
 import torch
 
 from ..geometry.projection import _pad_to_4x4
@@ -17,6 +18,11 @@ from ..ops.segment import gather_rows
 # chunk of sweeps at a time, with the same values (each sweep's mean is
 # its own)
 MAX_SAMPLES = 2**28
+
+
+def _pixel_scale(pad: int, size: int) -> float:
+    """float32 (size - 1) * f32(1 / pad), as a Python float."""
+    return float(np.float32(size - 1) * (np.float32(1.0) / np.float32(pad)))
 
 
 def point_image_sample_batched(points: torch.Tensor, point_mask: torch.Tensor,
@@ -57,8 +63,14 @@ def point_image_sample_batched(points: torch.Tensor, point_mask: torch.Tensor,
     if view_mask is not None:
         valid = valid & view_mask[:, :, :, None]
 
-    xf = coor_x / w_pad * (wf - 1)
-    yf = coor_y / h_pad * (hf - 1)
+    # the pixel mapping of grid_sample(align_corners=True), u / W_pad *
+    # (Wf - 1), as XLA computes the jitted reference's: one product with
+    # the float32 constant (Wf - 1) * f32(1 / W_pad) (the division by a
+    # constant becomes a product with its reciprocal, and the two constant
+    # factors fold); a point within an ulp of a pixel centre or half-pixel
+    # then rounds as there
+    xf = coor_x * _pixel_scale(w_pad, wf)
+    yf = coor_y * _pixel_scale(h_pad, hf)
 
     flat = img_feats.reshape(bi * v * hf * wf, c)
     vbase = (torch.arange(bi * v, dtype=torch.int64, device=points.device) *

@@ -49,8 +49,10 @@ def main(argv=None):
         cfg, load_torch_checkpoint(args.checkpoint), flip=args.flip,
         device=args.device)
     # what a resumed run's optimizer loads: the task's parameter groups,
-    # no moments
-    opt = make_optimizer(model, cfg, lr_mult_fn_for(cfg.model.task))
+    # no moments (the schedule is not saved: the run that resumes rebuilds
+    # it with its loader's epoch)
+    opt = make_optimizer(model, cfg, lr_mult_fn_for(cfg.model.task),
+                         steps_per_epoch=1)
     CheckpointManager(args.work_dir).save(0, model, opt)
     print(f'loaded {n} tensors from {args.checkpoint}')
     if skipped:

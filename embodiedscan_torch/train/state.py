@@ -1,6 +1,8 @@
 """Optimizer, learning-rate schedule and the train step (port of
 ``embodiedscan_tpu/train/state.py``: ``multistep_lr``, ``make_optimizer``
-with its per-parameter lr multipliers, ``make_train_step``).
+with its per-parameter lr multipliers, ``make_train_step`` and, over
+``torch.distributed``, ``make_train_step_sharded``, both in
+``train_step``).
 
 The reference chains optax's ``clip_by_global_norm(10)`` and ``adamw(lr,
 weight_decay=1e-4)`` under a step schedule; here one ``torch.optim.AdamW``
@@ -90,10 +92,11 @@ class ClippedAdamW(torch.optim.AdamW):
 
 
 def make_optimizer(model: nn.Module, cfg,
-                   lr_mult_fn: Callable[[tuple], float] | None = None
-                   ) -> ClippedAdamW:
+                   lr_mult_fn: Callable[[tuple], float] | None = None, *,
+                   steps_per_epoch: int) -> ClippedAdamW:
     """The optimizer of ``cfg.schedule`` over the parameters of ``model``;
-    an epoch is ``cfg.schedule.steps_per_epoch`` updates.
+    an epoch is ``steps_per_epoch`` updates (``train.loop.train`` passes
+    its loader's, as the reference's ``train()`` does).
 
     ``lr_mult_fn`` (``train.loop.lr_mult_fn_for``) maps a parameter's name,
     split at the dots, to its multiplier: one parameter group per distinct
@@ -114,8 +117,8 @@ def make_optimizer(model: nn.Module, cfg,
                 by_mult.setdefault(mult, []).append(p)
         groups = [dict(params=ps, lr_mult=m) for m, ps in by_mult.items()]
     return ClippedAdamW(groups,
-                        multistep_lr(sc.lr, sc.steps_per_epoch,
-                                     sc.milestones),
+                        multistep_lr(sc.lr, steps_per_epoch, sc.milestones,
+                                     sc.gamma),
                         weight_decay=sc.weight_decay, clip_norm=sc.clip_norm)
 
 
@@ -123,10 +126,32 @@ def train_step(model: nn.Module, optimizer: ClippedAdamW,
                batch: dict) -> dict:
     """One update: zero the gradients, ``model(batch, mode='loss')``, sum
     the losses, backward, clip, AdamW. Returns the losses and
-    ``loss_total`` (detached tensors on the model's device)."""
+    ``loss_total`` (detached tensors on the model's device).
+
+    In a ``torch.distributed`` group each process computes its loss on its
+    own batch rows with its own normalizers, as the reference's
+    ``make_train_step_sharded``, then takes the mean over the processes
+    (``parallel.multihost.pmean_``, one flat all-reduce each; nothing
+    outside a group) of the gradients, before the clip and AdamW, which
+    every process then applies alike; of the norms' running statistics,
+    after the update; and of the losses returned. A parameter of the
+    optimizer that the loss does not reach counts as a zero gradient on
+    every process; frozen parameters are outside the optimizer and the
+    reduction."""
+    from ..parallel.multihost import pmean_
     optimizer.zero_grad(set_to_none=True)
     losses = model(batch, mode='loss')
     total = sum(losses.values())
     total.backward()
+    params = [p for g in optimizer.param_groups for p in g['params']]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    pmean_([p.grad for p in params])
     optimizer.step()
-    return {k: v.detach() for k, v in dict(losses, loss_total=total).items()}
+    with torch.no_grad():
+        pmean_([b for b in model.buffers() if b.is_floating_point()])
+    metrics = dict(losses, loss_total=total)
+    vals = torch.stack([v.detach() for v in metrics.values()])
+    pmean_([vals])
+    return dict(zip(metrics, vals.unbind()))

@@ -172,7 +172,7 @@ def train(S, P):
     from embodiedscan_torch.train.state import train_step
     cfg = mv_det3d()
     torch.manual_seed(0)
-    model, opt = build_train(cfg, device='cuda')
+    model, opt = build_train(cfg, device='cuda', steps_per_epoch=1)
     d = cfg.data
     batch = cs.to_device(cs.make_batch(1, d.n_points, d.n_views_train,
                                        d.image_hw[0], cs.N_GT,

@@ -60,7 +60,7 @@ def _tiny_train(seed):
     with torch.no_grad():
         for p in model.parameters():
             p.add_(torch.randn_like(p) * 0.01)
-    return model, make_optimizer(model, mv_det3d())
+    return model, make_optimizer(model, mv_det3d(), steps_per_epoch=1)
 
 
 def test_round_trip_after_a_step(tmp_path):
@@ -143,7 +143,8 @@ def test_cli_equals_direct_load(tmp_path):
     # a resumed run's optimizer (the task's parameter groups) takes the
     # saved one, which holds no moments
     resumed = build_model(cfg, device='cpu')
-    opt = make_optimizer(resumed, cfg, lr_mult_fn_for('mv_det3d'))
+    opt = make_optimizer(resumed, cfg, lr_mult_fn_for('mv_det3d'),
+                         steps_per_epoch=1)
     assert mgr.restore(resumed, opt) == 0
     assert opt.state_dict()['state'] == {}
     assert [g['count'] for g in opt.param_groups] == [0]

@@ -207,7 +207,7 @@ def test_cont_det3d_build_train_step(det_outputs):
     for key, val in DET.items():
         if hasattr(cfg.model, key):
             setattr(cfg.model, key, val)
-    model, opt = tcfg.build_train(cfg, device='cpu')
+    model, opt = tcfg.build_train(cfg, device='cpu', steps_per_epoch=1)
     assert isinstance(model, TDet) and model.training
     metrics = tT.train_step(model, opt, det_outputs['batch'])
     assert all(np.isfinite(float(v)) for v in metrics.values())

@@ -274,7 +274,7 @@ def test_build_train_grounding_step():
             cfg.data.max_boxes) == (5e-4, 5e-4, 64)
     for key, val in TINY.items():
         setattr(cfg.model, key, val)
-    model, opt = build_train(cfg, device='cpu')
+    model, opt = build_train(cfg, device='cpu', steps_per_epoch=1)
     assert model.training and len(opt.param_groups) == 2
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     tb = to_torch(ground_batch())

@@ -135,3 +135,156 @@ def occ_batch(b=2, p=1024, v=2, hw=64, n_voxels=(8, 8, 4), num_classes=5,
         gt_occ_mask=rng.uniform(size=(b, m)) > 0.1,
         visible_mask=rng.uniform(size=(b, *n_voxels)) > 0.2,
     )
+
+
+# the tiny detector of the runtime tests (test_torch_loop.py,
+# test_torch_dist.py): the shipped depths' smallest (18), 5 classes,
+# capacities for ~1000 points at 0.02 m
+TINY_DET = dict(num_classes=5, voxel_size=0.02, input_capacity=1024,
+                backbone_capacities=(1024, 512, 512, 256, 128, 64),
+                fpn_capacities=(256, 128, 64, 32), max_dets=16, nms_pre=32,
+                max_candidates=32, resnet_depth=18, mink_depth=18)
+
+
+def disk_cfg(base, data_root, **data):
+    """``base.mv_det3d()`` (``base``: either package's ``configs.base``) at
+    the tiny detector's sizes over the ``fake_data`` scenes: one scene a
+    train step, 2 train and 4 eval views of 32 x 32, 1000 points, the numpy
+    host pipeline, no worker threads or prefetch; ``data`` overrides."""
+    cfg = base.mv_det3d()
+    for key, val in TINY_DET.items():
+        setattr(cfg.model, key, val)
+    d = cfg.data
+    d.data_root, d.batch_size, d.repeat_times = data_root, 1, 1
+    d.n_views_train, d.n_views_test, d.image_hw = 2, 4, (32, 32)
+    d.n_points, d.points_per_view, d.max_boxes = 1000, 300, 4
+    d.native_pipeline, d.num_workers, d.prefetch_depth = 'numpy', 1, 0
+    for key, val in data.items():
+        setattr(d, key, val)
+    return cfg
+
+
+def _copy(tree):
+    if isinstance(tree, dict):
+        return {k: _copy(v) for k, v in tree.items()}
+    return np.array(tree, copy=True)
+
+
+# a ReLU input within float32 rounding of 0 may fall on either side in
+# either package (ROADMAP C.4); where the port's decision differs from the
+# reference's, its input must be within RELU_TIE x max|input| of 0
+RELU_TIE = 1e-5
+
+
+@contextlib.contextmanager
+def follow_relu(decisions):
+    """While active, call k of ``F.relu`` returns ``x * decisions[k]``:
+    the reference's decisions (``x > 0``, from ``jax_relu_decisions``; 4-D
+    ones NHWC, as the reference's images, and NCHW here) on the port's
+    values, the same values and gradients wherever the two packages agree.
+    Raises where they differ off a tie (RELU_TIE); yields the (call,
+    count, worst |x| / max|x|) of each call whose decisions were taken."""
+    from torch.nn import functional
+    relu, calls, flips = functional.relu, [0], []
+
+    def patched(x, inplace=False):
+        k = calls[0]
+        calls[0] += 1
+        want = torch.from_numpy(np.asarray(decisions[k]))
+        if want.dim() == 4:
+            want = want.permute(0, 3, 1, 2)
+        want = want.reshape(x.shape)
+        diff = want != (x > 0)
+        if diff.any():
+            size = x.detach().abs()
+            worst = float(size[diff].max()) / max(float(size.max()), 1e-30)
+            if not worst <= RELU_TIE:
+                raise RuntimeError(f'relu call {k}: {int(diff.sum())} '
+                                   f'decisions differ, |x| up to {worst:.3g} '
+                                   f'x max|x|')
+            flips.append((k, int(diff.sum()), worst))
+        return x * want.to(x.dtype)
+
+    functional.relu = patched
+    try:
+        yield flips
+    finally:
+        functional.relu = relu
+    if calls[0] != len(decisions):
+        raise RuntimeError(f'{calls[0]} relu calls, the reference made '
+                           f'{len(decisions)}')
+
+
+def dist_worker(rank, world, init_method, job_path):
+    """One gloo rank of the two-process tests (``torch.multiprocessing``;
+    importable without JAX). ``job_path`` holds a pickled dict: ``'kind'``
+    'step' (the tiny detector from ``'variables'``, the task's optimizer
+    with ``'steps_per_epoch'``, one ``train_step`` on row ``rank``
+    of ``'batch'`` with its ReLUs taking the reference's decisions
+    ``'relu'[rank]`` (:func:`follow_relu`), recording the averaged
+    gradients AdamW receives) or
+    'eval' (``evaluate`` of the seeded model of
+    ``'cfg'`` over this rank's shard); rank 0 writes its result to
+    ``job_path + '.out'``."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from embodiedscan_torch.configs.base import build_model
+    from embodiedscan_torch.models.detector import SparseFusionDetector
+    from embodiedscan_torch.parallel.mesh import replicate
+    from embodiedscan_torch.parallel.multihost import (gather_objects,
+                                                       init_distributed)
+    from embodiedscan_torch.train.loop import evaluate, lr_mult_fn_for
+    from embodiedscan_torch.train.state import make_optimizer, train_step
+    from embodiedscan_torch.utils.convert_weights import (export_jax_tree,
+                                                          load_jax_variables)
+    with open(job_path, 'rb') as f:
+        job = pickle.load(f)
+    assert init_distributed('cpu', init_method, world, rank)
+    try:
+        if job['kind'] == 'step':
+            model = SparseFusionDetector(**TINY_DET).train()
+            params, stats = job['variables']
+            load_jax_variables(model, params, stats)
+            replicate(model)
+            opt = make_optimizer(model, job['cfg'],
+                                 lr_mult_fn_for('mv_det3d'),
+                                 steps_per_epoch=job['steps_per_epoch'])
+            batch = {k: torch.from_numpy(v[rank:rank + 1])
+                     for k, v in job['batch'].items()}
+            grads = {}
+            step = opt.step
+
+            def step_recording(closure=None):
+                # the averaged gradients as AdamW receives them (before its
+                # clip, which scales them in place); frozen parameters,
+                # outside the optimizer, read as zero
+                for p in model.parameters():
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                grads.update(export_jax_tree(model, 'grads'))
+                grads.update({k: _copy(v) for k, v in grads.items()})
+                return step(closure)
+
+            opt.step = step_recording
+            with follow_relu(job['relu'][rank]) as flips:
+                metrics = train_step(model, opt, batch)
+            out = dict(grads=grads, params=export_jax_tree(model, 'params'),
+                       stats=export_jax_tree(model, 'buffers'),
+                       metrics={k: float(v) for k, v in metrics.items()},
+                       flips=gather_objects([flips]))
+        else:
+            from embodiedscan_torch.parallel import multihost as mh
+            model = build_model(job['cfg'], device='cpu')
+            out = dict(metrics=evaluate(job['cfg'], model, device='cpu'),
+                       helpers=(list(mh.process_shard(5)),
+                                mh.global_batch_size(3),
+                                mh.all_processes_scalar(rank),
+                                mh.is_main_process(),
+                                mh.gather_objects([rank] * (rank + 1))))
+        if rank == 0:
+            with open(job_path + '.out', 'wb') as f:
+                pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()

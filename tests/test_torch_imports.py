@@ -47,10 +47,17 @@ def test_no_reference_imports(path):
     'embodiedscan_torch.geometry.np_boxes',
     'embodiedscan_torch.native',
     'embodiedscan_torch.data.pipeline', 'embodiedscan_torch.data.synthetic',
-    'embodiedscan_torch.data.loader', 'embodiedscan_torch.data.dataset'])
+    'embodiedscan_torch.data.loader', 'embodiedscan_torch.data.dataset',
+    'embodiedscan_torch.train.metrics_writer',
+    'embodiedscan_torch.parallel.multihost',
+    'embodiedscan_torch.parallel.mesh',
+    'embodiedscan_torch.vis.visualization',
+    'embodiedscan_torch.tools.train', 'embodiedscan_torch.tools.test',
+    'embodiedscan_torch.tools.eval_script',
+    'embodiedscan_torch.tools.submit_results'])
 def test_module_is_checked_and_imports(module):
-    """The training, grounding, checkpoint, occupancy and data slices'
-    modules are among the files checked above and import on a machine
+    """The training, grounding, checkpoint, occupancy, data and runtime
+    slices' modules are among the files checked above and import on a machine
     without JAX, transformers, tokenizers or regex."""
     path = ROOT / (module.replace('.', '/') + '.py')
     if not path.exists():  # a package

@@ -143,7 +143,7 @@ def step_outputs():
         jb = {k: jnp.asarray(v) for k, v in batch.items()}
         var = random_variables(jm, (jb, ), train=False, mode='feats')
         tx = jT.make_optimizer(
-            jT.multistep_lr(sc.lr, sc.steps_per_epoch, tuple(sc.milestones)),
+            jT.multistep_lr(sc.lr, 1000, tuple(sc.milestones)),
             sc.weight_decay, sc.clip_norm,
             lr_mult_fn=jL.lr_mult_fn_for('mv_occ'),
             params_template=var['params'])
@@ -177,7 +177,8 @@ def step_outputs():
                       for k, v in _leaves(export_jax_tree(tm, 'grads'))})
     tstats = export_jax_tree(tm, 'buffers')
     # the optimizer after the backward: every gradient was computed above
-    opt = tT.make_optimizer(tm, cfg, tL.lr_mult_fn_for('mv_occ'))
+    opt = tT.make_optimizer(tm, cfg, tL.lr_mult_fn_for('mv_occ'),
+                            steps_per_epoch=1000)
     opt.step()
     return dict(jax=(jlosses, jstats, jgrads, jparams, var['params']),
                 torch=({k: float(v.detach()) for k, v in losses.items()},
@@ -254,7 +255,7 @@ def test_build_train_occ_step():
     m.backbone_capacities = SMALL['backbone_capacities']
     m.resnet_depth, m.mink_depth = 18, 18
     m.occ_fpn_channels, m.occ_pre_neck_channels = 8, 12
-    model, opt = build_train(cfg, device='cpu')
+    model, opt = build_train(cfg, device='cpu', steps_per_epoch=1)
     assert model.training and len(opt.param_groups) == 1
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     stats = model.ImVoxelNeck_0.BatchNorm_6.mean.clone()

@@ -130,7 +130,6 @@ def test_optimizer_matches_optax_with_clipping():
     grads = [{k: (rng.randn(*s) * (10 + 10 * i)).astype(np.float32)
               for k, s in shapes.items()} for i in range(3)]
     cfg = Config()
-    cfg.schedule.steps_per_epoch = 1
     cfg.schedule.milestones = (1, 2)
     sc = cfg.schedule
     tx = jT.make_optimizer(jT.multistep_lr(sc.lr, 1, sc.milestones),
@@ -142,7 +141,7 @@ def test_optimizer_matches_optax_with_clipping():
     for k, v in params.items():
         module.register_parameter(k, torch.nn.Parameter(torch.from_numpy(
             v.copy())))
-    opt = tT.make_optimizer(module, cfg)
+    opt = tT.make_optimizer(module, cfg, steps_per_epoch=1)
     for g in grads:
         assert np.sqrt(sum((v.astype(np.float64) ** 2).sum()
                            for v in g.values())) > 10
@@ -163,7 +162,6 @@ def test_optimizer_resumes_schedule_from_state_dict():
     the parameters of the two agree exactly."""
     rng = np.random.RandomState(3)
     cfg = Config()
-    cfg.schedule.steps_per_epoch = 1
     cfg.schedule.milestones = (1, 2)
     grads = [rng.randn(4, 3).astype(np.float32) for _ in range(4)]
 
@@ -178,16 +176,16 @@ def test_optimizer_resumes_schedule_from_state_dict():
         opt.step()
 
     ref = module()
-    ref_opt = tT.make_optimizer(ref, cfg)
+    ref_opt = tT.make_optimizer(ref, cfg, steps_per_epoch=1)
     for g in grads:
         update(ref, ref_opt, g)
     first = module()
-    first_opt = tT.make_optimizer(first, cfg)
+    first_opt = tT.make_optimizer(first, cfg, steps_per_epoch=1)
     for g in grads[:2]:
         update(first, first_opt, g)
     resumed = module()
     resumed.load_state_dict(first.state_dict())
-    resumed_opt = tT.make_optimizer(resumed, cfg)
+    resumed_opt = tT.make_optimizer(resumed, cfg, steps_per_epoch=1)
     resumed_opt.load_state_dict(first_opt.state_dict())
     assert resumed_opt.param_groups[0]['count'] == 2
     for g in grads[2:]:
@@ -200,7 +198,7 @@ def test_clip_is_optax_global_norm():
     """The clip scales by min(1, 10 / norm) with no epsilon, and leaves
     gradients below the norm untouched."""
     module = torch.nn.Linear(3, 2)
-    opt = tT.make_optimizer(module, Config())
+    opt = tT.make_optimizer(module, Config(), steps_per_epoch=1)
     for scale, factor in ((100.0, None), (1e-3, 1.0)):
         module.weight.grad = torch.full_like(module.weight, scale)
         module.bias.grad = torch.full_like(module.bias, scale)
@@ -309,7 +307,7 @@ def test_train_step_entry_point(step_outputs):
     """``train_step``: the same losses from the same parameters (training
     mode normalizes by batch statistics), their sum, and an update."""
     model, batch = step_outputs['model'], step_outputs['batch']
-    opt = tT.make_optimizer(model, Config())
+    opt = tT.make_optimizer(model, Config(), steps_per_epoch=1)
     before = model.bbox_head.conv_cls.weight.detach().clone()
     metrics = tT.train_step(model, opt, batch)
     want = step_outputs['torch'][0]
@@ -330,7 +328,7 @@ def test_build_train_entry_point():
     for key in ('input_capacity', 'backbone_capacities', 'fpn_capacities',
                 'max_dets', 'nms_pre', 'max_candidates', 'voxel_size'):
         setattr(cfg.model, key, TINY[key])
-    model, opt = build_train(cfg, device='cpu')
+    model, opt = build_train(cfg, device='cpu', steps_per_epoch=1)
     assert model.training
     batch = to_torch({k: np.array(v) for k, v in G._tiny_batch().items()})
     metrics = tT.train_step(model, opt, batch)
