@@ -132,12 +132,23 @@ Phases (one line each; any failure exits non-zero before the last line):
      ``tools.test.main`` over the val scenes from the last checkpoint, and
      a small checkpoint's ``evaluate`` on the card and on the cpu over the
      val scenes with gt boxes added at its detections (metrics within
-     1e-6, mAP_0.25 > 0 on both);
+     1e-6, mAP_0.25 > 0 on both); then, in a process of its own
+     (``--demo``): [demo] ``embodiedscan_torch.tools.demo.main`` twice on
+     a scan directory of 50 views of 480x480 at the shipped preset from
+     the loop's last checkpoint (the restored step, each request's
+     wrapper calls equal to [main]'s, the PLY against the kept boxes, the
+     seconds of each part), the small checkpoint through the demo on the
+     card and on the cpu (4 views of 96x96: the same kept labels, boxes
+     within atol 1e-4 + rtol 1e-5), ``ChannelMapper(kernel_size=3)``
+     over the first request's four MinkResNet-34 levels, and the replays
+     of the first request's and the mapper's K1 and K2 calls;
  13. one JSON line with the kernels (each kernel's row on the detection
      and grounding paths, then on the occupancy paths, then on the
-     continuous ones, then on the loop's step), then the result line.
+     continuous ones, then on the loop's step, the demo's request and
+     ChannelMapper), then the result line.
 Per-call details go to chiprun_out/chip_smoke_calls.json,
-chiprun_out/chip_smoke_cont.json and chiprun_out/chip_smoke_loop.json.
+chiprun_out/chip_smoke_cont.json, chiprun_out/chip_smoke_loop.json and
+chiprun_out/chip_smoke_demo.json.
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1 and 9 and stops
 (no result line): the quickest check that the kernels build and agree.
@@ -3461,10 +3472,10 @@ def main_cont():
 
 def kernel_rows(calls, groups):
     """The kernels line's rows: for each group (suffix, launch totals, its
-    paths), the K2 forward, K1, K2 dgrad and K3 rows of its paths. Launches
-    summed over each group's timed runs, every other number from this
-    run's replays (summed over one recorded request or step of each
-    path)."""
+    paths), the K2 forward, K1, K2 dgrad and K3 rows of its paths (those
+    its launch totals name). Launches summed over each group's timed runs,
+    every other number from this run's replays (summed over one recorded
+    request or step of each path)."""
     rows = []
     conv = ('embodiedscan_torch/csrc/sparse_conv.cu',
             'embodiedscan_tpu/experimental/pallas_conv.py:62')
@@ -3489,6 +3500,8 @@ def kernel_rows(calls, groups):
                                     of('sparse_wgrad', 'narrow')),
         }
         for name, (source, replaces, rs) in meta.items():
+            if name not in counts:  # not a kernel of the group's paths
+                continue
             if not rs or not counts[name]:
                 raise RuntimeError(f'{name}{suffix}: no call on its main '
                                    'path')
@@ -3952,9 +3965,10 @@ def main_loop():
     """``chip_smoke.py --loop``: the dataset written, a one-rank NCCL process group joined, one loop step
     recorded and timed alone (:func:`loop_step`), the replays of its K1, K2
     and K3 calls (before any profiler session of this process), then
-    :func:`phase_loop`; writes the kernel rows (group ``(loop)``) and the
-    numbers to chiprun_out/chip_smoke_loop.json for the parent run's
-    kernels line."""
+    :func:`phase_loop`, then ``--demo`` (:func:`main_demo`) in a process
+    of its own over the same dataset and work dir; writes the kernel rows
+    (groups ``(loop)`` and ``(channel_mapper)``) and the numbers to
+    chiprun_out/chip_smoke_loop.json for the parent run's kernels line."""
     import shutil
     import tempfile
 
@@ -3994,6 +4008,10 @@ def main_loop():
         totals, loop_stats = phase_loop(card, root, work)
         took['cli'] = time.perf_counter() - t0
         stats.update(loop_stats)
+        t0 = time.perf_counter()
+        demo = run_child('--demo', root, work)
+        took['demo'] = time.perf_counter() - t0
+        stats.update(demo=demo['stats'])
         log(f'[loop] the loop\'s median {stats["loop_ms"]:.1f} ms/it against '
             f'the bare step\'s best {min(stats["bare_step_ms"]):.1f} ms: '
             f'loop overhead {stats["loop_ms"] - min(stats["bare_step_ms"]):.1f}'
@@ -4004,7 +4022,8 @@ def main_loop():
     log('[loop] seconds per part: ' + ', '.join(
         f'{k} {v:.1f}' for k, v in took.items()))
     stats.update(seconds=took)
-    rows = kernel_rows(calls, ((' (loop)', totals, ('loop', )), ))
+    rows = kernel_rows(calls, ((' (loop)', totals, ('loop', )), )) + \
+        demo['rows']
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, 'chip_smoke_loop.json'), 'w') as f:
         json.dump(dict(card=card, rows=rows, stats=stats, calls=calls), f,
@@ -4012,8 +4031,258 @@ def main_loop():
     return 0
 
 
-def run_child(flag):
-    """Runs ``chip_smoke.py <flag>`` in a process of its own (a fresh
+# --- the in-the-wild demo on a scan directory ([demo]) ---
+
+# the full-width demo's views (the val scenes', 480x480) and its runs: the
+# first in a fresh process, the second warm
+DEMO_VIEWS = 50
+DEMO_RUNS = 2
+# the small checkpoint's card vs cpu demo: views of 96x96
+DEMO_SMALL_VIEWS = 4
+# wrapper calls of ChannelMapper(kernel_size=3) over MinkResNet-34's four
+# levels: a neighbor table (K1) and a conv (K2, tensor cores) a level
+EXPECTED_MAPPER_LAUNCHES = {'sparse_conv_tc': 4, 'sparse_conv_simt': 0,
+                            'sparse_dgrad_tc': 0, 'sparse_dgrad_simt': 0,
+                            'sparse_wgrad_tc': 0, 'sparse_wgrad_narrow': 0,
+                            'join_scan': 4}
+MAPPER_CHANNELS = 128
+
+
+def write_demo_scan(path, n_views, hw, seed, num_classes=284):
+    """A synthetic scan (``make_scan``, ``LOOP_BOXES`` boxes) written as a
+    demo scan directory (``data.synthetic.write_scan_dir``: 4x4 and
+    quaternion poses in turn); returns the seconds it took."""
+    from embodiedscan_torch.data.synthetic import make_scan, write_scan_dir
+    t0 = time.perf_counter()
+    write_scan_dir(path, make_scan(seed=seed, n_views=n_views, hw=hw,
+                                   g=LOOP_BOXES, num_classes=num_classes))
+    return time.perf_counter() - t0
+
+
+class _DemoRequests:
+    """While active, each detector forward (a demo's request) runs with the
+    wrapper counts set to 0 just before it and read just after it, and
+    keeps its MinkResNet's output levels; the first records its kernel
+    calls (``rec``)."""
+
+    def __init__(self, S, P):
+        self.S, self.P = S, P
+        self.counts, self.levels = [], []
+        self.rec = Recorder(S, P)
+
+    def __enter__(self):
+        from embodiedscan_torch.models.detector import SparseFusionDetector
+        from embodiedscan_torch.models.sparse_nn import MinkResNet
+        self.fwd = fwd = SparseFusionDetector.forward
+
+        def forward(model, *args, **kw):
+            cuda = next(model.parameters()).is_cuda
+            hooks = [m.register_forward_hook(
+                lambda mod, inp, out: self.levels.append(out))
+                for m in model.modules() if isinstance(m, MinkResNet)]
+            if cuda:
+                torch.cuda.synchronize()
+            reset_counts(self.S, self.P)
+            try:
+                with self.rec if not self.counts else \
+                        contextlib.nullcontext():
+                    out = fwd(model, *args, **kw)
+                    if cuda:
+                        torch.cuda.synchronize()
+            finally:
+                for h in hooks:
+                    h.remove()
+            self.counts.append(read_counts(self.S, self.P))
+            return out
+
+        SparseFusionDetector.forward = forward
+        return self
+
+    def __exit__(self, *exc):
+        from embodiedscan_torch.models.detector import SparseFusionDetector
+        SparseFusionDetector.forward = self.fwd
+
+
+def _cfg_overrides(cfg):
+    """``cfg``'s model and data fields that differ from the mv_det3d
+    preset's, as ``a.b=c`` overrides."""
+    import dataclasses
+
+    from embodiedscan_torch.configs.base import mv_det3d
+    base, out = mv_det3d(), []
+    for part in ('model', 'data'):
+        for f in dataclasses.fields(getattr(cfg, part)):
+            val = getattr(getattr(cfg, part), f.name)
+            if val != getattr(getattr(base, part), f.name):
+                text = ','.join(map(str, val)) if isinstance(
+                    val, (tuple, list)) else str(val)
+                out.append(f'{part}.{f.name}={text}')
+    return out
+
+
+def _check_demo_ply(res, what):
+    """The demo's PLY holds its scene points and the kept boxes' 8 corners
+    and 12 edges each; returns the kept count."""
+    head = []
+    with open(res['out']) as f:
+        while not head or head[-1] != 'end_header':
+            head.append(next(f).strip())
+    n, kept = len(res['points']), len(res['boxes'])
+    want = f'element vertex {n + 8 * kept}'
+    if want not in head or (kept and f'element edge {12 * kept}' not in
+                            head):
+        raise RuntimeError(f'[demo] {what}: PLY header {head} for {n} '
+                           f'points and {kept} boxes')
+    if not (np.isfinite(res['boxes']).all() and
+            np.isfinite(res['scores']).all()):
+        raise RuntimeError(f'[demo] {what}: non-finite detections')
+    return kept
+
+
+def phase_demo(card, root, work, device='cuda', overrides=()):
+    """[demo]: ``tools.demo.main`` on a scan directory of ``DEMO_VIEWS``
+    views of 480x480 at the shipped preset (``overrides`` for a rehearsal)
+    from ``work``'s last checkpoint, ``DEMO_RUNS`` times: the restored step
+    is the latest, each request's wrapper calls are [main]'s, the PLY
+    holds the kept detections. Then the small checkpoint of
+    :func:`small_eval` (``work/small``, class bias 0) through the demo on
+    ``device`` and on the cpu over a scan of ``DEMO_SMALL_VIEWS`` views of
+    96x96: the same kept labels, boxes within atol 1e-4 + rtol 1e-5.
+    Returns (stats, the first request's MinkResNet levels, the recorder of
+    its kernel calls)."""
+    from embodiedscan_torch.ops import pscan as P
+    from embodiedscan_torch.ops import sparse as S
+    from embodiedscan_torch.tools import demo
+    from embodiedscan_torch.train.checkpoint import CheckpointManager
+    scan_dir = os.path.join(root, 'demo_scan')
+    write_s = write_demo_scan(scan_dir, DEMO_VIEWS, (480, 480), seed=200)
+    last = CheckpointManager(work).latest_step()
+    runs = []
+    with _DemoRequests(S, P) as req:
+        for i in range(DEMO_RUNS):
+            res = demo.main(['--dir', scan_dir, '--work-dir', work, '--out',
+                             os.path.join(work, f'demo_{i}.ply'),
+                             '--device', device, '--n-views',
+                             str(DEMO_VIEWS), *overrides])
+            if res['step'] != last:
+                raise RuntimeError(f'[demo] restored step {res["step"]}, '
+                                   f'the last is {last}')
+            runs.append(dict(seconds=res['seconds'], points=len(
+                res['points']), kept=_check_demo_ply(res, f'run {i}')))
+    if len(req.counts) != DEMO_RUNS:
+        raise RuntimeError(f'[demo] {len(req.counts)} requests')
+    if device == 'cuda':
+        for i, counts in enumerate(req.counts):
+            check_counts(counts, EXPECTED_LAUNCHES, f'[demo] request {i}')
+    for i, r in enumerate(runs):
+        log(f'[demo] run {i} ({"a fresh process" if i == 0 else "warm"}): '
+            f'{DEMO_VIEWS} views of 480x480, {r["points"]} scene points, '
+            f'restored step {last}, kept {r["kept"]} detections, seconds: '
+            + ', '.join(f'{k} {v:.3f}' for k, v in r['seconds'].items()) +
+            f'; wrapper calls {req.counts[i]}; {card}')
+    # the small checkpoint, card vs cpu
+    cfg = _loop_small_cfg(root)
+    small_dir = os.path.join(root, 'demo_small')
+    write_demo_scan(small_dir, DEMO_SMALL_VIEWS, (96, 96), seed=201,
+                    num_classes=cfg.model.num_classes)
+    small = {}
+    for dev in (device, 'cpu'):
+        small[dev] = demo.main(
+            ['--dir', small_dir, '--work-dir', os.path.join(work, 'small'),
+             '--out', os.path.join(work, f'demo_small_{dev}.ply'),
+             '--device', dev, '--n-views', str(DEMO_SMALL_VIEWS),
+             *_cfg_overrides(cfg)])
+        _check_demo_ply(small[dev], f'small on {dev}')
+    a, b = small[device], small['cpu']
+    if not (a['step'] == b['step'] == 0 and len(b['labels']) > 0 and
+            np.array_equal(a['labels'], b['labels']) and np.allclose(
+                a['boxes'], b['boxes'], atol=1e-4, rtol=1e-5)):
+        raise RuntimeError(f'[demo] small checkpoint: {device} kept '
+                           f'{a["labels"]}, cpu {b["labels"]}')
+    worst = float(np.abs(a['boxes'] - b['boxes']).max())
+    log(f'[demo] small checkpoint ({DEMO_SMALL_VIEWS} views of 96x96) on '
+        f'{device} and cpu: {len(b["labels"])} kept, labels identical, '
+        f'boxes max|d| {worst:.3g} (atol 1e-4 + rtol 1e-5)')
+    return (dict(write_s=write_s, runs=runs, counts=req.counts,
+                 small_kept=len(b['labels']), small_max_abs_diff=worst),
+            req.levels[0], req.rec)
+
+
+@torch.no_grad()
+def phase_mapper(levels, device='cuda'):
+    """``ChannelMapper(kernel_size=3)`` to ``MAPPER_CHANNELS`` channels over
+    a request's MinkResNet levels (seeded weights): its wrapper calls
+    counted (EXPECTED_MAPPER_LAUNCHES) and recorded, its outputs finite
+    with padded rows zero. Returns (counts, recorder)."""
+    from embodiedscan_torch.models.detector import init_weights
+    from embodiedscan_torch.models.sparse_nn import ChannelMapper
+    from embodiedscan_torch.ops import pscan as P
+    from embodiedscan_torch.ops import sparse as S
+    mapper = ChannelMapper([lv.feats.shape[-1] for lv in levels],
+                           MAPPER_CHANNELS, kernel_size=3)
+    init_weights(mapper, torch.Generator().manual_seed(0))
+    mapper = mapper.to(device).eval()
+    if device == 'cuda':
+        torch.cuda.synchronize()
+    reset_counts(S, P)
+    with Recorder(S, P) as rec:
+        outs = mapper(levels)
+        if device == 'cuda':
+            torch.cuda.synchronize()
+    counts = read_counts(S, P)
+    if device == 'cuda':
+        check_counts(counts, EXPECTED_MAPPER_LAUNCHES, '[demo] ChannelMapper')
+    for lv, out in zip(levels, outs):
+        if out.feats.shape != lv.feats.shape[:2] + (MAPPER_CHANNELS,) or \
+                not torch.isfinite(out.feats).all() or \
+                bool(out.feats[~lv.mask].any()):
+            raise RuntimeError('[demo] ChannelMapper output')
+    log(f'[demo] ChannelMapper(kernel_size=3) to {MAPPER_CHANNELS} channels '
+        f'over the levels {[tuple(lv.feats.shape) for lv in levels]}: '
+        f'wrapper calls {counts}')
+    return counts, rec
+
+
+def main_demo(root, work):
+    """``chip_smoke.py --demo ROOT WORK``: :func:`phase_demo` over the
+    [loop] run's dataset and work dir in a process of its own (no earlier
+    profiler session, a fresh allocator), :func:`phase_mapper` over its
+    first request's levels, then the replays of that request's and the
+    mapper's K1 and K2 calls; writes their kernel rows (groups ``(demo)``
+    and ``(channel_mapper)``) and numbers to chiprun_out/chip_smoke_demo.json
+    for the [loop] run."""
+    from embodiedscan_torch.ops import kernels
+    card = card_name()
+    kernels.library()
+    t0 = time.perf_counter()
+    stats, levels, demo_rec = phase_demo(card, root, work)
+    took = dict(demo=time.perf_counter() - t0)
+    mapper_counts, mapper_rec = phase_mapper(levels)
+    del levels
+    t0 = time.perf_counter()
+    calls = phase_kernels([('demo', demo_rec), ('channel_mapper', mapper_rec)],
+                          [], 'cuda', LOOP_TIMING)
+    took['replays'] = time.perf_counter() - t0
+    # each group's kernels: those its runs launched, with their totals
+    demo_counts = {k: sum(c[k] for c in stats['counts'])
+                   for k, n in EXPECTED_LAUNCHES.items() if n}
+    mapper_counts = {k: v for k, v in mapper_counts.items()
+                     if EXPECTED_MAPPER_LAUNCHES[k]}
+    rows = kernel_rows(calls, ((' (demo)', demo_counts, ('demo', )),
+                               (' (channel_mapper)', mapper_counts,
+                                ('channel_mapper', ))))
+    log('[demo] seconds per part: ' + ', '.join(
+        f'{k} {v:.1f}' for k, v in took.items()))
+    stats.update(seconds=took, mapper_counts=mapper_counts)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, 'chip_smoke_demo.json'), 'w') as f:
+        json.dump(dict(card=card, rows=rows, stats=stats, calls=calls), f,
+                  indent=1, default=float)
+    return 0
+
+
+def run_child(flag, *args):
+    """Runs ``chip_smoke.py <flag> [args]`` in a process of its own (a fresh
     caching allocator and no earlier profiler session; its output joins
     this one's) and returns what it wrote to
     chiprun_out/chip_smoke_<flag>.json."""
@@ -4022,8 +4291,8 @@ def run_child(flag):
         os.remove(path)
     torch.cuda.empty_cache()
     sys.stdout.flush()
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), flag],
-                          timeout=1000)
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), flag,
+                           *args], timeout=1000)
     if proc.returncode != 0:
         raise RuntimeError(f'chip_smoke.py {flag} exited {proc.returncode}')
     with open(path) as f:
@@ -4042,6 +4311,8 @@ def main():
         return main_cont()
     if sys.argv[1:] == ['--loop']:
         return main_loop()
+    if sys.argv[1:2] == ['--demo']:
+        return main_demo(*sys.argv[2:])
     t_start = time.perf_counter()
     card = phase_build()
     if sys.argv[1:] == ['--kernels-only']:

@@ -9,6 +9,7 @@ whole pipeline: depth -> back-projection -> aggregation -> augmentation ->
 static-shape packing.
 """
 
+import os
 from typing import Dict
 
 import numpy as np
@@ -122,6 +123,58 @@ def make_scan(seed: int = 0, n_views: int = 6, hw=(128, 128), g: int = 8,
         rgb = rng.randint(0, 255, (h, w, 3)).astype(np.uint8)
         views.append(dict(depth=depth, rgb=rgb, extrinsic=ext, intrinsic=k))
     return dict(views=views, gt_boxes=boxes, gt_labels=labels)
+
+
+def mat_to_quat(rot):
+    """3x3 rotation matrix -> (x, y, z, w) unit quaternion, the inverse of
+    ``tools/demo.py:quat_to_mat`` (Shepperd's method)."""
+    m = np.asarray(rot, np.float64)
+    i = int(np.argmax([np.trace(m), m[0, 0], m[1, 1], m[2, 2]]))
+    if i == 0:
+        s = 2 * np.sqrt(1 + np.trace(m))
+        q = [m[2, 1] - m[1, 2], m[0, 2] - m[2, 0], m[1, 0] - m[0, 1],
+             s * s / 4]
+    elif i == 1:
+        s = 2 * np.sqrt(1 + m[0, 0] - m[1, 1] - m[2, 2])
+        q = [s * s / 4, m[0, 1] + m[1, 0], m[0, 2] + m[2, 0],
+             m[2, 1] - m[1, 2]]
+    elif i == 2:
+        s = 2 * np.sqrt(1 + m[1, 1] - m[0, 0] - m[2, 2])
+        q = [m[0, 1] + m[1, 0], s * s / 4, m[1, 2] + m[2, 1],
+             m[0, 2] - m[2, 0]]
+    else:
+        s = 2 * np.sqrt(1 + m[2, 2] - m[0, 0] - m[1, 1])
+        q = [m[0, 2] + m[2, 0], m[1, 2] + m[2, 1], s * s / 4,
+             m[1, 0] - m[0, 1]]
+    return np.asarray(q) / s
+
+
+def write_scan_dir(path, scan):
+    """Writes a scan of :func:`make_scan` as a scan directory that
+    ``tools/demo.py:load_scan_dir`` reads: every second pose line in the
+    translation and quaternion form, the others as 4x4 matrices; depth in
+    millimetres."""
+    from PIL import Image
+    os.makedirs(os.path.join(path, 'rgb'), exist_ok=True)
+    os.makedirs(os.path.join(path, 'depth'), exist_ok=True)
+    np.savetxt(os.path.join(path, 'intrinsic.txt'),
+               np.asarray(scan['views'][0]['intrinsic'], np.float64))
+    lines = []
+    for i, view in enumerate(scan['views']):
+        name = f'{i:05d}'
+        Image.fromarray(view['rgb']).save(
+            os.path.join(path, 'rgb', name + '.jpg'))
+        Image.fromarray(np.round(view['depth'] * 1000).astype(
+            np.uint16)).save(os.path.join(path, 'depth', name + '.png'))
+        cam2global = np.linalg.inv(np.asarray(view['extrinsic'], np.float64))
+        if i % 2 == 1:
+            vals = np.concatenate([cam2global[:3, 3],
+                                   mat_to_quat(cam2global[:3, :3])])
+        else:
+            vals = cam2global.reshape(-1)
+        lines.append(' '.join([name] + [repr(float(v)) for v in vals]))
+    with open(os.path.join(path, 'poses.txt'), 'w') as f:
+        f.write('\n'.join(lines) + '\n')
 
 
 def _load_views(scan: Dict, n_views: int, train: bool,

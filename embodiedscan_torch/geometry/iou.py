@@ -218,3 +218,16 @@ def boxes7d_to_9d(boxes: torch.Tensor) -> torch.Tensor:
         return boxes
     return torch.cat([boxes, boxes.new_zeros(boxes.shape[:-1] + (n_extra,))],
                      dim=-1)
+
+
+def axis_aligned_iou3d(boxes1: torch.Tensor,
+                       boxes2: torch.Tensor) -> torch.Tensor:
+    """Pairwise IoU of axis-aligned (N, 6) and (M, 6) boxes given as
+    x1y1z1x2y2z2."""
+    lt = torch.maximum(boxes1[:, None, :3], boxes2[None, :, :3])
+    rb = torch.minimum(boxes1[:, None, 3:], boxes2[None, :, 3:])
+    whd = torch.clamp(rb - lt, min=0.0)
+    inter = whd[..., 0] * whd[..., 1] * whd[..., 2]
+    v1 = torch.prod(boxes1[:, 3:] - boxes1[:, :3], dim=-1)
+    v2 = torch.prod(boxes2[:, 3:] - boxes2[:, :3], dim=-1)
+    return inter / torch.clamp(v1[:, None] + v2[None, :] - inter, min=1e-8)

@@ -1,6 +1,6 @@
-"""Numpy 9-DoF box helpers for the host-side data pipeline (port of the
-parts of ``embodiedscan_tpu/geometry/np_boxes.py`` that the pipeline and
-the synthetic scans use).
+"""Numpy 9-DoF box helpers for the host: the data pipeline, the synthetic
+scans, the viewers and the frame conversions (port of
+``embodiedscan_tpu/geometry/np_boxes.py``).
 
 ZXY euler convention (reference ``euler_box3d.py``); the loader stays a
 plain numpy program and touches no device.
@@ -74,3 +74,48 @@ def corners_np(boxes: np.ndarray) -> np.ndarray:
     local = boxes[:, None, 3:6] * norm[None]
     rot = euler_zxy_to_matrix_np(boxes[:, 6:9])
     return np.einsum('nkj,nij->nki', local, rot) + boxes[:, None, :3]
+
+
+def points_in_boxes_np(points: np.ndarray, boxes: np.ndarray) -> np.ndarray:
+    """(P, 3) points x (N, 9) boxes -> (P, N) bool containment.
+
+    Host-side analog of :func:`geometry.boxes.points_in_boxes` (reference
+    ``EulerInstance3DBoxes.points_in_boxes``): a point is inside iff its
+    box-frame coordinates are within the half-dims.
+    """
+    rot = euler_zxy_to_matrix_np(boxes[:, 6:9])  # (N, 3, 3)
+    rel = points[:, None, :] - boxes[None, :, :3]  # (P, N, 3)
+    local = np.einsum('pnj,njk->pnk', rel, rot)  # rel @ R = R^T(world->local)
+    half = boxes[None, :, 3:6] / 2
+    return np.all(np.abs(local) <= half, axis=-1)
+
+
+def corner_to_standup_np(corners: np.ndarray) -> np.ndarray:
+    """(N, 8, 3) corners -> (N, 6) axis-aligned [min_xyz, max_xyz] boxes.
+
+    Host analog of the reference ``corner_to_standup_nd_jit``
+    (structures/ops/box_np_ops.py:235-253), generalized to 3D.
+    """
+    return np.concatenate([corners.min(axis=1), corners.max(axis=1)], -1)
+
+
+def boxes_to_standup_np(boxes: np.ndarray) -> np.ndarray:
+    """(N, 9) rotated boxes -> (N, 6) enclosing axis-aligned boxes."""
+    return corner_to_standup_np(corners_np(boxes))
+
+
+def corners_bev_np(boxes: np.ndarray) -> np.ndarray:
+    """(N, 9) -> (N, 4, 2) BEV (xy) corners of the yaw-rotated footprint.
+
+    Mirrors the reference ``center_to_corner_box2d``
+    (structures/ops/box_np_ops.py:96-120) applied to the box BEV projection:
+    only the z-euler (yaw) rotates the footprint.
+    """
+    norm = np.array([[-0.5, -0.5], [-0.5, 0.5], [0.5, 0.5], [0.5, -0.5]],
+                    np.float32)
+    local = boxes[:, None, 3:5] * norm[None]  # (N, 4, 2)
+    yaw = boxes[:, 6]
+    c, s = np.cos(yaw), np.sin(yaw)
+    rot = np.stack([np.stack([c, -s], -1), np.stack([s, c], -1)],
+                   1)  # (N, 2, 2) row-major Rz
+    return np.einsum('nkj,nij->nki', local, rot) + boxes[:, None, :2]

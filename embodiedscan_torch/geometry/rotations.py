@@ -37,6 +37,21 @@ def rotation_3d_in_euler(points: torch.Tensor,
     return torch.einsum('...mj,...kj->...mk', points, rot)
 
 
+def rotation_3d_in_axis(points: torch.Tensor, angles: torch.Tensor,
+                        axis: int = 2) -> torch.Tensor:
+    """Rotate (N, M, 3) points by per-row single-axis angles (N,)."""
+    zeros = torch.zeros_like(angles)
+    if axis in (0, -3):
+        euler = torch.stack([zeros, angles, zeros], -1)  # X: the beta slot
+    elif axis in (1, -2):
+        euler = torch.stack([zeros, zeros, angles], -1)  # Y: the gamma slot
+    elif axis in (2, -1):
+        euler = torch.stack([angles, zeros, zeros], -1)  # Z: the alpha slot
+    else:
+        raise ValueError(f'axis must be in [-3, 2], got {axis}')
+    return rotation_3d_in_euler(points, euler)
+
+
 def ortho_6d_to_matrix(x_raw: torch.Tensor, y_raw: torch.Tensor) -> torch.Tensor:
     """6D rotation representation -> (..., 3, 3) matrix (Gram-Schmidt):
     y = norm(y_raw); z = norm(x_raw x y); x = y x z; columns (x, y, z)."""
@@ -48,3 +63,9 @@ def ortho_6d_to_matrix(x_raw: torch.Tensor, y_raw: torch.Tensor) -> torch.Tensor
     z = _norm(torch.linalg.cross(x_raw, y, dim=-1))
     x = torch.linalg.cross(y, z, dim=-1)
     return torch.stack([x, y, z], dim=-1)
+
+
+def limit_period(val: torch.Tensor, offset: float = 0.5,
+                 period: float = torch.pi) -> torch.Tensor:
+    """Limit periodic values into [-offset*period, (1-offset)*period)."""
+    return val - torch.floor(val / period + offset) * period

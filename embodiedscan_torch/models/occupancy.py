@@ -397,7 +397,7 @@ def _prior_points(prior_range, n_voxels, prior_origin) -> np.ndarray:
     reference's ``grid_anchors([n_voxels[::-1]])`` traversed x first), plus
     ``prior_origin``."""
     nx, ny, nz = n_voxels
-    gen = AlignedAnchor3DRangeGenerator(prior_range,
+    gen = AlignedAnchor3DRangeGenerator(ranges=[list(prior_range)],
                                         sizes=[[1.0, 1.0, 1.0]],
                                         rotations=[0.0])
     a = gen.single_level_grid_anchors((nz, ny, nx), 1)  # (Z, Y, X, 1, 1, 7)

@@ -1,10 +1,13 @@
-"""Sparse layers over the voxel engine and the MinkResNet backbone (port of
-the flat-mode parts of ``embodiedscan_tpu/models/sparse_nn.py``).
+"""Sparse layers over the voxel engine, the MinkResNet backbone and the
+ChannelMapper neck (port of the flat-mode parts of
+``embodiedscan_tpu/models/sparse_nn.py``).
 
 Submodules are named after the reference's flax auto-names
 (``SparseStage_0``, ``SparseConv_1``, ``MaskedBatchNorm_0``, ...) so weights
 carry over by path (``utils/convert_weights.py``).
 """
+
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -315,6 +318,45 @@ class SparseStage(nn.Module):
         for i in range(self.n_rest):
             feats = getattr(self, f'{self.rest_name}_{i}')(feats, om, nbr)
         return S.SparseTensor(dmap.coords, feats, om)
+
+
+class ChannelMapper(nn.Module):
+    """Per-level channel unification over sparse tensors (the reference's
+    ME ``ChannelMapper``, ``necks/channel_mapper.py:19-94``): one
+    conv-BN-ELU block per input level. ``kernel_size=1`` is a pointwise
+    ``Linear``; ``kernel_size=3`` a :class:`SparseConv` over the level's
+    27-neighbor table (one K1 join and one K2 conv a level on the card).
+    Padded rows come out zero."""
+
+    def __init__(self, in_channels: Sequence[int], out_channels: int,
+                 kernel_size: int = 1):
+        super().__init__()
+        if kernel_size not in (1, 3):
+            raise ValueError(f'kernel_size {kernel_size}: 1 or 3')
+        self.kernel_size = kernel_size
+        self.n_levels = len(in_channels)
+        for i, cin in enumerate(in_channels):
+            self.add_module(f'conv_{i}', nn.Linear(cin, out_channels,
+                                                   bias=False)
+                            if kernel_size == 1 else
+                            SparseConv(cin, out_channels))
+            self.add_module(f'bn_{i}', MaskedBatchNorm(out_channels))
+
+    def forward(self, inputs: Sequence[S.SparseTensor]
+                ) -> Tuple[S.SparseTensor, ...]:
+        outs = []
+        for i, st in enumerate(inputs):
+            conv = getattr(self, f'conv_{i}')
+            if self.kernel_size == 1:
+                f = conv(st.feats)
+            else:
+                f = conv(st.feats, st.mask,
+                         S.neighbor_table_b(st, S.OFFSETS_3))
+            f = F.elu(getattr(self, f'bn_{i}')(f, st.mask))
+            outs.append(S.SparseTensor(
+                st.coords, torch.where(st.mask[..., None], f,
+                                       torch.zeros_like(f)), st.mask))
+        return tuple(outs)
 
 
 class MinkResNet(nn.Module):

@@ -54,11 +54,18 @@ def test_no_reference_imports(path):
     'embodiedscan_torch.vis.visualization',
     'embodiedscan_torch.tools.train', 'embodiedscan_torch.tools.test',
     'embodiedscan_torch.tools.eval_script',
-    'embodiedscan_torch.tools.submit_results'])
+    'embodiedscan_torch.tools.submit_results',
+    'embodiedscan_torch.explorer', 'embodiedscan_torch.converters',
+    'embodiedscan_torch.vis.html_viewer', 'embodiedscan_torch.vis.continuous',
+    'embodiedscan_torch.geometry.modes',
+    'embodiedscan_torch.geometry.points_ops',
+    'embodiedscan_torch.eval.indoor_eval2d',
+    'embodiedscan_torch.tools.demo'])
 def test_module_is_checked_and_imports(module):
-    """The training, grounding, checkpoint, occupancy, data and runtime
-    slices' modules are among the files checked above and import on a machine
-    without JAX, transformers, tokenizers or regex."""
+    """The training, grounding, checkpoint, occupancy, data, runtime, demo,
+    viewer, converter and frame-conversion modules are among the files
+    checked above and import on a machine without JAX, transformers,
+    tokenizers or regex."""
     path = ROOT / (module.replace('.', '/') + '.py')
     if not path.exists():  # a package
         path = ROOT / module.replace('.', '/') / '__init__.py'
