@@ -142,6 +142,21 @@ Phases (one line each; any failure exits non-zero before the last line):
      within atol 1e-4 + rtol 1e-5), ``ChannelMapper(kernel_size=3)``
      over the first request's four MinkResNet-34 levels, and the replays
      of the first request's and the mapper's K1 and K2 calls;
+12b. the head's other box modes and the tools, in a process of their own
+     (``--heads``): [heads] the mv_det3d detector at its full width with the
+     'yaw7d' head (the rotated-IoU loss) serving three of [main]'s requests
+     and taking three of [train]'s steps (the gt boxes' pitch and roll
+     zeroed), then with the 'aa6d' head (the axis-aligned IoU loss) three
+     steps: latency, peak, the step's split with the rotated IoU
+     (``of_which_rot_iou``), wrapper calls per request and step equal to
+     [main]'s and [train]'s; [parity] the small detector card vs cpu with
+     each head variant (``HEAD_VARIANTS``: both modes serving, and one train
+     step of each of them and of cd_mode l2, cd_group g4, decouple_groups
+     3, norm_decouple_loss and the undecoupled chamfer); [capacity]
+     ``tools.occupancy_histogram`` at the bench scale on the card and the
+     cpu, every count identical; [quality] ``tools.quality_smoke --steps
+     100`` on the card, its report in chiprun_out/quality_smoke.md, failing
+     on its gate.
  13. one JSON line with the kernels (each kernel's row on the detection
      and grounding paths, then on the occupancy paths, then on the
      continuous ones, then on the loop's step, the demo's request and
@@ -152,8 +167,8 @@ chiprun_out/chip_smoke_demo.json.
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1 and 9 and stops
 (no result line): the quickest check that the kernels build and agree.
-``python3 chip_smoke.py --cont`` runs phase 11 alone and ``--loop``
-phase 12 alone (no result line).
+``python3 chip_smoke.py --cont`` runs phase 11 alone, ``--loop`` phase 12
+and ``--heads`` phase 12b (no result line).
 """
 
 import contextlib
@@ -791,17 +806,19 @@ def phase_ground_train(device, cfg=None):
     return rec, totals, stats, model, opt, batch
 
 
-def train_steps(tag, model, opt, batch, want):
-    """One recorded warm-up step, then three timed ones (host clock, each
-    ending in a synchronize), each with its peak memory and its launch
-    counts against ``want``; losses finite and changing; then one step
-    split into forward, backward and optimizer. Returns the recorder (on
-    the host), the launch totals of the timed steps and the stats."""
+def train_steps(tag, model, opt, batch, want, record=True):
+    """One warm-up step (``record``: its kernel inputs recorded), then three
+    timed ones (host clock, each ending in a synchronize), each with its
+    peak memory and its launch counts against ``want``; losses finite and
+    changing; then one step split into forward, backward and optimizer.
+    Returns the recorder (on the host), the launch totals of the timed
+    steps and the stats."""
     from embodiedscan_torch.ops import pscan as P
     from embodiedscan_torch.ops import sparse as S
     from embodiedscan_torch.train.state import train_step
     reset_counts(S, P)
-    with Recorder(S, P) as rec:  # warm-up step: record kernel inputs
+    with Recorder(S, P) if record else contextlib.nullcontext(
+            Recorder(S, P)) as rec:  # warm-up step
         t0 = time.perf_counter()
         metrics = train_step(model, opt, batch)
         torch.cuda.synchronize()
@@ -851,26 +868,32 @@ def step_split(model, opt, batch, S, P, want):
     """Host-clock forward, backward and optimizer ms of one train step
     (each part ending in a synchronize); its launches are checked too. A
     grounder's forward also reports, each between synchronizes, its IoU
-    match cost and its matcher (the host matcher's copies included)."""
+    match cost and its matcher (the host matcher's copies included); a
+    yaw-head detector's, its rotated IoU loss (the exact paired clip)."""
     parts = {}
     restore = []
+
+    def timed(name, fn):
+        def run(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            parts[name] = parts.get(name, 0.0) + (time.perf_counter() - t) \
+                * 1e3
+            return out
+        return run
+
     if hasattr(model, 'match_fn'):
         from embodiedscan_torch.models import grounding as G
-
-        def timed(name, fn):
-            def run(*args):
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                out = fn(*args)
-                torch.cuda.synchronize()
-                parts[name] = (time.perf_counter() - t) * 1e3
-                return out
-            return run
-
         for obj, name, part in ((G, 'paired_iou_pruned', 'of_which_iou_cost'),
                                 (model, 'match_fn', 'of_which_matcher')):
             restore.append((obj, name, getattr(obj, name)))
             setattr(obj, name, timed(part, getattr(obj, name)))
+    if getattr(getattr(model, 'bbox_head', None), 'bbox_mode', '') == 'yaw7d':
+        from embodiedscan_torch.models import fcaf3d as F
+        restore.append((F, 'rotated_iou_loss', F.rotated_iou_loss))
+        F.rotated_iou_loss = timed('of_which_rot_iou', F.rotated_iou_loss)
     reset_counts(S, P)
     opt.zero_grad(set_to_none=True)
     torch.cuda.synchronize()
@@ -1520,7 +1543,7 @@ def fusion_pixels(args):
     does not see it: the fusion run again on the call's device, one view
     at a time, over a map that holds each pixel's index + 1."""
     from embodiedscan_torch.models.fusion import point_image_sample_batched
-    points, mask, feats, proj, aug_inv, pad_hw, mode, view_mask = args
+    points, mask, feats, proj, aug_inv, pad_hw, mode, view_mask = args[:8]
     bi, v, hf, wf, _ = feats.shape
     index = torch.arange(1, hf * wf + 1, dtype=torch.float32,
                          device=feats.device).reshape(1, 1, hf, wf, 1)
@@ -1634,9 +1657,10 @@ def _parity_cfg():
     return cfg
 
 
-def train_parity(device, cfg=None, batch=None):
+def train_parity(device, cfg=None, batch=None, build=None):
     """One train step of the small detector (``cfg``, default
-    ``_parity_cfg()``) on ``device`` (kernels) and on cpu (plain versions)
+    ``_parity_cfg()``; ``build(cfg, device)`` makes it, default
+    ``build_model``) on ``device`` (kernels) and on cpu (plain versions)
     from the same weights and batch (default: ``make_batch``'s scene of
     6000 points, 4 views of 96x96 and 16 gt boxes). Raises unless the
     integer tables are identical; returns the cpu and cuda metrics and, per
@@ -1648,8 +1672,9 @@ def train_parity(device, cfg=None, batch=None):
     from embodiedscan_torch.train.state import make_optimizer, train_step
     from embodiedscan_torch.utils.convert_weights import export_jax_tree
     cfg = cfg or _parity_cfg()
-    cpu = build_model(cfg, device='cpu').train()
-    gpu = build_model(cfg, device=device).train()
+    build = build or build_model
+    cpu = build(cfg, device='cpu').train()
+    gpu = build(cfg, device=device).train()
     gpu.load_state_dict(cpu.state_dict())
     if batch is None:
         batch = make_batch(1, 6000, 4, 96, 16, cfg.model.num_classes, seed=7)
@@ -4281,6 +4306,240 @@ def main_demo(root, work):
     return 0
 
 
+# --- the head's other box modes, the capacity and overfit tools ([heads],
+# [capacity], [quality]) ---
+
+# the parity phase's head variants: (name, bbox_mode, head attributes)
+HEAD_VARIANTS = (('yaw7d', 'yaw7d', {}), ('aa6d', 'aa6d', {}),
+                 ('cd_mode=l2', 'euler9d', dict(cd_mode='l2')),
+                 ('cd_group=g4', 'euler9d', dict(cd_group='g4')),
+                 ('decouple_groups=3', 'euler9d', dict(decouple_groups=3)),
+                 ('norm_decouple_loss', 'euler9d',
+                  dict(norm_decouple_loss=True)),
+                 ('undecoupled', 'euler9d', dict(decouple_bbox_loss=False)))
+QUALITY_STEPS = 100
+
+
+def build_head_model(cfg, device, bbox_mode, **head):
+    """``build_model``'s detector of ``cfg`` with the head's ``bbox_mode``
+    and attributes ``head`` (loss options the config has no field for, as
+    the reference's: the yaw and axis-aligned heads are built directly)."""
+    from embodiedscan_torch.configs.base import build_model
+    model = build_model(cfg, device, bbox_mode=bbox_mode)
+    for key, val in head.items():
+        setattr(model.bbox_head, key, val)
+    return model
+
+
+def yaw_batch(batch):
+    """A train batch whose gt boxes keep only their yaw (pitch and roll
+    zeroed), as the reference's yaw-head tests give it."""
+    batch = dict(batch)
+    batch['gt_boxes'] = batch['gt_boxes'].copy()
+    batch['gt_boxes'][..., 7:9] = 0.0
+    return batch
+
+
+def phase_heads(card, device='cuda'):
+    """The 'yaw7d' head at mv_det3d's full width (the trunk and
+    capacities as [main]): one warm-up and three requests of [main]'s
+    scenes (the class bias zeroed, as [main]), then in training mode, from
+    the initial class bias, one warm-up and three steps of [train]'s scene
+    with the gt boxes' pitch and roll zeroed (AdamW, clip 10, the 2D
+    stem and first stage frozen), its split naming the rotated IoU; then
+    the 'aa6d' head's steps on the same scene. Wrapper calls per request
+    and step against [main]'s and [train]'s."""
+    from embodiedscan_torch.configs.base import mv_det3d
+    from embodiedscan_torch.ops import pscan as P
+    from embodiedscan_torch.ops import sparse as S
+    from embodiedscan_torch.train.loop import lr_mult_fn_for
+    from embodiedscan_torch.train.state import make_optimizer
+    cfg = mv_det3d()
+    d = cfg.data
+    stats = {}
+    tbatch = to_device(yaw_batch(make_batch(
+        1, d.n_points, d.n_views_train, d.image_hw[0], N_GT,
+        cfg.model.num_classes)), device)
+    for mode in ('yaw7d', 'aa6d'):
+        t0 = time.perf_counter()
+        model = build_head_model(cfg, device, mode)
+        log(f'[heads] built mv_det3d with the {mode} head on {device} in '
+            f'{time.perf_counter() - t0:.1f} s: conv_reg '
+            f'{tuple(model.bbox_head.conv_reg.weight.shape)}')
+        if mode == 'yaw7d':
+            prior = model.bbox_head.conv_cls.bias.detach().clone()
+            with torch.no_grad():  # a checkpoint's class bias, as [main]
+                model.bbox_head.conv_cls.bias.zero_()
+            lat, mem, kept = [], [], []
+            for i in range(4):
+                batch = to_device(make_request(d.n_points, d.n_views_test,
+                                               d.image_hw[0], i), device)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_counts(S, P)
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    preds = model(batch, mode='predict')
+                torch.cuda.synchronize()
+                took = time.perf_counter() - t0
+                counts = read_counts(S, P)
+                check_counts(counts, EXPECTED_LAUNCHES, f'{mode} request {i}')
+                _det_checks_yaw(preds, cfg, mode)
+                if i:  # the first is the warm-up
+                    lat.append(took * 1e3)
+                    mem.append(torch.cuda.max_memory_allocated() / 2**30)
+                    kept.append(int(preds['mask'].sum()))
+            log(f'[heads] {mode} request ms {[round(t, 3) for t in lat]}, '
+                f'peak GiB {max(mem):.3f}, kept {kept}, launches per '
+                f'request {counts}; {card}')
+            stats[f'{mode}_request'] = dict(latency_ms=lat, peak_gib=mem,
+                                            kept=kept)
+            del batch, preds
+            with torch.no_grad():  # the initial class bias, as [train]
+                model.bbox_head.conv_cls.bias.copy_(prior)
+        model.train()
+        opt = make_optimizer(model, cfg, lr_mult_fn_for('mv_det3d'),
+                             steps_per_epoch=PHASE_EPOCH)
+        _, _, st = train_steps(f'heads {mode}', model, opt, tbatch,
+                               EXPECTED_TRAIN_LAUNCHES, record=False)
+        if not 0 < st['losses'][-1]['loss_bbox'] < 1:
+            raise RuntimeError(f'{mode}: loss_bbox {st["losses"][-1]} is '
+                               'not 1 - IoU over positive locations')
+        stats[f'{mode}_step'] = st
+        log(f'[heads] {mode} step ms {[round(t, 3) for t in st["step_ms"]]}, '
+            f'peak GiB {max(st["peak_gib"]):.3f}, split ' + ', '.join(
+                f'{k} {v:.2f}' for k, v in st['split_ms'].items()) +
+            f' ms; {card}')
+        del model, opt
+        torch.cuda.empty_cache()
+    return stats
+
+
+def _det_checks_yaw(preds, cfg, mode):
+    for key, val in preds.items():
+        if val.is_floating_point() and not torch.isfinite(val).all():
+            raise RuntimeError(f'{mode}: non-finite {key}')
+    if preds['bboxes'].shape != (1, cfg.model.max_dets, 9):
+        raise RuntimeError(f'bboxes shape {tuple(preds["bboxes"].shape)}')
+    if not preds['mask'].any():
+        raise RuntimeError(f'{mode}: a request kept no detection')
+    if preds['bboxes'][..., 7:9].any():
+        raise RuntimeError(f'{mode}: boxes with pitch or roll')
+
+
+def phase_heads_parity(device='cuda'):
+    """The small detector (``_parity_cfg``) with each head variant of
+    HEAD_VARIANTS on ``device`` (kernels) and on cpu (plain versions) from
+    the same weights: the yaw and axis-aligned heads serving
+    (:func:`det_parity`'s gates), and one train step of every variant (its
+    tables identical, each loss within LOSS_RTOL, every gradient leaf and
+    batch statistic within GRAD_GATE x max|cpu|)."""
+    cfg = _parity_cfg()
+    out = {}
+    for name, mode, head in HEAD_VARIANTS:
+        t0 = time.perf_counter()
+
+        def build(c, device, mode=mode, head=head):
+            return build_head_model(c, device, mode, **head)
+
+        if not head:
+            cpu = build(cfg, 'cpu')
+            with torch.no_grad():
+                cpu.bbox_head.conv_cls.bias.zero_()
+            gpu = build(cfg, device)
+            gpu.load_state_dict(cpu.state_dict())
+            det_parity(cpu, gpu, make_request(p=6000, v=4, hw=96, seed=7),
+                       device, f'{name} head cpu vs cuda')
+            del cpu, gpu
+        batch = make_batch(1, 6000, 4, 96, 16, cfg.model.num_classes, seed=7)
+        if mode != 'euler9d':
+            batch = yaw_batch(batch)
+        n_tables, mc, mg, worst = train_parity(device, cfg, batch, build)
+        gates = dict(losses=LOSS_RTOL, grads=GRAD_GATE,
+                     **{'batch stats': GRAD_GATE})
+        for kind, (ratio, path) in worst.items():
+            if not np.isfinite(ratio) or ratio > gates[kind]:
+                raise RuntimeError(f'{name} train step {kind} {path}: '
+                                   f'max|d|/max|cpu| {ratio} > {gates[kind]}')
+        if not mc['loss_bbox'] > 0:
+            raise RuntimeError(f'{name}: no positive location')
+        out[name] = dict(worst={k: v for k, (v, _) in worst.items()},
+                         loss_bbox=mc['loss_bbox'],
+                         seconds=time.perf_counter() - t0)
+        log(f'[parity] {name} train step cpu vs cuda: {n_tables} tables '
+            f'identical, loss_bbox {mc["loss_bbox"]:.6g} vs '
+            f'{mg["loss_bbox"]:.6g}; worst max|d|/max|cpu|: ' +
+            ', '.join(f'{k} {v:.2e} ({p})' for k, (v, p) in worst.items()) +
+            f' (gates {gates}); {out[name]["seconds"]:.1f} s')
+    return out
+
+
+def phase_capacity(card, device='cuda'):
+    """``tools.occupancy_histogram`` at the bench scale on the card and on
+    the cpu: every count identical."""
+    from embodiedscan_torch.tools import occupancy_histogram as H
+    t0 = time.perf_counter()
+    on_card = H.main(['--device', device])
+    t1 = time.perf_counter()
+    on_cpu = H.main(['--device', 'cpu'])
+    t2 = time.perf_counter()
+    for key in ('bench', 'synthetic'):
+        if on_card[key] != on_cpu[key]:
+            raise RuntimeError(f'capacity {key}: card {on_card[key]} vs cpu '
+                               f'{on_cpu[key]}')
+    log(f'[capacity] occupied voxels per level identical on the card and '
+        f'the cpu: bench {on_card["bench"]}, synthetic '
+        f'{on_card["synthetic"]} (capacities {on_card["capacities"]}); '
+        f'{t1 - t0:.1f} s on the card, {t2 - t1:.1f} s on the cpu, {card}')
+    return dict(bench=on_card['bench'], synthetic=on_card['synthetic'],
+                card_s=t1 - t0, cpu_s=t2 - t1)
+
+
+def phase_quality(card, device='cuda', steps=QUALITY_STEPS):
+    """``tools.quality_smoke --steps 100`` on the card (its report in
+    chiprun_out/quality_smoke.md); fails on the tool's gate."""
+    from embodiedscan_torch.tools import quality_smoke as Q
+    os.makedirs(OUT_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    report = Q.main(['--device', device, '--steps', str(steps), '--out',
+                     os.path.join(OUT_DIR, 'quality_smoke.md')])
+    shown = ('mAP_0.25', 'mAP_0.50', 'Overall@0.25', 'Overall@0.5', 'empty',
+             'mIoU')
+    for task, r in report.items():
+        first, last = Q.windows(r['losses'])
+        log(f'[quality] {task}: {r["steps"]} steps, loss {first:.4f} -> '
+            f'{last:.4f}, ' + ', '.join(
+                f'{k} {r["metrics"][k]:.4f}' for k in shown
+                if k in r['metrics']) + f'; {r["seconds"]:.1f} s')
+    log(f'[quality] passed in {time.perf_counter() - t0:.1f} s, {card}')
+    return report
+
+
+def main_heads():
+    """``chip_smoke.py --heads``: [heads], the head variants' parity,
+    [capacity] and [quality]; the numbers to chiprun_out/chip_smoke_heads
+    .json."""
+    from embodiedscan_torch.ops import kernels
+    card = card_name()
+    kernels.library()
+    torch.manual_seed(0)
+    took, stats = {}, {}
+    for name, phase in (('heads', lambda: phase_heads(card)),
+                        ('heads_parity', phase_heads_parity),
+                        ('capacity', lambda: phase_capacity(card)),
+                        ('quality', lambda: phase_quality(card))):
+        t0 = time.perf_counter()
+        stats[name] = phase()
+        took[name] = time.perf_counter() - t0
+    log('[heads] seconds per part: ' + ', '.join(
+        f'{k} {v:.1f}' for k, v in took.items()))
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, 'chip_smoke_heads.json'), 'w') as f:
+        json.dump(dict(card=card, stats=stats, seconds=took, rows=[]), f,
+                  indent=1, default=float)
+    return 0
+
+
 def run_child(flag, *args):
     """Runs ``chip_smoke.py <flag> [args]`` in a process of its own (a fresh
     caching allocator and no earlier profiler session; its output joins
@@ -4313,6 +4572,8 @@ def main():
         return main_loop()
     if sys.argv[1:2] == ['--demo']:
         return main_demo(*sys.argv[2:])
+    if sys.argv[1:] == ['--heads']:
+        return main_heads()
     t_start = time.perf_counter()
     card = phase_build()
     if sys.argv[1:] == ['--kernels-only']:
@@ -4389,6 +4650,7 @@ def main():
     phase_occ_train_parity('cuda')
     cont = run_child('--cont')
     loop = run_child('--loop')
+    run_child('--heads')
     log(f'[done] {time.perf_counter() - t_start:.1f} s')
     for name, n in ground_totals.items():
         totals[name] += n

@@ -261,10 +261,13 @@ PRESETS = {
 
 
 def build_model(cfg: Config, device='cuda', img_dtype=torch.float32,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None,
+                bbox_mode: str = 'euler9d'):
     """The detector, grounder or occupancy model of ``cfg``, initialized
     from ``generator`` (default: a generator seeded with ``cfg.seed``), in
-    eval mode on ``device``.
+    eval mode on ``device``. ``bbox_mode`` is the detector head's box mode
+    ('euler9d', 'yaw7d' or 'aa6d'): as in the reference, the config has no
+    field for it.
 
     Raises when ``device`` is CUDA and no CUDA device is present; pass
     ``device='cpu'`` to run the plain versions of the kernels. Turns off
@@ -289,8 +292,11 @@ def build_model(cfg: Config, device='cuda', img_dtype=torch.float32,
             fpn_capacities=tuple(m.fpn_capacities),
             resnet_depth=m.resnet_depth, mink_depth=m.mink_depth,
             nms_pre=m.nms_pre, max_candidates=m.max_candidates,
-            max_dets=m.max_dets, img_dtype=img_dtype,
+            max_dets=m.max_dets, img_dtype=img_dtype, bbox_mode=bbox_mode,
             predict_protocol=m.predict_protocol)
+    elif bbox_mode != 'euler9d':
+        raise ValueError(f'bbox_mode={bbox_mode!r} is for the detectors, '
+                         f'not {m.task!r}')
     elif m.task == 'mv_grounding':
         model = SparseFusionGrounder(
             num_queries=m.num_queries, voxel_size=m.voxel_size,

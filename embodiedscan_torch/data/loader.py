@@ -81,12 +81,16 @@ class Prefetcher:
 
 
 class SyntheticLoader:
-    """Synthetic multi-view scans for smoke training and tests."""
+    """Synthetic multi-view scans for smoke training and tests. A train
+    loader draws its batches from ``seed`` (default: fresh entropy each
+    pass), an eval loader from 0."""
 
-    def __init__(self, cfg: Config, train: bool, n_scans: int = 8):
+    def __init__(self, cfg: Config, train: bool, n_scans: int = 8,
+                 seed: int | None = None):
         self.cfg = cfg
         self.train = train
         self.n_scans = n_scans
+        self.seed = seed if train else 0
         d = cfg.data
         self.batch_size = d.batch_size if train else 1
         self.steps_per_epoch = max(1, n_scans // self.batch_size)
@@ -163,7 +167,7 @@ class SyntheticLoader:
         return sample
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        rng = np.random.RandomState(0 if not self.train else None)
+        rng = np.random.RandomState(self.seed)
         collate = pl.collate_sweeps if self.cfg.model.task in CONT_TASKS \
             else pl.collate
         while True:

@@ -6,7 +6,17 @@ Each box's 6 face quads are clipped against the other box's 6 half-spaces
 the pair axis is the last one), and the enclosed volume follows from the
 divergence theorem as a signed sum of origin tetrahedra. The compaction
 after each clip is a scatter into unique slots plus a spare dump slot,
-which gives the same values as the reference's one-hot select.
+which gives the same values as the reference's one-hot select, and the
+same gradients: each emitted vertex takes the gradient of its slot.
+
+Where the paired IoU is differentiated (the rotated-IoU loss), ties are
+spelled as JAX differentiates them: ``torch.maximum`` and
+``torch.minimum`` split a gradient equally between tied sides, as
+``jnp.maximum``, ``jnp.minimum`` and ``jnp.clip`` do (``torch.clamp``
+passes it whole to its input), and :func:`_abs` has JAX's gradient +1 at
+0 (``torch.abs`` gives 0 there). A disjoint pair's volume is 0 on both
+sides of ``min(volume, bound)``, and a touching pair's overlap length is 0
+at the clip, so these ties are reached.
 """
 
 import functools
@@ -28,8 +38,19 @@ _FACE_IDX = np.array([
 ], dtype=np.int64)
 
 _MAX_VERTS = 10  # 4-gon + 6 convex clips
+
 # pairs per chunk of boxes3d_overlap: bounds the (10, 12 * pairs) buffers
 _PAIR_CHUNK = 1 << 18
+
+
+def _abs(x: torch.Tensor) -> torch.Tensor:
+    """|x| with JAX's gradient: +1 at 0 (``torch.abs`` gives 0 there)."""
+    return torch.where(x >= 0, x, -x)
+
+
+def _at_least(x: torch.Tensor, lo: float) -> torch.Tensor:
+    """max(x, lo), a tie's gradient split as ``jnp.clip``'s."""
+    return torch.maximum(x, x.new_tensor(lo))
 
 
 def _clip_soa_body(vx, vy, vz, cnt, nx, ny, nz, d):
@@ -125,12 +146,12 @@ def _axis_overlap_bound(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     def frame_bound(axes, c_own, h_own, r_other, c_other, h_other):
         p_own = torch.sum(c_own[:, :, None] * axes, dim=1)
         p_oth = torch.sum(c_other[:, :, None] * axes, dim=1)
-        dots = torch.abs(torch.sum(axes[:, :, :, None] *
-                                   r_other[:, :, None, :], dim=1))
+        dots = _abs(torch.sum(axes[:, :, :, None] * r_other[:, :, None, :],
+                              dim=1))
         w_oth = torch.sum(dots * h_other[:, None, :], dim=-1)
         hi = torch.minimum(p_own + h_own, p_oth + w_oth)
         lo = torch.maximum(p_own - h_own, p_oth - w_oth)
-        return torch.prod(torch.clamp(hi - lo, min=0.0), dim=-1)
+        return torch.prod(_at_least(hi - lo, 0.0), dim=-1)
 
     return torch.minimum(frame_bound(ra, ca, ha, rb, cb, hb),
                          frame_bound(rb, cb, hb, ra, ca, ha))
@@ -145,8 +166,7 @@ def _intersection_volume_flat(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     nb, db = _soa_planes(b)
     # scale-aware tolerances: keep a's faces that graze b's boundary, shrink
     # a's half-spaces for b's faces so coplanar faces count exactly once
-    scale = 1.0 + functools.reduce(torch.maximum,
-                                   [torch.abs(x) for x in da + db])
+    scale = 1.0 + functools.reduce(torch.maximum, [_abs(x) for x in da + db])
     eps_keep = 1e-5 * scale
     eps_copl = 3e-5 * scale
     corners = torch.cat([ca, cb], -1)
@@ -158,7 +178,7 @@ def _intersection_volume_flat(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                      for j in range(6)]),
     )
     vol2 = _clipped_volume_soa(corners, planes)
-    vol = torch.clamp(vol2[:nb_] + vol2[nb_:], min=0.0)
+    vol = _at_least(vol2[:nb_] + vol2[nb_:], 0.0)
     return torch.minimum(vol, _axis_overlap_bound(a, b))
 
 
@@ -204,6 +224,15 @@ def paired_iou_pruned(boxes1: torch.Tensor, boxes2: torch.Tensor,
         vol = boxes1.new_zeros(p).index_put_(
             (sel,), _intersection_volume_flat(boxes1[sel], boxes2[sel]))
     return vol / torch.clamp(v1 + v2 - vol, min=1e-8)
+
+
+def boxes3d_overlap_paired(boxes1: torch.Tensor, boxes2: torch.Tensor):
+    """Exact overlap of aligned pairs, differentiable by autograd:
+    (N, 9) x (N, 9) -> (vol (N,), iou (N,))."""
+    vol = _intersection_volume_flat(boxes1, boxes2)
+    v1 = _abs(boxes1[:, 3] * boxes1[:, 4] * boxes1[:, 5])
+    v2 = _abs(boxes2[:, 3] * boxes2[:, 4] * boxes2[:, 5])
+    return vol, vol / _at_least(v1 + v2 - vol, 1e-8)
 
 
 def boxes3d_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:

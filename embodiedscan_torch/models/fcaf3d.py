@@ -1,6 +1,12 @@
-"""FCAF3D sparse FPN + anchor-free 9-DoF detection head (port of
+"""FCAF3D sparse FPN + anchor-free detection head (port of
 ``embodiedscan_tpu/models/fcaf3d.py``: ``FCAF3DHead.__call__``, the target
-assigner and ``loss`` of the rot-mat head, and the flat-engine ``predict``).
+assigner, ``loss`` in each box mode and the flat-engine ``predict``).
+
+Box modes (``bbox_mode``): ``'euler9d'``, the rot-mat head (6D rotation,
+corner-chamfer box loss); ``'yaw7d'`` and ``'aa6d'``, the published FCAF3D
+head's yaw-only and axis-aligned boxes with the rotated- and
+axis-aligned-IoU losses. Every mode decodes to (.., 9) euler boxes, its
+unused angles zero, so the NMS and the metrics are shared.
 """
 
 from typing import List, NamedTuple
@@ -15,7 +21,8 @@ from ..geometry.nms import nms3d
 from ..geometry.rotations import (matrix_to_euler_zxy, ortho_6d_to_matrix,
                                   rotation_3d_in_euler)
 from ..ops import sparse as S
-from .losses import bbox_cd_loss, bce_with_logits, sigmoid_focal_loss
+from .losses import (axis_aligned_iou_loss, bbox_cd_loss, bce_with_logits,
+                     rotated_iou_loss, sigmoid_focal_loss)
 from .norm import MaskedBatchNorm
 from .sparse_nn import SparseConv, fpn_prune_scores, fpn_tables
 
@@ -51,21 +58,38 @@ def decode_bbox(points: torch.Tensor, reg: torch.Tensor) -> torch.Tensor:
 
 def decode_bbox_mode(points: torch.Tensor, reg: torch.Tensor,
                      mode: str) -> torch.Tensor:
-    """Mode-dispatched regression decode to (.., 9) boxes; the port has the
-    rot-mat head's 'euler9d' (the reference's yaw heads are not ported)."""
-    if mode != 'euler9d':
-        raise NotImplementedError(f'bbox_mode {mode!r} is not ported')
-    return decode_bbox(points, reg)
+    """Mode-dispatched regression decode, always to (.., 9) euler boxes:
+    'euler9d' as :func:`decode_bbox`; 'yaw7d' is the 6 face distances and
+    a z angle, 'aa6d' the 6 distances alone (the unused angles zero)."""
+    if mode == 'euler9d':
+        return decode_bbox(points, reg)
+    size = torch.stack([reg[..., 0] + reg[..., 1], reg[..., 2] + reg[..., 3],
+                        reg[..., 4] + reg[..., 5]], -1)
+    shift = torch.stack([(reg[..., 1] - reg[..., 0]) / 2,
+                         (reg[..., 3] - reg[..., 2]) / 2,
+                         (reg[..., 5] - reg[..., 4]) / 2], -1)
+    zeros = torch.zeros_like(size[..., :1])
+    if mode == 'yaw7d':
+        euler = torch.cat([reg[..., 6:7], zeros, zeros], -1)
+        shift = rotation_3d_in_euler(shift[..., None, :], euler)[..., 0, :]
+    elif mode == 'aa6d':
+        euler = torch.cat([zeros, zeros, zeros], -1)
+    else:
+        raise ValueError(f'unknown bbox_mode {mode!r}')
+    return torch.cat([points + shift, size, euler], -1)
 
 
 # regression channel count per bbox_mode
-REG_OUTS = {'euler9d': 12}
+REG_OUTS = {'euler9d': 12, 'yaw7d': 7, 'aa6d': 6}
+# the regression row that non-positive locations take before the decode:
+# unit distances, then the identity 6D rotation or a zero yaw (so the
+# rot-mat decode never sees atan2(0, 0), whose gradient is NaN and would
+# poison the masked box loss)
+BENIGN_TAIL = {'euler9d': [1.0, 0, 0, 0, 1, 0], 'yaw7d': [0.0], 'aa6d': []}
 # training: the reference head's pts_assign_threshold and
-# pts_center_threshold, and the weights of its 4 decoupled box-loss groups
-# (center, size, rotation, all)
+# pts_center_threshold
 ASSIGN_THRESHOLD = 27
 CENTER_THRESHOLD = 18
-DECOUPLE_WEIGHTS = (0.2, 0.2, 0.2, 0.4)
 
 
 def assign_targets(points: torch.Tensor, levels: torch.Tensor,
@@ -152,20 +176,33 @@ def fpn_up_block(owner: nn.Module, i: int, x: S.SparseTensor, prune_level,
 
 
 class FCAF3DHead(nn.Module):
-    """Sparse FPN + head (reference FCAF3DHeadRotMat); the MaskedBatchNorms
-    use batch statistics in training mode.
+    """Sparse FPN + head (reference FCAF3DHeadRotMat, or with ``bbox_mode``
+    'yaw7d' / 'aa6d' the reference FCAF3DHead); the MaskedBatchNorms use
+    batch statistics in training mode.
 
     Args:
         in_channels: per-level input channels (after image fusion).
         fpn_capacities: static voxel capacity per FPN level (0 = finest).
         strides: lattice stride of each level relative to the voxel grid.
+        decouple_bbox_loss: the 'euler9d' box loss as the weighted sum of
+            ``decouple_groups`` chamfers (3: the center, size and rotation
+            groups; 4: also the whole box), each group the prediction's own
+            fields with the target's others; else one chamfer of the whole
+            box. ``norm_decouple_loss`` divides each box's chamfers by the
+            norm of its target's size (at least 0.1).
+        cd_mode, cd_group: the chamfer's distance ('l1' or 'l2') and corner
+            grouping ('g8' or 'g4'), see ``losses.bbox_cd_loss``.
     """
 
     def __init__(self, num_classes: int, in_channels=(128, 256, 512, 1024),
                  out_channels: int = 128, bbox_mode: str = 'euler9d',
                  voxel_size: float = 0.01, strides=(8, 16, 32, 64),
                  fpn_capacities=(24576, 8192, 4096, 2048),
-                 pts_prune_threshold: int = 100000, nms_pre: int = 1000,
+                 pts_prune_threshold: int = 100000,
+                 decouple_bbox_loss: bool = True, decouple_groups: int = 4,
+                 decouple_weights=(0.2, 0.2, 0.2, 0.4),
+                 norm_decouple_loss: bool = False, cd_mode: str = 'l1',
+                 cd_group: str = 'g8', nms_pre: int = 1000,
                  iou_thr: float = 0.5, score_thr: float = 0.01,
                  max_candidates: int = 1024, max_dets: int = 256,
                  predict_protocol: str = 'reference'):
@@ -173,7 +210,7 @@ class FCAF3DHead(nn.Module):
         if predict_protocol not in ('reference', 'full9d'):
             raise ValueError(f'unknown predict_protocol {predict_protocol!r}')
         if bbox_mode not in REG_OUTS:
-            raise NotImplementedError(f'bbox_mode {bbox_mode!r} is not ported')
+            raise ValueError(f'unknown bbox_mode {bbox_mode!r}')
         self.num_classes = num_classes
         self.in_channels = tuple(in_channels)
         self.bbox_mode = bbox_mode
@@ -181,6 +218,12 @@ class FCAF3DHead(nn.Module):
         self.strides = tuple(strides)
         self.fpn_capacities = tuple(fpn_capacities)
         self.pts_prune_threshold = pts_prune_threshold
+        self.decouple_bbox_loss = decouple_bbox_loss
+        self.decouple_groups = decouple_groups
+        self.decouple_weights = tuple(decouple_weights)
+        self.norm_decouple_loss = norm_decouple_loss
+        self.cd_mode = cd_mode
+        self.cd_group = cd_group
         self.nms_pre = nms_pre
         self.iou_thr = iou_thr
         self.score_thr = score_thr
@@ -242,8 +285,9 @@ class FCAF3DHead(nn.Module):
 
     def loss(self, outs: HeadOutputs, gt_boxes: torch.Tensor,
              gt_labels: torch.Tensor, gt_mask: torch.Tensor) -> dict:
-        """Batch loss of the rot-mat head: focal classification,
-        centerness BCE and the decoupled 4-group corner chamfer (l1, g8).
+        """Batch loss: focal classification, centerness BCE and the box
+        loss of ``bbox_mode`` (the rotated IoU for 'yaw7d', the
+        axis-aligned IoU for 'aa6d', the corner chamfer for 'euler9d').
         gt_*: (B, G, ...) padded ground truth."""
         levels = torch.cat([
             torch.full((p.shape[1],), i, dtype=torch.int64, device=p.device)
@@ -263,10 +307,7 @@ class FCAF3DHead(nn.Module):
         pos = cls_t >= 0
         # the batch mean of the positives (the reference's reduce_mean)
         n_pos_avg = torch.clamp(pos.sum(1).to(torch.float32).mean(), min=1.0)
-        # benign regression row for non-positive locations: unit distances
-        # and the identity 6D rotation, so decode_bbox never sees
-        # atan2(0, 0), whose gradient would poison the masked chamfer sum
-        benign = reg.new_tensor([1.0] * 6 + [1, 0, 0, 0, 1, 0])
+        benign = reg.new_tensor([1.0] * 6 + BENIGN_TAIL[self.bbox_mode])
         c_l, b_l, cl_l = [], [], []
         for i in range(b):
             cl_l.append(sigmoid_focal_loss(cls[i], cls_t[i], pmask[i],
@@ -274,17 +315,47 @@ class FCAF3DHead(nn.Module):
             c_l.append(torch.nan_to_num(bce_with_logits(
                 center[i], center_t[i], pos[i], n_pos_avg)))
             reg_safe = torch.where(pos[i][:, None], reg[i], benign)
-            dec = decode_bbox(pts[i], reg_safe)
-            tgt = bbox_t[i]
-            groups = [torch.cat([dec[:, :3], tgt[:, 3:]], -1),
-                      torch.cat([tgt[:, :3], dec[:, 3:6], tgt[:, 6:]], -1),
-                      torch.cat([tgt[:, :6], dec[:, 6:]], -1), dec]
-            b_l.append(torch.nan_to_num(sum(
-                w * bbox_cd_loss(g, tgt, pos[i])
-                for w, g in zip(DECOUPLE_WEIGHTS, groups))))
+            dec = decode_bbox_mode(pts[i], reg_safe, self.bbox_mode)
+            b_l.append(torch.nan_to_num(self.bbox_loss(dec, bbox_t[i],
+                                                       pos[i])))
         return dict(loss_center=torch.stack(c_l).mean(),
                     loss_bbox=torch.stack(b_l).mean(),
                     loss_cls=torch.stack(cl_l).mean())
+
+    def bbox_loss(self, dec: torch.Tensor, tgt: torch.Tensor,
+                  pos: torch.Tensor) -> torch.Tensor:
+        """One sample's box loss over its positive rows: decoded (P, 9)
+        boxes against their assigned (P, 9) targets."""
+        if self.bbox_mode == 'yaw7d':
+            # the targets keep only their z angle
+            tgt = torch.cat([tgt[:, :7], torch.zeros_like(tgt[:, 7:9])], -1)
+            return rotated_iou_loss(dec, tgt, pos)
+        if self.bbox_mode == 'aa6d':
+            def corners(x):
+                return torch.cat([x[:, :3] - x[:, 3:6] / 2,
+                                  x[:, :3] + x[:, 3:6] / 2], -1)
+            return axis_aligned_iou_loss(corners(dec), corners(tgt), pos)
+
+        def cd(src, reduction='mean'):
+            return bbox_cd_loss(src, tgt, pos, self.cd_mode, self.cd_group,
+                                reduction)
+
+        if not self.decouple_bbox_loss:
+            return cd(dec)
+        groups = [torch.cat([dec[:, :3], tgt[:, 3:]], -1),
+                  torch.cat([tgt[:, :3], dec[:, 3:6], tgt[:, 6:]], -1),
+                  torch.cat([tgt[:, :6], dec[:, 6:]], -1)]
+        if self.decouple_groups == 4:
+            groups.append(dec)
+        weighted = zip(self.decouple_weights, groups)
+        if not self.norm_decouple_loss:
+            return sum(w * cd(g) for w, g in weighted)
+        per = sum(w * cd(g, 'none') for w, g in weighted)
+        size = torch.linalg.norm(tgt[:, 3:6], dim=-1)
+        per = per / torch.maximum(size, size.new_tensor(0.1))[:, None]
+        denom = torch.clamp(pos.sum() * per.shape[1], min=1)
+        return torch.where(pos[:, None], per, torch.zeros_like(per)).sum() \
+            / denom
 
     def predict(self, outs: HeadOutputs) -> dict:
         """Decode + multiclass NMS. Returns (B, D) padded detections.
@@ -308,7 +379,8 @@ class FCAF3DHead(nn.Module):
         boxes = torch.cat(lvl_boxes, dim=1)  # (B, T, 9)
         scores = torch.cat(lvl_scores, dim=1)  # (B, T, C)
         mask = torch.cat(lvl_masks, dim=1)  # (B, T)
-        if self.predict_protocol == 'reference':
+        if self.bbox_mode == 'euler9d' and \
+                self.predict_protocol == 'reference':
             # published protocol: yaw-only boxes through NMS and in the
             # returned predictions
             boxes = boxes.clone()

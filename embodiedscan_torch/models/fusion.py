@@ -11,6 +11,7 @@ import torch
 
 from ..geometry.projection import _pad_to_4x4
 from ..ops.segment import gather_rows
+from ..parallel.mesh import view_sum
 
 # the most (point, view, channel) samples held at once: a pseudo-batch of
 # many sweeps over many views (cont_det3d's 50 x 50 at 24576 points and 64
@@ -29,8 +30,8 @@ def point_image_sample_batched(points: torch.Tensor, point_mask: torch.Tensor,
                                img_feats: torch.Tensor, proj: torch.Tensor,
                                aug_inv: torch.Tensor, pad_hw: tuple,
                                mode: str = 'nearest',
-                               view_mask: torch.Tensor | None = None
-                               ) -> torch.Tensor:
+                               view_mask: torch.Tensor | None = None,
+                               view_group=None) -> torch.Tensor:
     """Whole-batch fusion.
 
     Args:
@@ -40,6 +41,10 @@ def point_image_sample_batched(points: torch.Tensor, point_mask: torch.Tensor,
         proj: (BI, V, 4, 4); aug_inv: (BI, 4, 4); view_mask: (BI, S, V).
         pad_hw: network input (H_pad, W_pad).
         mode: 'nearest' or 'bilinear' (zero padding outside).
+        view_group: where the views are split over a mesh's view axis
+            (``parallel.mesh``), its group: the sum and the count over
+            views are summed over it, so that every process of the group
+            gets the mean over all the views.
 
     Returns:
         (BI, S, N, C) float32 valid-view means (zero where no view sees the
@@ -110,8 +115,8 @@ def point_image_sample_batched(points: torch.Tensor, point_mask: torch.Tensor,
 
         sampled = torch.where(ok[..., None], sampled,
                               torch.zeros_like(sampled))
-        cnt = ok.sum(dim=2)  # (BI, S', N)
-        total = sampled.sum(dim=2)  # (BI, S', N, C)
+        cnt = view_sum(ok.sum(dim=2), view_group)  # (BI, S', N)
+        total = view_sum(sampled.sum(dim=2), view_group)  # (BI, S', N, C)
         out = total / torch.clamp(cnt, min=1)[..., None]
         keep = (cnt > 0)[..., None] & point_mask[:, sl, :, None]
         return torch.where(keep, out, torch.zeros_like(out))

@@ -402,7 +402,7 @@ class SparseFusionGrounder(nn.Module):
         denom = torch.clamp(pos.reshape(nl, -1).sum(1).to(cls.dtype) * 8,
                             min=1.0)
         bbox_loss = sum(
-            w * bbox_cd_loss(g_, tb, valid, 'none').reshape(nl, -1).sum(1)
+            w * bbox_cd_loss(g_, tb, valid, reduction='none').reshape(nl, -1).sum(1)
             / denom for w, g_ in zip(self.decouple_weights, groups))
         bbox_loss = torch.nan_to_num(bbox_loss)
         losses = {}

@@ -1,6 +1,5 @@
 """Detection losses, masked over static shapes, and the occupancy head's
-cross-entropy (port of the FCAF3D parts and ``cross_entropy_ignore`` of
-``embodiedscan_tpu/models/losses.py``).
+cross-entropy (port of ``embodiedscan_tpu/models/losses.py``).
 
 Where a value has ties on valid rows, the ops are spelled as JAX
 differentiates them: ``torch.maximum`` and ``torch.amin`` split a gradient
@@ -11,14 +10,10 @@ equally among tied elements, as ``jnp.maximum`` / ``jnp.min`` do
 import numpy as np
 import torch
 
+from ..geometry.iou import _abs, boxes3d_overlap_paired, boxes7d_to_9d
 from ..geometry.rotations import euler_zxy_to_matrix
 
 _EPS = float(np.finfo(np.float32).eps)
-
-
-def _abs(x: torch.Tensor) -> torch.Tensor:
-    """|x| with JAX's gradient: +1 at 0 (``torch.abs`` gives 0 there)."""
-    return torch.where(x >= 0, x, -x)
 
 
 def sigmoid_focal_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -71,27 +66,76 @@ def bbox_to_corners(bbox: torch.Tensor) -> torch.Tensor:
     return bbox[:, None, :3] + rotated
 
 
-def _corner_chamfer(src_c: torch.Tensor, dst_c: torch.Tensor) -> torch.Tensor:
-    """Per-box one-directional L1 chamfer over corners: (N, 8, 3) -> (N, 8)."""
+def _corner_chamfer(src_c: torch.Tensor, dst_c: torch.Tensor,
+                    mode: str) -> torch.Tensor:
+    """Per-box one-directional chamfer over corners, (N, K, 3) -> (N, K):
+    each source corner's distance to the nearest target corner, L1
+    (``'l1'``) or the squared L2 (``'l2'``)."""
     diff = src_c[:, :, None, :] - dst_c[:, None, :, :]
-    return _abs(diff).sum(-1).amin(dim=2)
+    if mode == 'l1':
+        dist = _abs(diff).sum(-1)
+    elif mode == 'l2':
+        dist = (diff * diff).sum(-1)
+    else:
+        raise ValueError(f'unknown cd_mode {mode!r}')
+    return dist.amin(dim=2)
 
 
 def bbox_cd_loss(src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor,
+                 mode: str = 'l1', group: str = 'g8',
                  reduction: str = 'mean') -> torch.Tensor:
-    """Corner chamfer distance between box sets (masked rows excluded), in
-    the head's mode: L1 over all 8 corners (the reference's ``l1``,
-    ``g8``).
+    """Corner chamfer distance between box sets (masked rows excluded):
+    ``group='g8'`` matches each corner among all 8 target corners,
+    ``'g4'`` among the 4 on its own side of the box's x axis.
 
     ``reduction='mean'`` averages over valid boxes x corners; ``'none'``
     returns (N, 8).
     """
-    per = _corner_chamfer(bbox_to_corners(src), bbox_to_corners(dst))
+    sc, dc = bbox_to_corners(src), bbox_to_corners(dst)
+    if group == 'g8':
+        per = _corner_chamfer(sc, dc, mode)
+    elif group == 'g4':
+        per = torch.cat([_corner_chamfer(sc[:, :4], dc[:, :4], mode),
+                         _corner_chamfer(sc[:, 4:], dc[:, 4:], mode)], 1)
+    else:
+        raise ValueError(f'unknown cd_group {group!r}')
     per = torch.where(valid[:, None], per, torch.zeros_like(per))
     if reduction == 'none':
         return per
     denom = torch.clamp(valid.to(per.dtype).sum() * per.shape[1], min=1.0)
     return per.sum() / denom
+
+
+def _valid_mean(loss: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """The mean of ``loss`` over the valid rows (0 without one)."""
+    loss = torch.where(valid, loss, torch.zeros_like(loss))
+    return loss.sum() / torch.clamp(valid.sum(), min=1)
+
+
+def rotated_iou_loss(pred: torch.Tensor, target: torch.Tensor,
+                     valid: torch.Tensor) -> torch.Tensor:
+    """1 - IoU of rotated boxes (the reference's ``RotatedIoU3DLoss``),
+    averaged over the valid rows: (N, 7 or 9) x 2 -> scalar. The exact
+    oriented overlap, differentiated through the clip construction; 7-dim
+    yaw boxes take zero pitch and roll."""
+    _, iou = boxes3d_overlap_paired(boxes7d_to_9d(pred),
+                                    boxes7d_to_9d(target))
+    return _valid_mean(1.0 - iou, valid)
+
+
+def axis_aligned_iou_loss(pred: torch.Tensor, target: torch.Tensor,
+                          valid: torch.Tensor) -> torch.Tensor:
+    """1 - IoU of axis-aligned boxes given as x1y1z1x2y2z2 (the
+    reference's ``AxisAlignedIoULoss``), averaged over the valid rows."""
+    lt = torch.maximum(pred[:, :3], target[:, :3])
+    rb = torch.minimum(pred[:, 3:], target[:, 3:])
+    zero = pred.new_tensor(0.0)
+    whd = torch.maximum(rb - lt, zero)
+    inter = whd[:, 0] * whd[:, 1] * whd[:, 2]
+    vp = torch.prod(torch.maximum(pred[:, 3:] - pred[:, :3], zero), -1)
+    vt = torch.prod(torch.maximum(target[:, 3:] - target[:, :3], zero), -1)
+    iou = inter / torch.maximum(vp + vt - inter, pred.new_tensor(1e-8))
+    return _valid_mean(1.0 - iou, valid)
 
 
 def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor,

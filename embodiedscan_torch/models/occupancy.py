@@ -294,12 +294,17 @@ class DenseFusionOccPredictor(nn.Module):
         # prior range / n_voxels / the MinkResNet's total stride 2^6
         # (dense_fusion_occ.py:88-97): its stride-64 level is the prior grid
         self.voxel_size = (prior_range[3] - prior_range[0]) / n_voxels[0] / 64
+        # the process group over which the views are split
+        # (parallel.mesh.use_mesh), else None; view_branch (below) is
+        # upstream of the sum over views
+        self.view_group = None
         self.prior = _prior_points(prior_range, self.n_voxels, prior_origin)
         self.ResNet_0 = ResNet(depth=resnet_depth,
                                base_channels=resnet_base_channels)
         expansion = 4 if resnet_depth >= 50 else 1
         self.FPN_0 = FPN([resnet_base_channels * 2**i * expansion
                           for i in range(4)], fpn_channels)
+        self.view_branch = (self.ResNet_0, self.FPN_0)
         self.MinkResNet_0 = MinkResNet(depth=mink_depth,
                                        capacities=tuple(backbone_capacities))
         c = fpn_channels + mink_channels(mink_depth)[-1]
@@ -337,7 +342,8 @@ class DenseFusionOccPredictor(nn.Module):
             prior.expand(bi, s, n, 3),
             torch.ones((bi, s, n), dtype=torch.bool, device=pts.device),
             maps.reshape(bi, v, *maps.shape[1:]), batch['proj'],
-            batch['aug_inv'], (h, w), 'nearest', view_mask.reshape(bi, s, v))
+            batch['aug_inv'], (h, w), 'nearest', view_mask.reshape(bi, s, v),
+            self.view_group)
         return vol.reshape(b, *self.n_voxels, maps.shape[-1])
 
     def voxelize(self, batch: dict) -> S.SparseTensor:

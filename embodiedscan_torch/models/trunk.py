@@ -25,7 +25,10 @@ def resnet2d_channels(depth: int) -> tuple:
 
 class SparseFusionTrunk(nn.Module):
     """Voxelize points, run the 3D and 2D backbones, fuse image features per
-    voxel."""
+    voxel. ``view_group``: the process group over which the batch's views
+    are split (``parallel.mesh.use_mesh``), else None; ``view_branch``: the
+    submodules upstream of the sum over views, each process's gradients of
+    which are of its own views alone."""
 
     def __init__(self, voxel_size: float = 0.01, input_capacity: int = 98304,
                  backbone_capacities=(65536, 32768, 24576, 8192, 4096, 2048),
@@ -35,10 +38,12 @@ class SparseFusionTrunk(nn.Module):
         self.voxel_size = voxel_size
         self.input_capacity = input_capacity
         self.img_dtype = img_dtype
+        self.view_group = None
         self.MinkResNet_0 = MinkResNet(depth=mink_depth,
                                        capacities=tuple(backbone_capacities))
         self.ResNet_0 = ResNet(depth=resnet_depth, base_channels=16,
                                dtype=img_dtype)
+        self.view_branch = (self.ResNet_0,)
         self.out_channels = tuple(
             c3 + c2 for c3, c2 in zip(mink_channels(mink_depth),
                                       resnet2d_channels(resnet_depth)))
@@ -73,7 +78,7 @@ class SparseFusionTrunk(nn.Module):
             img_feat = point_image_sample_batched(
                 world.reshape(bi, s, n, 3), lvl.mask.reshape(bi, s, n), f2d,
                 batch['proj'], batch['aug_inv'], (h, w), 'nearest',
-                view_mask.reshape(bi, s, v))
+                view_mask.reshape(bi, s, v), self.view_group)
             img_feat = img_feat.reshape(b, n, -1)
             fused.append(S.SparseTensor(
                 lvl.coords, torch.cat([lvl.feats, img_feat], dim=-1),

@@ -92,24 +92,34 @@ def gather_objects(objs: list) -> list:
     return [x for part in parts for x in part]
 
 
-def pmean_(tensors) -> None:
-    """Replaces each tensor by its mean over the processes, in place: one
-    flat all-reduce per dtype, then a division by the process count (as
-    ``jax.lax.pmean``). Nothing to do for one process outside a group."""
+def psum_(tensors, group=None) -> None:
+    """Replaces each tensor by its sum over the processes of ``group``
+    (default: all), in place: one flat all-reduce per dtype. Nothing to do
+    for one process outside a group."""
     if not dist.is_initialized():
         return
-    world = dist.get_world_size()
     by_dtype = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
     for ts in by_dtype.values():
         flat = torch.cat([t.reshape(-1) for t in ts])
-        dist.all_reduce(flat)
-        flat.div_(world)
+        dist.all_reduce(flat, group=group)
         offset = 0
         for t in ts:
             t.copy_(flat[offset:offset + t.numel()].view_as(t))
             offset += t.numel()
+
+
+def pmean_(tensors, group=None) -> None:
+    """Replaces each tensor by its mean over the processes of ``group``
+    (default: all), in place: :func:`psum_`, then a division by the
+    group's size (as ``jax.lax.pmean``)."""
+    if not dist.is_initialized():
+        return
+    psum_(tensors, group)
+    world = dist.get_world_size(group)
+    for t in tensors:
+        t.div_(world)
 
 
 def all_processes_scalar(x) -> float:

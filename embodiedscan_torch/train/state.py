@@ -123,7 +123,7 @@ def make_optimizer(model: nn.Module, cfg,
 
 
 def train_step(model: nn.Module, optimizer: ClippedAdamW,
-               batch: dict) -> dict:
+               batch: dict, mesh=None) -> dict:
     """One update: zero the gradients, ``model(batch, mode='loss')``, sum
     the losses, backward, clip, AdamW. Returns the losses and
     ``loss_total`` (detached tensors on the model's device).
@@ -137,8 +137,16 @@ def train_step(model: nn.Module, optimizer: ClippedAdamW,
     after the update; and of the losses returned. A parameter of the
     optimizer that the loss does not reach counts as a zero gradient on
     every process; frozen parameters are outside the optimizer and the
-    reduction."""
-    from ..parallel.multihost import pmean_
+    reduction.
+
+    With a ``mesh`` (``parallel.mesh.make_mesh``) whose view axis splits
+    the batch's views (``shard_batch``; the model pointed at it by
+    ``use_mesh``), the gradients of the 2D branch (the ``view_branch`` of
+    each module with one), each of its own views, are first summed over
+    the view axis, and every mean is taken over the data axis alone (the
+    processes of a view group hold the same rows)."""
+    from ..parallel.multihost import pmean_, psum_
+    group = None if mesh is None else mesh.data_group
     optimizer.zero_grad(set_to_none=True)
     losses = model(batch, mode='loss')
     total = sum(losses.values())
@@ -147,11 +155,17 @@ def train_step(model: nn.Module, optimizer: ClippedAdamW,
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    pmean_([p.grad for p in params])
+    if mesh is not None and mesh.view_group is not None:
+        ids = {id(p) for p in params}
+        view = [p.grad for mod in model.modules()
+                for sub in getattr(mod, 'view_branch', ())
+                for p in sub.parameters() if id(p) in ids]
+        psum_(view, mesh.view_group)
+    pmean_([p.grad for p in params], group)
     optimizer.step()
     with torch.no_grad():
-        pmean_([b for b in model.buffers() if b.is_floating_point()])
+        pmean_([b for b in model.buffers() if b.is_floating_point()], group)
     metrics = dict(losses, loss_total=total)
     vals = torch.stack([v.detach() for v in metrics.values()])
-    pmean_([vals])
+    pmean_([vals], group)
     return dict(zip(metrics, vals.unbind()))

@@ -288,3 +288,121 @@ def dist_worker(rank, world, init_method, job_path):
                 pickle.dump(out, f)
     finally:
         dist.destroy_process_group()
+
+
+def view_worker(rank, world, init_method, job_path):
+    """One gloo rank of a ``(data, view)`` grid of ``world // job['view']``
+    x ``job['view']`` processes (``torch.multiprocessing``; importable
+    without JAX). ``job_path`` holds a pickled dict: ``'kind'`` 'step' (the
+    tiny detector of ``TINY_DET`` from ``'state'``, one ``train_step`` on
+    ``shard_batch`` of ``'batch'`` with the mesh, recording the gradients
+    AdamW receives) or 'occ' (``'occ'``'s occupancy model from ``'state'``
+    serving this rank's shard of ``'batch'``: its per-scale logits and
+    class ids); rank 0 writes its result to ``job_path + '.out'``."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from embodiedscan_torch.parallel.mesh import (make_mesh, shard_batch,
+                                                  use_mesh)
+    from embodiedscan_torch.parallel.multihost import init_distributed
+    with open(job_path, 'rb') as f:
+        job = pickle.load(f)
+    assert init_distributed('cpu', init_method, world, rank)
+    try:
+        mesh = make_mesh(view_parallel=job['view'])
+        batch = shard_batch(mesh, {k: torch.from_numpy(v)
+                                   for k, v in job['batch'].items()})
+        model = build_view_model(job)
+        model.load_state_dict({k: torch.from_numpy(v)
+                               for k, v in job['state'].items()})
+        use_mesh(model, mesh)
+        out = run_view_job(job, model, batch, mesh)
+        out['shapes'] = {k: tuple(v.shape) for k, v in batch.items()}
+        if rank == 0:
+            with open(job_path + '.out', 'wb') as f:
+                pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_worker(rank, world, init_method, job_path):
+    """One gloo rank of ``world`` (``torch.multiprocessing``; importable
+    without JAX): for each ``view_parallel`` k of the pickled job's
+    ``'views'``, ``make_mesh``'s grid, rank and coordinates, the ranks of
+    its data and view groups, ``view_sum`` of ``2 ** rank`` over the view
+    group and ``pmean_`` of it over the data group (which ranks took part,
+    bit by bit), and this rank's ``shard_batch`` of ``'batch'``; written to
+    ``job_path + f'.{rank}'``."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from embodiedscan_torch.parallel.mesh import (make_mesh, shard_batch,
+                                                  view_sum)
+    from embodiedscan_torch.parallel.multihost import (init_distributed,
+                                                       pmean_)
+    with open(job_path, 'rb') as f:
+        job = pickle.load(f)
+    assert init_distributed('cpu', init_method, world, rank)
+    try:
+        out = {}
+        for k in job['views']:
+            mesh = make_mesh(view_parallel=k)
+            mine = torch.tensor([2.0 ** rank], dtype=torch.float64)
+            mean = mine.clone()
+            pmean_([mean], mesh.data_group)
+            out[k] = dict(
+                grid=mesh.grid, rank=mesh.rank, coords=mesh.coords(),
+                data=(list(range(world)) if mesh.data_group is None else
+                      dist.get_process_group_ranks(mesh.data_group)),
+                view=([rank] if mesh.view_group is None else
+                      dist.get_process_group_ranks(mesh.view_group)),
+                view_sum=float(view_sum(mine, mesh.view_group)),
+                data_mean=float(mean),
+                shards=shard_batch(mesh, job['batch']))
+        with open(f'{job_path}.{rank}', 'wb') as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def build_view_model(job):
+    """The model of a :func:`view_worker` job, before its weights."""
+    if job['kind'] == 'step':
+        from embodiedscan_torch.models.detector import SparseFusionDetector
+        return SparseFusionDetector(**TINY_DET).train()
+    from embodiedscan_torch.models.occupancy import DenseFusionOccPredictor
+    return DenseFusionOccPredictor(**job['occ']).eval()
+
+
+def run_view_job(job, model, batch, mesh=None):
+    """A :func:`view_worker` job's work on ``batch`` (the whole batch
+    without a ``mesh``): a train step's losses, the gradients AdamW
+    receives and the norms' statistics after it, or a request's logits
+    and class ids; all as numpy."""
+    if job['kind'] == 'occ':
+        logits = model(batch, mode='feats')
+        return dict(logits=[t.numpy() for t in logits],
+                    classes=model.OccHead_0.predict(logits).numpy())
+    from embodiedscan_torch.configs.base import Config
+    from embodiedscan_torch.train.loop import lr_mult_fn_for
+    from embodiedscan_torch.train.state import make_optimizer, train_step
+    from embodiedscan_torch.utils.convert_weights import export_jax_tree
+    opt = make_optimizer(model, Config(), lr_mult_fn_for('mv_det3d'),
+                         steps_per_epoch=100)
+    grads = {}
+    step = opt.step
+
+    def step_recording(closure=None):
+        # frozen parameters, outside the optimizer, read as zero
+        for p in model.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads.update(_copy(export_jax_tree(model, 'grads')))
+        return step(closure)
+
+    opt.step = step_recording
+    metrics = train_step(model, opt, batch, mesh)
+    return dict(grads=grads, stats=_copy(export_jax_tree(model, 'buffers')),
+                metrics={k: float(v) for k, v in metrics.items()})
