@@ -155,20 +155,33 @@ Phases (one line each; any failure exits non-zero before the last line):
      3, norm_decouple_loss and the undecoupled chamfer); [capacity]
      ``tools.occupancy_histogram`` at the bench scale on the card and the
      cpu, every count identical; [quality] ``tools.quality_smoke --steps
-     100`` on the card, its report in chiprun_out/quality_smoke.md, failing
+     60`` on the card, its report in chiprun_out/quality_smoke.md, failing
      on its gate.
+12c. the bf16 sparse-conv route and remat, in a process of their own
+     (``--precision``): the edge shapes of K2-bf16 and K3-bf16;
+     [sparse_bf16] the full-width mv_det3d under
+     ``set_conv_compute_dtype(torch.bfloat16)`` serving three of [main]'s
+     requests and taking three of [train]'s steps (latency, step, split,
+     peak, wrapper calls), every K2-bf16 and K3-bf16 call of the warm-up
+     request and step replayed against its plain version (within 1e-4 x
+     max|ref|, the same bits twice) and timed beside it, the bound at the
+     bf16 peak and the library call in bfloat16; the small detector in
+     bf16 mode card vs cpu; [remat] the full-width mv_det3d step at b = 4
+     under 'none', '2d', '3d' and 'all' and the cont_occ 10-sweep step
+     under 'all' and 'none' (step, peak, wrapper calls; every gradient
+     and statistic against 'none''s).
  13. one JSON line with the kernels (each kernel's row on the detection
      and grounding paths, then on the occupancy paths, then on the
      continuous ones, then on the loop's step, the demo's request and
-     ChannelMapper), then the result line.
+     ChannelMapper, then the bf16 variants'), then the result line.
 Per-call details go to chiprun_out/chip_smoke_calls.json,
-chiprun_out/chip_smoke_cont.json, chiprun_out/chip_smoke_loop.json and
-chiprun_out/chip_smoke_demo.json.
+chiprun_out/chip_smoke_cont.json, chiprun_out/chip_smoke_loop.json,
+chiprun_out/chip_smoke_demo.json and chiprun_out/chip_smoke_precision.json.
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1 and 9 and stops
 (no result line): the quickest check that the kernels build and agree.
-``python3 chip_smoke.py --cont`` runs phase 11 alone, ``--loop`` phase 12
-and ``--heads`` phase 12b (no result line).
+``python3 chip_smoke.py --cont`` runs phase 11 alone, ``--loop`` phase 12,
+``--heads`` phase 12b and ``--precision`` phase 12c (no result line).
 """
 
 import contextlib
@@ -188,6 +201,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12
+BF16_FLOPS = 989e12  # dense bf16 tensor cores (K2-bf16, K3-bf16)
 # wrapper calls per request: K2 by route (the stem's Cin = 3 takes SIMT);
 # serving runs no backward kernel
 EXPECTED_LAUNCHES = {'sparse_conv_tc': 43, 'sparse_conv_simt': 1,
@@ -384,15 +398,19 @@ class Recorder:
     ``conv``: K2's forward calls (feats, mask, nbr, weights, bias);
     ``dgrad``: K2's input-gradient calls (dout, out_mask, table, weights_t,
     None); ``wgrad``: K3's calls (x, x_mask, idx, y, y_mask); ``scan``:
-    K1's calls. A name the checkout lacks (an earlier one, timed by
-    kernel_ab.py) is not patched.
+    K1's calls; ``conv16``, ``dgrad16``, ``wgrad16``: the same of K2-bf16
+    and K3-bf16 (their float32 inputs). A call made inside a logged one
+    (a plain bf16 version's float32 core) is not logged again. A name the
+    checkout lacks (an earlier one, timed by kernel_ab.py) is not patched.
     """
 
     def __init__(self, S, P):
         self.S, self.P = S, P
         self.conv, self.dgrad, self.wgrad, self.scan = [], [], [], []
+        self.conv16, self.dgrad16, self.wgrad16 = [], [], []
         self.orig = []
         self.in_dgrad = False
+        self.busy = False
 
     def _patch(self, mod, name, make):
         fn = getattr(mod, name, None)
@@ -401,12 +419,17 @@ class Recorder:
             # wraps() shares the wrapper's attributes (launch counts) too
             setattr(mod, name, functools.wraps(fn)(make(fn)))
 
-    @staticmethod
-    def _logging(log_of):
+    def _logging(self, log_of):
         def make(fn):
-            def wrapped(*args):
+            def wrapped(*args, **kw):
+                if self.busy:
+                    return fn(*args, **kw)
                 log_of().append(args[:5])
-                return fn(*args)
+                self.busy = True
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    self.busy = False
             return wrapped
         return make
 
@@ -414,19 +437,27 @@ class Recorder:
         def k2_log():
             return self.dgrad if self.in_dgrad else self.conv
 
+        def k2_log16():
+            return self.dgrad16 if self.in_dgrad else self.conv16
+
         def dgrad(fn):
-            def wrapped(*args):
+            def wrapped(*args, **kw):
                 self.in_dgrad = True
-                out = fn(*args)
+                out = fn(*args, **kw)
                 self.in_dgrad = False
                 return out
             return wrapped
 
         for name in ('_gather_matmul_conv_cuda', '_gather_matmul_conv_plain'):
             self._patch(self.S, name, self._logging(k2_log))
+        for name in ('_gather_matmul_conv_bf16_cuda',
+                     '_gather_matmul_conv_bf16_plain'):
+            self._patch(self.S, name, self._logging(k2_log16))
         self._patch(self.S, 'conv_dgrad', dgrad)
         for name in ('_conv_wgrad_cuda', '_conv_wgrad_plain'):
             self._patch(self.S, name, self._logging(lambda: self.wgrad))
+        for name in ('_conv_wgrad_bf16_cuda', '_conv_wgrad_bf16_plain'):
+            self._patch(self.S, name, self._logging(lambda: self.wgrad16))
         for name in ('_join_scan_cuda', '_join_scan_plain'):
             self._patch(self.P, name, self._logging(lambda: self.scan))
         return self
@@ -439,7 +470,8 @@ class Recorder:
         """Moves every recorded tensor to host memory: the device then holds
         nothing of the recorded run (replays copy one call back at a
         time)."""
-        for log_ in (self.conv, self.dgrad, self.wgrad, self.scan):
+        for log_ in (self.conv, self.dgrad, self.wgrad, self.scan,
+                     self.conv16, self.dgrad16, self.wgrad16):
             log_[:] = [_on(args, 'cpu') for args in log_]
 
 
@@ -628,9 +660,8 @@ def ground_stage_times(model, batch):
 
 
 def reset_counts(S, P):
-    S.gather_matmul_conv.launches = {'tc': 0, 'simt': 0}
-    S.conv_dgrad.launches = {'tc': 0, 'simt': 0}
-    S.conv_wgrad.launches = {'tc': 0, 'narrow': 0}
+    for fn in (S.gather_matmul_conv, S.conv_dgrad, S.conv_wgrad):
+        fn.launches = dict.fromkeys(fn.launches, 0)
     P.join_scan.launches = 0
 
 
@@ -824,9 +855,12 @@ def train_steps(tag, model, opt, batch, want, record=True):
         torch.cuda.synchronize()
     check_counts(read_counts(S, P), want, f'{tag} warm-up step')
     rec.to_host()
+    bf16 = len(rec.conv16) + len(rec.dgrad16) + len(rec.wgrad16)
     log(f'[{tag}] warm-up step {time.perf_counter() - t0:.2f} s, '
         f'{len(rec.conv)} conv, {len(rec.dgrad)} dgrad, {len(rec.wgrad)} '
-        f'wgrad and {len(rec.scan)} join-scan calls recorded')
+        f'wgrad and {len(rec.scan)} join-scan calls recorded' +
+        (f'; bf16: {len(rec.conv16)} conv, {len(rec.dgrad16)} dgrad, '
+         f'{len(rec.wgrad16)} wgrad' if bf16 else ''))
     history = [metrics]
     step_ms, mem = [], []
     totals = dict.fromkeys(want, 0)
@@ -998,12 +1032,21 @@ def device_profile(fn):
     return sum(e.count for e in ev), sum(_self_device_us(e) for e in ev) / 1e3
 
 
-def _check_conv(S, feats, mask, nbr, w, bias, what, plan=None):
-    """Kernel vs plain within the gate, and the same bits twice; returns
-    (out, max|d|, max|ref|)."""
-    ref = S._gather_matmul_conv_plain(feats, mask, nbr, w, bias)
-    got = S._gather_matmul_conv_cuda(feats, mask, nbr, w, bias, plan)
-    again = S._gather_matmul_conv_cuda(feats, mask, nbr, w, bias, plan)
+def _conv_fns(S, bf16):
+    """(plain, kernel) of K2, or of K2-bf16 with ``bf16``."""
+    if bf16:
+        return S._gather_matmul_conv_bf16_plain, \
+            S._gather_matmul_conv_bf16_cuda
+    return S._gather_matmul_conv_plain, S._gather_matmul_conv_cuda
+
+
+def _check_conv(S, feats, mask, nbr, w, bias, what, plan=None, bf16=False):
+    """Kernel (K2-bf16 with ``bf16``) vs plain within the gate, and the
+    same bits twice; returns (out, max|d|, max|ref|)."""
+    plain, kernel = _conv_fns(S, bf16)
+    ref = plain(feats, mask, nbr, w, bias)
+    got = kernel(feats, mask, nbr, w, bias, plan)
+    again = kernel(feats, mask, nbr, w, bias, plan)
     err = float((got - ref).abs().max()) if ref.numel() else 0.0
     scale = float(ref.abs().max()) if ref.numel() else 0.0
     if not err <= CONV_GATE * max(scale, 1e-30):
@@ -1016,18 +1059,22 @@ def _check_conv(S, feats, mask, nbr, w, bias, what, plan=None):
     return got, err, scale
 
 
-def _check_wgrad(S, x, xm, idx, y, ym, what, plan=None):
-    """K3 vs its plain versions: the pair lists and counts of the call
-    identical to ``_wgrad_pairs_plain``, G within the gate of
-    ``_conv_wgrad_plain``, and the same bits twice; returns (G, max|d|,
-    max|ref|, counts)."""
-    plan = plan or S.cuda_wgrad_plan(x, idx, y)
+def _check_wgrad(S, x, xm, idx, y, ym, what, plan=None, bf16=False):
+    """K3 (K3-bf16 with ``bf16``) vs its plain versions: the pair lists and
+    counts of the call identical to ``_wgrad_pairs_plain``, G within the
+    gate of ``_conv_wgrad_plain`` (``_conv_wgrad_bf16_plain``), and the
+    same bits twice; returns (G, max|d|, max|ref|, counts)."""
+    if bf16:
+        plan = plan or S.bf16_wgrad_plan(x, idx, y)
+        plain, kernel = S._conv_wgrad_bf16_plain, S._conv_wgrad_bf16_cuda
+    else:
+        plan = plan or S.cuda_wgrad_plan(x, idx, y)
+        plain, kernel = S._conv_wgrad_plain, S._wgrad_cuda
     shape = f'{tuple(idx.shape)} x {x.shape[1]} x {y.shape[1]}'
-    ref = S._conv_wgrad_plain(x, xm, idx, y, ym)
+    ref = plain(x, xm, idx, y, ym)
     want_pairs, want_counts = S._wgrad_pairs_plain(xm, idx, ym)
-    got, pairs, counts = S._wgrad_cuda(x, xm, idx, y, ym, plan, lists=True)
-    again, pairs2, counts2 = S._wgrad_cuda(x, xm, idx, y, ym, plan,
-                                           lists=True)
+    got, pairs, counts = kernel(x, xm, idx, y, ym, plan, lists=True)
+    again, pairs2, counts2 = kernel(x, xm, idx, y, ym, plan, lists=True)
     if not (torch.equal(counts, want_counts) and torch.equal(counts2,
                                                              want_counts)):
         raise RuntimeError(f'sparse_wgrad {what} {shape}: counts differ '
@@ -1047,10 +1094,10 @@ def _check_wgrad(S, x, xm, idx, y, ym, what, plan=None):
     return got, err, scale, want_counts
 
 
-def _wgrad_work_share(S, plan, counts, r, k):
+def _wgrad_work_share(S, plan, counts, r, k, bf16=False):
     """The pairs K3 computes over R x K: each chunk's pairs, rounded up to
-    a whole 32-pair step on the tensor-core route."""
-    step = S.WG_STEP if plan.route == 'tc' else 1
+    a whole 32-pair step on the tensor-core route (64 on K3-bf16's)."""
+    step = (2 if bf16 else 1) * S.WG_STEP if plan.route == 'tc' else 1
     done = sum(-(-(p1 - p0) // step) * step for n in counts.tolist()
                for p0, p1 in S.wgrad_chunk_bounds(n, plan.chunks))
     return done / max(r * k, 1)
@@ -1069,30 +1116,35 @@ def _wgrad_bound(x, xm, idx, y, ym):
     return nbytes, 2.0 * cx * cy * hits, hits
 
 
-def _bound(nbytes, flops):
+def _bound(nbytes, flops, bf16=False):
     """(bound ms, by what, FP32 bound ms): bytes at the HBM rate against
-    3xTF32 operations (3 TF32 products each) at the TF32 peak."""
+    3xTF32 operations (3 TF32 products each) at the TF32 peak, or with
+    ``bf16`` bf16 operations at the bf16 peak."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 3 * flops / TF32_FLOPS
+    t_ops = flops / BF16_FLOPS if bf16 else 3 * flops / TF32_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
             'bytes' if t_bytes >= t_ops else 'operations',
             max(t_bytes, flops / FP32_FLOPS) * 1e3)
 
 
-def _conv_call(S, feats, mask, nbr, w, bias, what, run, timing):
-    """One K2 call (forward, or dgrad with ``run`` = conv_dgrad): checked,
-    then timed (``cuda_ms(**timing)``) beside its plain version and the
-    library gather-matmul."""
-    plan = S.cuda_plan(feats, nbr, w)
-    _, err, scale = _check_conv(S, feats, mask, nbr, w, bias, what)
+def _conv_call(S, feats, mask, nbr, w, bias, what, run, timing, bf16=False):
+    """One K2 call (forward, or dgrad with ``run`` = conv_dgrad; K2-bf16
+    with ``bf16``): checked, then timed (``cuda_ms(**timing)``) beside its
+    plain version and the library gather-matmul (in bfloat16 with
+    ``bf16``)."""
+    plan = S.bf16_plan(nbr, feats, w) if bf16 else S.cuda_plan(feats, nbr, w)
+    _, err, scale = _check_conv(S, feats, mask, nbr, w, bias, what,
+                                bf16=bf16)
+    plain = _conv_fns(S, bf16)[0]
+    dtype = torch.bfloat16 if bf16 else feats.dtype
     padded = torch.cat([torch.where(mask[:, None], feats,
                                     torch.zeros_like(feats)),
-                        feats.new_zeros(1, feats.shape[1])])
+                        feats.new_zeros(1, feats.shape[1])]).to(dtype)
     idx = torch.where(nbr >= 0, nbr, torch.full_like(nbr, feats.shape[0]))
     kcin = w.shape[0] * w.shape[1]
-    w2 = w.reshape(kcin, w.shape[2])
+    w2 = w.reshape(kcin, w.shape[2]).to(dtype)
     nbytes, flops, hits = _conv_bound(feats, mask, nbr, w, bias)
-    bound, by, bound32 = _bound(nbytes, flops)
+    bound, by, bound32 = _bound(nbytes, flops, bf16)
     m, k = nbr.shape
     return dict(
         m=m, k=k, cin=w.shape[1], cout=w.shape[2], n=feats.shape[0],
@@ -1100,37 +1152,40 @@ def _conv_call(S, feats, mask, nbr, w, bias, what, run, timing):
         per_split=plan.per_split, hit_share=hits / (m * k),
         work_share=_work_share(mask, nbr, plan.bm), max_abs_err=err,
         max_abs_ref=scale, deterministic=True, ms=cuda_ms(run, **timing),
-        plain_ms=cuda_ms(lambda: S._gather_matmul_conv_plain(
-            feats, mask, nbr, w, bias), **timing),
+        plain_ms=cuda_ms(lambda: plain(feats, mask, nbr, w, bias), **timing),
         library_ms=cuda_ms(lambda: padded[idx].reshape(-1, kcin) @ w2,
                            **timing),
         bytes=nbytes, flops=flops, bound_ms=bound, bound_by=by,
         bound_fp32_ms=bound32)
 
 
-def _wgrad_call(S, x, xm, idx, y, ym, timing):
-    """One K3 call: checked, then timed (``cuda_ms(**timing)``) beside its
-    plain version and the library product of x^T with the gathered y
-    rows."""
-    plan = S.cuda_wgrad_plan(x, idx, y)
-    _, err, scale, counts = _check_wgrad(S, x, xm, idx, y, ym, 'main')
+def _wgrad_call(S, x, xm, idx, y, ym, timing, bf16=False):
+    """One K3 call (K3-bf16 with ``bf16``): checked, then timed
+    (``cuda_ms(**timing)``) beside its plain version and the library
+    product of x^T with the gathered y rows (in bfloat16 with
+    ``bf16``)."""
+    plan = S.bf16_wgrad_plan(x, idx, y) if bf16 else \
+        S.cuda_wgrad_plan(x, idx, y)
+    _, err, scale, counts = _check_wgrad(S, x, xm, idx, y, ym, 'main',
+                                         bf16=bf16)
+    plain = S._conv_wgrad_bf16_plain if bf16 else S._conv_wgrad_plain
+    dtype = torch.bfloat16 if bf16 else x.dtype
     r, k, cy = x.shape[0], idx.shape[1], y.shape[1]
-    xs = torch.where(xm[:, None], x, torch.zeros_like(x))
+    xs = torch.where(xm[:, None], x, torch.zeros_like(x)).to(dtype)
     ypad = torch.cat([torch.where(ym[:, None], y, torch.zeros_like(y)),
-                      y.new_zeros(1, cy)])
+                      y.new_zeros(1, cy)]).to(dtype)
     gi = torch.where(idx >= 0, idx, torch.full_like(idx, y.shape[0])).long()
     nbytes, flops, hits = _wgrad_bound(x, xm, idx, y, ym)
-    bound, by, bound32 = _bound(nbytes, flops)
+    bound, by, bound32 = _bound(nbytes, flops, bf16)
     return dict(
         r=r, k=k, cx=x.shape[1], cy=cy, ny=y.shape[0], route=plan.route,
         tile=[plan.bm, plan.bn], chunks=plan.chunks,
         hit_share=hits / max(r * k, 1),
-        work_share=_wgrad_work_share(S, plan, counts, r, k),
+        work_share=_wgrad_work_share(S, plan, counts, r, k, bf16),
         max_abs_err=err, max_abs_ref=scale,
-        deterministic=True, ms=cuda_ms(lambda: S.conv_wgrad(x, xm, idx, y,
-                                                            ym), **timing),
-        plain_ms=cuda_ms(lambda: S._conv_wgrad_plain(x, xm, idx, y, ym),
-                         **timing),
+        deterministic=True, ms=cuda_ms(lambda: S.conv_wgrad(
+            x, xm, idx, y, ym, bf16=bf16), **timing),
+        plain_ms=cuda_ms(lambda: plain(x, xm, idx, y, ym), **timing),
         library_ms=cuda_ms(lambda: xs.T @ ypad[gi].reshape(r, k * cy),
                            **timing),
         bytes=nbytes, flops=flops, bound_ms=bound, bound_by=by,
@@ -1499,6 +1554,132 @@ def phase_edges(device):
     log('[edges] kernel == plain (join scan bit-exact, sparse conv and '
         f'weight gradient within {CONV_GATE} x max|ref| and the same bits '
         'twice): ' +
+        '; '.join(checked))
+
+
+@torch.no_grad()
+def phase_edges_bf16(device):
+    """Edge shapes of K2-bf16 and K3-bf16 on the card against their plain
+    versions (the float32 inputs rounded to bfloat16, float32 sums): the
+    SIMT and narrow routes at C = 3, the tensor-core routes from their
+    least channels (8) up, the shapes whose channels are not 16-byte chunks
+    of bfloat16 (12, 284: the SIMT and narrow routes), ragged rows, K = 1,
+    a split K2 call against the unsplit one, K3's 64-pair steps at offsets
+    of 1, 63, 64 and 65 pairs, many chunks against one, all-absent and
+    all-masked tables."""
+    from embodiedscan_torch.ops import sparse as S
+    g = torch.Generator(device=device).manual_seed(1)
+    checked = []
+
+    def conv(what, *shape, route, plan=None, **kw):
+        feats, mask, nbr, w, b = _conv_case(g, *shape, device=device, **kw)
+        plan = plan or S.bf16_plan(nbr, feats, w)
+        if plan.route != route:
+            raise RuntimeError(f'bf16 {what}: route {plan.route}, want '
+                               f'{route}')
+        out, err, scale = _check_conv(S, feats, mask, nbr, w, b,
+                                      f'bf16 {what}', plan, bf16=True)
+        checked.append(f'{what} ({plan.route}, split {plan.splits}, '
+                       f'max|d|/max|ref| {err / max(scale, 1e-30):.1e})')
+        return out, scale, (feats, mask, nbr, w, b), plan
+
+    conv('cin3', 5000, 4100, 27, 3, 64, route='simt')
+    conv('cin8', 3000, 3000, 27, 8, 8, route='tc')
+    conv('cin12', 3000, 3000, 27, 12, 64, route='simt')
+    conv('cout284', 3000, 2000, 27, 64, 284, route='simt')
+    conv('k1', 9000, 777, 1, 64, 128, route='tc')
+    conv('ragged_m', 3000, 1001, 27, 64, 64, route='tc', bias=False)
+    conv('cout128', 8000, 8191, 27, 128, 128, route='tc')
+    conv('cout512', 4000, 2047, 27, 512, 512, route='tc')
+    conv('c1024', 2048, 1024, 27, 1024, 1024, route='tc')
+    conv('wide_m', 70000, 65536, 27, 128, 128, route='tc', hit=0.25)
+    a, scale, args, plan = conv('split', 4000, 4096, 27, 256, 256,
+                                route='tc')
+    if plan.splits == 1:
+        raise RuntimeError('bf16 split case: no split')
+    c, _, _ = _check_conv(S, *args, 'bf16 unsplit',
+                          plan._replace(splits=1, per_split=27), bf16=True)
+    d = float((a - c).abs().max())
+    if not d <= CONV_GATE * scale:
+        raise RuntimeError(f'bf16 split vs unsplit: max|d| {d}')
+    checked.append(f'split {plan.splits}x{plan.per_split} vs unsplit '
+                   f'(max|d| {d:.3g})')
+    for what in ('all_absent', 'all_masked'):
+        feats, mask, nbr, w, b = _conv_case(g, 2000, 1500, 27, 64, 128,
+                                            device=device)
+        if what == 'all_absent':
+            nbr = torch.full_like(nbr, -1)
+        else:
+            mask = torch.zeros_like(mask)
+        got, _, _ = _check_conv(S, feats, mask, nbr, w, b, f'bf16 {what}',
+                                bf16=True)
+        if not torch.equal(got, b.expand_as(got)):
+            raise RuntimeError(f'bf16 {what}: output is not the bias')
+        checked.append(what)
+
+    def wgrad(what, *shape, route, hit=0.3, edit=None):
+        x, xm, idx, y, ym = _wgrad_case(g, *shape, hit=hit, device=device)
+        if edit is not None:
+            x, xm, idx, y, ym = edit(x, xm, idx, y, ym)
+        plan = S.bf16_wgrad_plan(x, idx, y)
+        if plan.route != route:
+            raise RuntimeError(f'bf16 wgrad {what}: route {plan.route}, '
+                               f'want {route}')
+        got, err, scale, counts = _check_wgrad(S, x, xm, idx, y, ym,
+                                               f'bf16 {what}', plan,
+                                               bf16=True)
+        checked.append(f'wgrad {what} ({plan.route} {plan.bm}x{plan.bn}, '
+                       f'chunks {plan.chunks}, max|d|/max|ref| '
+                       f'{err / max(scale, 1e-30):.1e})')
+        return got, counts
+
+    def set_counts(x, xm, idx, y, ym):  # offsets 0-3: 1, 63, 64, 65 pairs
+        xm, ym = torch.ones_like(xm), torch.ones_like(ym)
+        idx[:, :4] = -1
+        for j, n in enumerate((1, 63, 64, 65)):
+            idx[:n, j] = torch.arange(n, dtype=idx.dtype, device=device)
+        return x, xm, idx, y, ym
+
+    wgrad('cy3', 5000, 6000, 27, 64, 3, route='narrow')
+    wgrad('cx3', 6000, 5000, 27, 3, 64, route='narrow')
+    wgrad('c12x64', 3000, 3000, 27, 12, 64, route='narrow')
+    wgrad('c8', 3000, 3000, 27, 8, 8, route='tc')
+    wgrad('c200x136', 3000, 3000, 27, 200, 136, route='tc')
+    wgrad('k1', 9000, 9000, 1, 64, 128, route='tc')
+    wgrad('ragged_r', 1001, 3000, 27, 64, 64, route='tc')
+    wgrad('c128', 8192, 8192, 27, 128, 128, route='tc')
+    wgrad('c512', 2048, 2048, 27, 512, 512, route='tc')
+    wgrad('c64x512', 4096, 2048, 27, 64, 512, route='tc')
+    wgrad('c1024', 2048, 2048, 27, 1024, 1024, route='tc')
+    _, counts = wgrad('counts_1_63_64_65', 3000, 3000, 27, 64, 64,
+                      route='tc', edit=set_counts)
+    if counts[:4].tolist() != [1, 63, 64, 65]:
+        raise RuntimeError(f'bf16 wgrad counts {counts[:4].tolist()}')
+    for what, c in (('all_absent', 128), ('all_absent_narrow', 3)):
+        got, counts = wgrad(
+            what, 2000, 1500, 27, 64, c, route='tc' if c > 3 else 'narrow',
+            edit=lambda x, xm, idx, y, ym: (x, xm, torch.full_like(idx, -1),
+                                            y, ym))
+        if got.any() or counts.any():
+            raise RuntimeError(f'bf16 wgrad {what}: output is not zero')
+    for route, c in (('tc', 64), ('narrow', 3)):
+        x, xm, idx, y, ym = _wgrad_case(g, 8192, 8192, 27, 64, c,
+                                        device=device)
+        plan = S.bf16_wgrad_plan(x, idx, y)
+        if plan.route != route or plan.chunks < 4:
+            raise RuntimeError(f'bf16 wgrad chunked case: {plan}')
+        a, _, scale, _ = _check_wgrad(S, x, xm, idx, y, ym, 'bf16 chunks',
+                                      plan, bf16=True)
+        c1, _, _, _ = _check_wgrad(S, x, xm, idx, y, ym, 'bf16 one chunk',
+                                   plan._replace(chunks=1), bf16=True)
+        d = float((a - c1).abs().max())
+        if not d <= SPLIT_GATE * scale:
+            raise RuntimeError(f'bf16 wgrad {route} {plan.chunks} chunks vs '
+                               f'one: max|d| {d} > {SPLIT_GATE} x {scale}')
+        checked.append(f'wgrad {route} {plan.chunks} chunks vs one '
+                       f'(max|d|/max|ref| {d / scale:.2e})')
+    log('[edges] bf16 kernels == plain (K2-bf16 and K3-bf16 within '
+        f'{CONV_GATE} x max|ref| and the same bits twice): ' +
         '; '.join(checked))
 
 
@@ -3510,7 +3691,7 @@ def kernel_rows(calls, groups):
     wgrad = 'embodiedscan_torch/csrc/sparse_conv_wgrad.cu'
     for suffix, counts, paths in groups:
         def of(name, route=None):
-            return [r for r in calls[name] if r['path'] in paths and
+            return [r for r in calls.get(name, []) if r['path'] in paths and
                     (route is None or r['route'] == route)]
 
         meta = {  # kernel -> (source, replaces, its calls)
@@ -3523,6 +3704,14 @@ def kernel_rows(calls, groups):
             'sparse_wgrad_tc': (wgrad, bwd, of('sparse_wgrad', 'tc')),
             'sparse_wgrad_narrow': (wgrad, bwd,
                                     of('sparse_wgrad', 'narrow')),
+            # the bfloat16 variants (the reference's bf16 route)
+            'sparse_conv_tc_bf16': (*conv, of('sparse_conv_bf16', 'tc')),
+            'sparse_conv_simt_bf16': (*conv,
+                                      of('sparse_conv_bf16', 'simt')),
+            'sparse_dgrad_tc_bf16': (conv[0], bwd,
+                                     of('sparse_dgrad_bf16', 'tc')),
+            'sparse_wgrad_tc_bf16': (wgrad, bwd,
+                                     of('sparse_wgrad_bf16', 'tc')),
         }
         for name, (source, replaces, rs) in meta.items():
             if name not in counts:  # not a kernel of the group's paths
@@ -4047,7 +4236,10 @@ def main_loop():
     log('[loop] seconds per part: ' + ', '.join(
         f'{k} {v:.1f}' for k, v in took.items()))
     stats.update(seconds=took)
-    rows = kernel_rows(calls, ((' (loop)', totals, ('loop', )), )) + \
+    # the loop's kernels: those of a train step (its counts also hold the
+    # bf16 variants', which the float32 loop never launches)
+    rows = kernel_rows(calls, ((' (loop)', {
+        k: totals[k] for k in EXPECTED_TRAIN_LAUNCHES}, ('loop', )), )) + \
         demo['rows']
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, 'chip_smoke_loop.json'), 'w') as f:
@@ -4292,7 +4484,7 @@ def main_demo(root, work):
     demo_counts = {k: sum(c[k] for c in stats['counts'])
                    for k, n in EXPECTED_LAUNCHES.items() if n}
     mapper_counts = {k: v for k, v in mapper_counts.items()
-                     if EXPECTED_MAPPER_LAUNCHES[k]}
+                     if EXPECTED_MAPPER_LAUNCHES.get(k)}
     rows = kernel_rows(calls, ((' (demo)', demo_counts, ('demo', )),
                                (' (channel_mapper)', mapper_counts,
                                 ('channel_mapper', ))))
@@ -4317,7 +4509,11 @@ HEAD_VARIANTS = (('yaw7d', 'yaw7d', {}), ('aa6d', 'aa6d', {}),
                  ('norm_decouple_loss', 'euler9d',
                   dict(norm_decouple_loss=True)),
                  ('undecoupled', 'euler9d', dict(decouple_bbox_loss=False)))
-QUALITY_STEPS = 100
+# the overfit tool's detector steps ([quality]; grounding 8/10 of them,
+# occupancy 6/10 but at least 40): 60, not the tool's default 100, keeps
+# the whole script, which runs the --precision child after it, inside its
+# time limit
+QUALITY_STEPS = 60
 
 
 def build_head_model(cfg, device, bbox_mode, **head):
@@ -4496,8 +4692,8 @@ def phase_capacity(card, device='cuda'):
 
 
 def phase_quality(card, device='cuda', steps=QUALITY_STEPS):
-    """``tools.quality_smoke --steps 100`` on the card (its report in
-    chiprun_out/quality_smoke.md); fails on the tool's gate."""
+    """``tools.quality_smoke --steps QUALITY_STEPS`` on the card (its
+    report in chiprun_out/quality_smoke.md); fails on the tool's gate."""
     from embodiedscan_torch.tools import quality_smoke as Q
     os.makedirs(OUT_DIR, exist_ok=True)
     t0 = time.perf_counter()
@@ -4540,6 +4736,515 @@ def main_heads():
     return 0
 
 
+# --- the bf16 sparse-conv route and remat (--precision) -----------------------
+
+# wrapper calls per request under set_conv_compute_dtype(torch.bfloat16):
+# K2-bf16 for all 44 convs (the stem's Cin = 3 on its SIMT route), no
+# float32 K2
+EXPECTED_BF16_LAUNCHES = {**EXPECTED_LAUNCHES, 'sparse_conv_tc': 0,
+                          'sparse_conv_simt': 0, 'sparse_conv_tc_bf16': 43,
+                          'sparse_conv_simt_bf16': 1,
+                          'sparse_dgrad_tc_bf16': 0,
+                          'sparse_wgrad_tc_bf16': 0}
+# per bf16 train step: K2-bf16 forward for the 44 convs and dgrad for the
+# 35 submanifold and 4 strided ones, K3-bf16 for their 39 weight
+# gradients; the generic route's 5 convs (the stem, the 4 K = 1
+# downsamples) keep the float32 K3 over bfloat16-rounded features (the
+# stem's Cy = 3 on the narrow route), as the reference's autodiff does
+EXPECTED_BF16_TRAIN_LAUNCHES = {
+    'sparse_conv_tc': 0, 'sparse_conv_simt': 0, 'sparse_dgrad_tc': 0,
+    'sparse_dgrad_simt': 0, 'sparse_wgrad_tc': 4, 'sparse_wgrad_narrow': 1,
+    'join_scan': 12, 'sparse_conv_tc_bf16': 43, 'sparse_conv_simt_bf16': 1,
+    'sparse_dgrad_tc_bf16': 39, 'sparse_dgrad_simt_bf16': 0,
+    'sparse_wgrad_tc_bf16': 39, 'sparse_wgrad_narrow_bf16': 0}
+BF16_KERNELS = ('sparse_conv_tc_bf16', 'sparse_conv_simt_bf16',
+                'sparse_dgrad_tc_bf16', 'sparse_wgrad_tc_bf16')
+PRECISION_TIMING = dict(warmup=1, reps=2)
+# a bfloat16 rounding step: at most 2^-7 of the value rounded
+BF16_STEP = 2.0 ** -7
+# the small detector's FPN capacities in the bf16 parity: every child of
+# every parent kept (24 -> 192 -> 1536 -> 12288 at most), so no top-k
+# choice hangs on a rounding step (tests/test_torch_sparse_bf16.py)
+BF16_PARITY_FPN = (12288, 1536, 256, 128)
+# the bf16 parity's request: each level's head outputs within this many
+# rounding steps of their max. A step of one conv input (at most 2^-7 of
+# it) moves the outputs that depend on it by a fraction of a step of
+# theirs; the card's float32 parts (cuDNN's algorithm, picked at run time)
+# differ from run to run, so where the cpu test holds one step (against
+# the reference, both deterministic) the card is held to two
+BF16_REQUEST_STEPS = 2
+# the bf16 parity's train step: the cpu step against itself after one
+# float32 rounding step of every weight, three draws (their distances
+# 0.44-0.72 on the cpu: the step is chaotic at float32 rounding); the
+# card's distance within BF16_SPREAD_MARGIN x the largest
+BF16_ULP_DRAWS = 3
+BF16_SPREAD_MARGIN = 1.5
+REMAT_MODES = ('none', '2d', '3d', 'all')
+
+
+@contextlib.contextmanager
+def bf16_route(S):
+    """The port's sparse convs in bfloat16 while active (the previous
+    dtype restored on exit)."""
+    before = S.CONV_COMPUTE_DTYPE
+    S.set_conv_compute_dtype(torch.bfloat16)
+    try:
+        yield
+    finally:
+        S.set_conv_compute_dtype(before)
+
+
+def phase_sparse_bf16(card, device='cuda', cfg=None):
+    """[sparse_bf16]: the full-width mv_det3d (as [main] and [train]) under
+    ``set_conv_compute_dtype(torch.bfloat16)``, the reference's
+    ``BENCH_SPARSE_BF16=1`` path: a recorded warm-up and three requests of
+    [main]'s scenes (latency, peak, kept, wrapper calls against
+    EXPECTED_BF16_LAUNCHES), then ``build_train``'s model: a recorded
+    warm-up and three steps of [train]'s scene (step, split, peak, calls
+    against EXPECTED_BF16_TRAIN_LAUNCHES). Returns the two recorders (on
+    the host), the launch totals of the timed runs and the stats."""
+    from embodiedscan_torch.configs.base import build_model, build_train, \
+        mv_det3d
+    from embodiedscan_torch.ops import pscan as P
+    from embodiedscan_torch.ops import sparse as S
+    cfg = cfg or mv_det3d()
+    d = cfg.data
+    stats = {}
+    totals = dict.fromkeys(EXPECTED_BF16_TRAIN_LAUNCHES, 0)
+    with bf16_route(S):
+        model = build_model(cfg, device=device)
+        with torch.no_grad():  # a checkpoint's class bias, as [main]
+            model.bbox_head.conv_cls.bias.zero_()
+        requests = [make_request(d.n_points, d.n_views_test, d.image_hw[0],
+                                 s) for s in range(4)]
+        with Recorder(S, P) as rec, torch.no_grad():
+            t0 = time.perf_counter()
+            model(to_device(requests[0], device), mode='predict')
+            torch.cuda.synchronize()
+        rec.to_host()
+        log(f'[sparse_bf16] warm-up request {time.perf_counter() - t0:.2f} '
+            f's, {len(rec.conv16)} K2-bf16 calls recorded')
+        lat, mem, kept = [], [], []
+        for i, req in enumerate(requests[1:]):
+            batch = to_device(req, device)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(S, P)
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                preds = model(batch, mode='predict')
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+            counts = read_counts(S, P)
+            mem.append(torch.cuda.max_memory_allocated() / 2**30)
+            check_counts(counts, EXPECTED_BF16_LAUNCHES, f'bf16 request {i}')
+            if preds['bboxes'].shape != (1, cfg.model.max_dets, 9) or not \
+                    all(torch.isfinite(v).all() for v in preds.values()
+                        if v.is_floating_point()):
+                raise RuntimeError(f'bf16 request {i}: bboxes '
+                                   f'{tuple(preds["bboxes"].shape)} or a '
+                                   'non-finite output')
+            kept.append(int(preds['mask'].sum()))
+            for name in EXPECTED_BF16_LAUNCHES:
+                totals[name] += counts[name]
+        if not all(kept):
+            raise RuntimeError('a bf16 request kept no detection')
+        log(f'[sparse_bf16] request ms {[round(t, 3) for t in lat]}, peak '
+            f'GiB {max(mem):.3f}, kept {kept}, launches per request '
+            f'{counts}; {card}')
+        stats['request'] = dict(latency_ms=lat, peak_gib=mem, kept=kept)
+        del model, batch, preds
+        torch.cuda.empty_cache()
+        tmodel, opt = build_train(cfg, device=device,
+                                  steps_per_epoch=PHASE_EPOCH)
+        tbatch = to_device(make_batch(1, d.n_points, d.n_views_train,
+                                      d.image_hw[0], N_GT,
+                                      cfg.model.num_classes), device)
+        train_rec, ttotals, st = train_steps(
+            'sparse_bf16 train', tmodel, opt, tbatch,
+            EXPECTED_BF16_TRAIN_LAUNCHES)
+        for name, n in ttotals.items():
+            totals[name] += n
+        stats['step'] = st
+        log(f'[sparse_bf16] step ms {[round(t, 3) for t in st["step_ms"]]}, '
+            f'peak GiB {max(st["peak_gib"]):.3f}, split ' + ', '.join(
+                f'{k} {v:.2f}' for k, v in st['split_ms'].items()) +
+            f' ms; {card}')
+        del tmodel, opt, tbatch
+        torch.cuda.empty_cache()
+    return rec, train_rec, totals, stats
+
+
+@torch.no_grad()
+def phase_kernels_bf16(req_rec, train_rec, device, timing=PRECISION_TIMING):
+    """Every K2-bf16 call of the recorded warm-up request and step, and
+    every K2-bf16 dgrad and K3-bf16 call of the step, replayed one at a
+    time on the card against the plain bf16 versions (within CONV_GATE x
+    max|ref|, the same bits twice; K3's pair lists against the plain pair
+    pass) and timed beside them and the library call in bfloat16, with the
+    bound at the bf16 peak; then each call's CUDA launches and device time
+    by the profiler."""
+    from embodiedscan_torch.ops import sparse as S
+    runs = {
+        'sparse_conv_bf16': (
+            [('sparse_bf16', a) for a in req_rec.conv16] +
+            [('sparse_bf16_train', a) for a in train_rec.conv16],
+            lambda a: S.gather_matmul_conv(*a)),
+        'sparse_dgrad_bf16': (
+            [('sparse_bf16_train', a) for a in train_rec.dgrad16],
+            lambda a: S.conv_dgrad(*a[:4], bf16=True)),
+        'sparse_wgrad_bf16': (
+            [('sparse_bf16_train', a) for a in train_rec.wgrad16],
+            lambda a: S.conv_wgrad(*a, bf16=True)),
+    }
+    calls = {name: [] for name in runs}
+    with bf16_route(S):
+        for name, (recs, run) in runs.items():
+            for path, args in recs:
+                a = _on(args, device)
+                if name == 'sparse_wgrad_bf16':
+                    row = _wgrad_call(S, *a, timing, bf16=True)
+                else:
+                    row = _conv_call(S, *a, name, lambda: run(a), timing,
+                                     bf16=True)
+                row['path'] = path
+                calls[name].append(row)
+        for name, (recs, run) in runs.items():
+            for row, (_, args) in zip(calls[name], recs):
+                a = _on(args, device)
+                row['cuda_launches'], row['device_ms'] = device_profile(
+                    lambda: run(a))
+    for name, rows in calls.items():
+        for path in sorted({r['path'] for r in rows}):
+            rs = [r for r in rows if r['path'] == path]
+            log(f'[kernels] {name} ({path}): {len(rs)} main-path calls '
+                f'checked, kernel {sum(r["ms"] for r in rs):.3f} ms (device '
+                f'{sum(r["device_ms"] for r in rs):.3f}), plain '
+                f'{sum(r["plain_ms"] for r in rs):.3f}, library (bf16) '
+                f'{sum(r["library_ms"] for r in rs):.3f}, bound (bf16) '
+                f'{sum(r["bound_ms"] for r in rs):.3f} ms; max|d|/max|ref| '
+                f'{max(r["max_abs_err"] / max(r["max_abs_ref"], 1e-30) for r in rs):.2e}; '
+                f'CUDA launches {sum(r["cuda_launches"] for r in rs)}; '
+                f'routes {sorted({r["route"] for r in rs})}')
+    return calls
+
+
+def _steps_close(got, want, steps=1):
+    """(within ``steps`` bfloat16 rounding steps of max|want|, the error
+    over max|want|)."""
+    scale = max(float(np.abs(want).max()), 1e-30)
+    err = float(np.abs(got - want).max())
+    return err <= steps * BF16_STEP * scale + 1e-6, err / scale
+
+
+def _grad_distance(got, want):
+    """The relative L2 distance of two gradients (every leaf)."""
+    num = sum(float(np.square(np.asarray(got[k]) - np.asarray(w)).sum())
+              for k, w in want.items())
+    den = sum(float(np.square(np.asarray(w)).sum()) for w in want.values())
+    return (num / den) ** 0.5
+
+
+def _one_ulp_(model, seed=0):
+    """Every float32 parameter moved by one rounding step, up or down at
+    random (in place)."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            up = torch.rand(p.shape, generator=g) < 0.5
+            p.copy_(torch.where(up.to(p.device),
+                                torch.nextafter(p, torch.full_like(p, np.inf)),
+                                torch.nextafter(p, torch.full_like(p,
+                                                                   -np.inf))))
+
+
+def phase_bf16_parity(device='cuda'):
+    """The small detector (``_parity_cfg`` with BF16_PARITY_FPN) in bf16
+    mode on the card and on the cpu from the same weights. A request: the
+    neighbor tables and feature coordinates identical, the head's outputs
+    within one bfloat16 rounding step of each level's max. A train step:
+    the tables identical, each loss within one step of itself, the batch
+    statistics within one step of their max, and the whole gradient within
+    BF16_SPREAD_MARGIN x the largest distance the cpu step moves when each
+    weight moves by one float32 rounding step (BF16_ULP_DRAWS draws). At
+    this size the bf16 step is chaotic at float32 rounding (see
+    tests/test_torch_sparse_bf16.py), so that gate is loose: the kernels'
+    numbers are held per call by :func:`phase_kernels_bf16`."""
+    from embodiedscan_torch.configs.base import build_model
+    from embodiedscan_torch.ops import pscan as P
+    from embodiedscan_torch.ops import sparse as S
+    from embodiedscan_torch.train.state import make_optimizer, train_step
+    from embodiedscan_torch.utils.convert_weights import export_jax_tree
+    cfg = _parity_cfg()
+    cfg.model.fpn_capacities = BF16_PARITY_FPN
+    req = make_request(p=6000, v=4, hw=96, seed=7)
+    batch = make_batch(1, 6000, 4, 96, 16, cfg.model.num_classes, seed=7)
+    t0 = time.perf_counter()
+    with bf16_route(S):
+        cpu = build_model(cfg, device='cpu')
+        gpu = build_model(cfg, device=device)
+        gpu.load_state_dict(cpu.state_dict())
+        out = {}
+        for name, model, dev in (('cpu', cpu, 'cpu'), ('cuda', gpu, device)):
+            with Recorder(S, P) as rec, torch.no_grad():
+                feats = model(to_device(req, dev), mode='feats')
+            out[name] = (rec, feats)
+        (rc, fc), (rg, fg) = out['cpu'], out['cuda']
+        if len(rc.conv16) != len(rg.conv16) or not rg.conv16 or any(
+                not torch.equal(a[2], b[2].cpu())
+                for a, b in zip(rc.conv16, rg.conv16)):
+            raise RuntimeError('bf16 request: neighbor tables differ')
+        for field in ('points', 'masks'):
+            for c, g in zip(getattr(fc, field), getattr(fg, field)):
+                if not torch.equal(c, g.cpu()):
+                    raise RuntimeError(f'bf16 request: {field} differ')
+        worst = {}
+        for field in ('center', 'reg', 'cls'):
+            for c, g in zip(getattr(fc, field), getattr(fg, field)):
+                ok, ratio = _steps_close(g.cpu().numpy(), c.numpy(),
+                                         BF16_REQUEST_STEPS)
+                worst[field] = max(worst.get(field, 0.0), ratio)
+                if not ok:
+                    raise RuntimeError(f'bf16 request {field}: max|d|/max '
+                                       f'{ratio} > {BF16_REQUEST_STEPS} x '
+                                       f'{BF16_STEP}')
+        log(f'[parity] bf16 small detector request cpu vs cuda: '
+            f'{len(rc.conv16)} tables identical, head outputs max|d|/max '
+            + ', '.join(f'{k} {v:.2e}' for k, v in worst.items()) +
+            f' (gate {BF16_REQUEST_STEPS} bf16 steps, '
+            f'{BF16_REQUEST_STEPS * BF16_STEP:.2e})')
+        res = {}
+        for name, dev, ulp in (('cpu', 'cpu', None), ('cuda', device, None),
+                               *((f'cpu_ulp{i}', 'cpu', i)
+                                 for i in range(BF16_ULP_DRAWS))):
+            model = build_model(cfg, device=dev).train()
+            model.load_state_dict(cpu.state_dict())
+            if ulp is not None:
+                _one_ulp_(model, ulp)
+            with Recorder(S, P) as rec:
+                metrics = train_step(model, make_optimizer(
+                    model, cfg, steps_per_epoch=PHASE_EPOCH),
+                    to_device(batch, dev))
+            grads = {n: p.grad.detach().cpu().numpy().copy()
+                     for n, p in model.named_parameters()
+                     if p.grad is not None}
+            res[name] = (rec, {k: float(v) for k, v in metrics.items()},
+                         grads, export_jax_tree(model, 'buffers'))
+    (rc, mc, gc, bc), (rg, mg, gg, bg) = res['cpu'], res['cuda']
+    for kind in ('conv16', 'dgrad16', 'wgrad16', 'wgrad'):
+        a, b = getattr(rc, kind), getattr(rg, kind)
+        if len(a) != len(b) or not b or any(
+                not torch.equal(x[2], y[2].cpu()) for x, y in zip(a, b)):
+            raise RuntimeError(f'bf16 train step: {kind} tables differ')
+    for key, val in mc.items():
+        if not abs(mg[key] - val) <= BF16_STEP * abs(val):
+            raise RuntimeError(f'bf16 train step {key}: {mg[key]} vs {val}')
+    stat_worst = _worst({'/'.join(k): v for k, v in _tree_leaves(bc)},
+                        {'/'.join(k): v for k, v in _tree_leaves(bg)})
+    if not stat_worst[0] <= BF16_STEP:
+        raise RuntimeError(f'bf16 train step statistics {stat_worst}')
+    if set(gc) != set(gg):
+        raise RuntimeError('bf16 train step: other leaves have gradients')
+    dist = _grad_distance(gg, gc)
+    spreads = [_grad_distance(res[f'cpu_ulp{i}'][2], gc)
+               for i in range(BF16_ULP_DRAWS)]
+    if not dist <= BF16_SPREAD_MARGIN * max(spreads):
+        raise RuntimeError(f'bf16 train step: gradient distance {dist} > '
+                           f'{BF16_SPREAD_MARGIN} x the cpu step\'s one-ulp '
+                           f'spreads {spreads}')
+    log(f'[parity] bf16 small detector train step cpu vs cuda: tables '
+        f'identical, loss_total {mc["loss_total"]:.6g} vs '
+        f'{mg["loss_total"]:.6g}, statistics max|d|/max {stat_worst[0]:.2e} '
+        f'({stat_worst[1]}), gradient distance {dist:.4f} (the cpu step '
+        f'after one-ulp weight moves: '
+        f'{", ".join(f"{x:.4f}" for x in spreads)}; gate '
+        f'{BF16_SPREAD_MARGIN} x the largest); '
+        f'{time.perf_counter() - t0:.1f} s')
+    return dict(request_worst=worst, loss_cpu=mc, loss_cuda=mg,
+                stat_worst=stat_worst[0], grad_distance=dist,
+                grad_spreads=spreads)
+
+
+def _set_remat(model, mode):
+    """Switch a built detector's or occupancy model's remat mode (the
+    attributes ``build_model`` sets from ``ModelConfig.remat``)."""
+    from embodiedscan_torch.models.occupancy import DenseFusionOccPredictor
+    from embodiedscan_torch.models.remat import covers
+    from embodiedscan_torch.models.resnet2d import ResNet
+    from embodiedscan_torch.models.sparse_nn import MinkResNet
+    for mod in model.modules():
+        if isinstance(mod, ResNet):
+            mod.remat = covers(mode, '2d')
+        elif isinstance(mod, MinkResNet):
+            mod.remat = covers(mode, '3d')
+        elif isinstance(mod, DenseFusionOccPredictor):
+            mod.remat_neck = covers(mode, '3d')
+
+
+def remat_modes(tag, model, opt, batch, modes, card):
+    """Each remat mode of ``modes`` on one built model: a warm-up and
+    three timed train_steps (step ms, peak, wrapper calls, the same in each
+    step); then
+    at the last weights one forward and backward per mode from the same
+    running statistics, every gradient and statistic against 'none''s
+    (bit-identical, or where the card's 'none' step repeated differs in
+    its low bits, within GRAD_GATE x max|leaf| and those leaves named)."""
+    from embodiedscan_torch.ops import pscan as P
+    from embodiedscan_torch.ops import sparse as S
+    from embodiedscan_torch.train.state import train_step
+    stats = {}
+    for mode in modes:
+        _set_remat(model, mode)
+        step_ms, calls = [], []
+        train_step(model, opt, batch)  # warm-up: allocator, cuDNN plans
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(3):
+            reset_counts(S, P)
+            t0 = time.perf_counter()
+            metrics = train_step(model, opt, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            calls.append(read_counts(S, P))
+        if any(c != calls[0] for c in calls):
+            raise RuntimeError(f'{tag} {mode}: wrapper calls differ between '
+                               f'steps: {calls}')
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        loss = float(metrics['loss_total'])
+        if not np.isfinite(loss):
+            raise RuntimeError(f'{tag} {mode}: loss {loss}')
+        stats[mode] = dict(step_ms=step_ms, peak_gib=peak, calls=calls[0],
+                           loss_total=loss)
+        log(f'[{tag}] {mode}: step ms {[round(t, 3) for t in step_ms]}, '
+            f'peak {peak:.3f} GiB, wrapper calls per step '
+            f'{ {k: v for k, v in calls[0].items() if v} }; {card}')
+    init = [b.detach().clone() for b in model.buffers()]
+
+    def one(mode):
+        _set_remat(model, mode)
+        with torch.no_grad():
+            for b, s in zip(model.buffers(), init):
+                b.copy_(s)
+        opt.zero_grad(set_to_none=True)
+        losses = model(batch, mode='loss')
+        sum(losses.values()).backward()
+        torch.cuda.synchronize()
+        return ({n: p.grad.detach().clone()
+                 for n, p in model.named_parameters() if p.grad is not None},
+                {n: b.detach().clone() for n, b in model.named_buffers()})
+
+    ref_g, ref_b = one('none')
+    again_g, again_b = one('none')
+    nondet = sorted(n for n in ref_g if not torch.equal(ref_g[n], again_g[n]))
+    nondet += sorted(n for n in ref_b if not torch.equal(ref_b[n],
+                                                         again_b[n]))
+    del again_g, again_b
+    for mode in modes:
+        if mode == 'none':
+            continue
+        g, b = one(mode)
+        if set(g) != set(ref_g):
+            raise RuntimeError(f'{tag} {mode}: other leaves have gradients')
+        differ = [n for n in ref_g if not torch.equal(g[n], ref_g[n])] + \
+            [n for n in ref_b if not torch.equal(b[n], ref_b[n])]
+        worst = 0.0
+        for n in differ:
+            a, c = (ref_g[n], g[n]) if n in ref_g else (ref_b[n], b[n])
+            worst = max(worst, float((a - c).abs().max()) /
+                        max(float(a.abs().max()), 1e-30))
+        if differ and not (nondet and worst <= GRAD_GATE):
+            raise RuntimeError(f'{tag} {mode}: {len(differ)} leaves differ '
+                               f'from none (worst {worst}), the repeated '
+                               f'none step in {len(nondet)}: {differ[:5]}')
+        stats[mode].update(leaves_differing=len(differ), worst=worst)
+        log(f'[{tag}] {mode} against none after one step: '
+            + ('every gradient and statistic bit-identical' if not differ
+               else f'{len(differ)} of {len(ref_g) + len(ref_b)} leaves '
+               f'differ, worst max|d|/max {worst:.2e} (gate {GRAD_GATE}); '
+               f'the card\'s none step repeated differs in {len(nondet)}: '
+               f'{nondet[:4]}'))
+        del g, b
+    stats['nondeterministic_leaves'] = nondet
+    model.zero_grad(set_to_none=True)
+    return stats
+
+
+def phase_remat(card, device='cuda'):
+    """[remat]: the full-width mv_det3d train step at the shipped b = 4
+    (four scenes of 20 views of 480x480, 100k points, ``max_boxes`` padded
+    gt boxes: [loop]'s batch shapes, built by ``make_batch``) under each of
+    'none', '2d', '3d' and 'all' (:func:`remat_modes`), then the cont_occ
+    10-sweep step ([cont_occ_train]'s batch) under 'all' (the reference's
+    preset) and 'none'."""
+    from embodiedscan_torch.configs.base import build_train, cont_occ, \
+        mv_det3d
+    from embodiedscan_torch.data.synthetic import make_scan
+    cfg = mv_det3d()
+    d = cfg.data
+    t0 = time.perf_counter()
+    model, opt = build_train(cfg, device=device, steps_per_epoch=PHASE_EPOCH)
+    batch = to_device(make_batch(d.batch_size, d.n_points, d.n_views_train,
+                                 d.image_hw[0], d.max_boxes,
+                                 cfg.model.num_classes), device)
+    log(f'[remat] mv_det3d b={d.batch_size}, {d.n_views_train} views, '
+        f'{d.max_boxes} gt boxes; built in {time.perf_counter() - t0:.1f} s')
+    stats = {'mv_det3d': remat_modes('remat', model, opt, batch,
+                                     REMAT_MODES, card)}
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    cfg = cont_occ()
+    d = cfg.data
+    t0 = time.perf_counter()
+    model, opt = build_train(cfg, device=device, steps_per_epoch=PHASE_EPOCH)
+    scan = make_scan(seed=3, n_views=d.n_views_train, hw=tuple(d.image_hw),
+                     g=32)
+    batch = to_device(occ_sweeps(scan, cfg, d.n_views_train, 0, train=True),
+                      device)
+    log(f'[remat] cont_occ, {d.n_views_train} sweeps; built in '
+        f'{time.perf_counter() - t0:.1f} s')
+    stats['cont_occ'] = remat_modes('remat cont_occ', model, opt, batch,
+                                    ('all', 'none'), card)
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    return stats
+
+
+def main_precision():
+    """``chip_smoke.py --precision``: the bf16 kernels' edge shapes,
+    [sparse_bf16], its replays, the bf16 parity and [remat]; the numbers
+    and the kernels line's bf16 rows to chiprun_out/chip_smoke_precision
+    .json."""
+    from embodiedscan_torch.ops import kernels
+    card = card_name()
+    kernels.library()
+    torch.manual_seed(0)
+    took, stats = {}, {}
+    t0 = time.perf_counter()
+    phase_edges_bf16('cuda')
+    took['edges_bf16'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    req_rec, train_rec, totals, stats['sparse_bf16'] = phase_sparse_bf16(card)
+    took['sparse_bf16'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    calls = phase_kernels_bf16(req_rec, train_rec, 'cuda')
+    took['replays'] = time.perf_counter() - t0
+    del req_rec, train_rec
+    for name, t in (('bf16_parity', phase_bf16_parity),
+                    ('remat', lambda: phase_remat(card))):
+        t0 = time.perf_counter()
+        stats[name] = t()
+        took[name] = time.perf_counter() - t0
+    rows = kernel_rows(calls, (('', {k: totals[k] for k in BF16_KERNELS},
+                                ('sparse_bf16', 'sparse_bf16_train')), ))
+    log('[precision] seconds per part: ' + ', '.join(
+        f'{k} {v:.1f}' for k, v in took.items()) + f'; {card}')
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, 'chip_smoke_precision.json'), 'w') as f:
+        json.dump(dict(card=card, stats=stats, seconds=took, calls=calls,
+                       rows=rows), f, indent=1, default=float)
+    return 0
+
+
 def run_child(flag, *args):
     """Runs ``chip_smoke.py <flag> [args]`` in a process of its own (a fresh
     caching allocator and no earlier profiler session; its output joins
@@ -4574,10 +5279,13 @@ def main():
         return main_demo(*sys.argv[2:])
     if sys.argv[1:] == ['--heads']:
         return main_heads()
+    if sys.argv[1:] == ['--precision']:
+        return main_precision()
     t_start = time.perf_counter()
     card = phase_build()
     if sys.argv[1:] == ['--kernels-only']:
         phase_edges('cuda')
+        phase_edges_bf16('cuda')
         log(f'[done] kernels only, {time.perf_counter() - t_start:.1f} s')
         return 0
     torch.manual_seed(0)
@@ -4651,6 +5359,7 @@ def main():
     cont = run_child('--cont')
     loop = run_child('--loop')
     run_child('--heads')
+    precision = run_child('--precision')
     log(f'[done] {time.perf_counter() - t_start:.1f} s')
     for name, n in ground_totals.items():
         totals[name] += n
@@ -4663,7 +5372,8 @@ def main():
         occ_totals[name] += n
     rows = kernel_rows(calls, (('', totals, DET_PATHS),
                                (' (occ)', occ_totals, OCC_PATHS)))
-    print(json.dumps({'kernels': rows + cont['rows'] + loop['rows']}))
+    print(json.dumps({'kernels': rows + cont['rows'] + loop['rows'] +
+                      precision['rows']}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -114,6 +114,11 @@ class ModelConfig:
     text_layers: int = 12
     text_hidden: int = 768
     text_heads: int = 12
+    # rematerialization (models/remat.py): 'none' | '2d' | '3d' | 'all'
+    # (True = 'all'). The reference's presets set '2d' (and 'all' for
+    # cont_occ), sized for a 16 GB chip; on the 80 GB card every preset
+    # steps without it (PERF.md), so the port's keep 'none'
+    remat: str = 'none'
     # grounding box coder: 'baseline' | 'FCAF'
     box_coder: str = 'baseline'
     # the text encoder's output is detached (the reference's lr_mult=0)
@@ -169,7 +174,9 @@ class Config:
 
 
 def mv_det3d() -> Config:
-    """configs/detection/mv-det3d_8xb4_embodiedscan-3d-284class-9dof.py."""
+    """configs/detection/mv-det3d_8xb4_embodiedscan-3d-284class-9dof.py.
+    ``model.remat`` stays 'none' where the reference package sets '2d': the
+    b = 4 step peaks at 15.3 GiB of the 80 GB card (PERF.md)."""
     cfg = Config()
     cfg.work_dir = 'work_dirs/mv_det3d'
     cfg.data.repeat_times = 10
@@ -240,8 +247,9 @@ def mv_occ() -> Config:
 def cont_occ() -> Config:
     """configs/occupancy/cont-occ_8xb1_embodiedscan-occ-80class.py: mv_occ's
     network over the sweep pseudo-batch, its U-Net in bfloat16. The
-    reference package's ``remat='all'`` has no counterpart: on the 80 GB
-    card the step fits without recomputation (PERF.md)."""
+    reference package sets ``remat='all'`` here (for a 16 GB chip); the
+    port keeps 'none': on the 80 GB card the 10-sweep step fits without
+    recomputation (PERF.md). ``model.remat=all`` turns it on."""
     cfg = mv_occ()
     cfg.model.task = 'cont_occ'
     cfg.model.occ_neck_bf16 = True
@@ -277,6 +285,7 @@ def build_model(cfg: Config, device='cuda', img_dtype=torch.float32,
     from ..models.detector import SparseFusionDetector, init_weights
     from ..models.grounding import SparseFusionGrounder
     from ..models.occupancy import DenseFusionOccPredictor
+    from ..models.remat import remat_mode
     device = torch.device(device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError('build_model: CUDA is not available; pass '
@@ -293,7 +302,7 @@ def build_model(cfg: Config, device='cuda', img_dtype=torch.float32,
             resnet_depth=m.resnet_depth, mink_depth=m.mink_depth,
             nms_pre=m.nms_pre, max_candidates=m.max_candidates,
             max_dets=m.max_dets, img_dtype=img_dtype, bbox_mode=bbox_mode,
-            predict_protocol=m.predict_protocol)
+            predict_protocol=m.predict_protocol, remat=remat_mode(m.remat))
     elif bbox_mode != 'euler9d':
         raise ValueError(f'bbox_mode={bbox_mode!r} is for the detectors, '
                          f'not {m.task!r}')
@@ -311,7 +320,8 @@ def build_model(cfg: Config, device='cuda', img_dtype=torch.float32,
             cost_cls_weight=m.cost_cls_weight,
             cost_l1_weight=m.cost_l1_weight,
             cost_iou_weight=m.cost_iou_weight,
-            decouple_weights=tuple(m.decouple_weights), img_dtype=img_dtype)
+            decouple_weights=tuple(m.decouple_weights), img_dtype=img_dtype,
+            remat=remat_mode(m.remat))
     elif m.task in ('mv_occ', 'cont_occ'):
         model = DenseFusionOccPredictor(
             num_classes=m.occ_classes, n_voxels=tuple(m.n_voxels),
@@ -322,7 +332,9 @@ def build_model(cfg: Config, device='cuda', img_dtype=torch.float32,
             resnet_base_channels=m.resnet_base_channels,
             mink_depth=m.mink_depth, fpn_channels=m.occ_fpn_channels,
             pre_neck_channels=m.occ_pre_neck_channels,
-            neck_dtype=torch.bfloat16 if m.occ_neck_bf16 else torch.float32)
+            neck_dtype=torch.bfloat16 if m.occ_neck_bf16 else torch.float32,
+            # as the reference (configs/base.py:311): cont_occ alone
+            remat=remat_mode(m.remat) if m.task == 'cont_occ' else 'none')
     else:
         raise ValueError(f'unknown task {m.task!r}')
     if generator is None:

@@ -57,6 +57,23 @@
 // The SIMT route (sc_simt_fwd, FP32 FMAs, 64 x 64 tiles) serves the shapes
 // whose rows are not 16-byte chunks: Cin < 8 (the stem's 3) or a Cin or
 // Cout that is not a multiple of 4.
+//
+// The bfloat16 variant (K2-bf16; the es_*_bf16 entry points) is the
+// contract of the reference's bf16 compute route (ops/sparse.py:
+// set_conv_compute_dtype, gather_matmul_conv :311-316): feats and W arrive
+// as bfloat16 (the wrapper casts each once per call), products are exact
+// in float32 and sums are float32. Both routes are templates on the
+// operand type T, so one source serves both variants:
+// - tensor cores: a 16-byte cp.async moves 8 bfloat16 channels, half the
+//   gathered bytes of float32 a channel; the product is one mma.sync
+//   m16n8k16 bf16 per fragment pair where 3xTF32 takes three m16n8k8, at
+//   twice the tensor cores' TF32 rate. Rows and W must be 16-byte chunks
+//   of 8 channels (Cin, Cout multiples of 8). The promotion of each step's
+//   partial sum into the float32 accumulators is the float32 route's.
+// - SIMT for Cin < 8: float32 FMAs over the bfloat16 operands, converted
+//   exactly as they are read.
+// Bound: bf16 dense products at 989 TFLOP/s; at the main path's shapes
+// the operations still weigh more than the halved gathers.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -72,10 +89,12 @@ namespace {
 #define SC_BK 16
 #define SC_THREADS 256
 
+// T: float, or bf16_t (converted to float32 as it is read)
+template <typename T>
 __global__ void __launch_bounds__(SC_THREADS)
-sc_simt_fwd(const float* __restrict__ feats, const uint8_t* __restrict__ mask,
+sc_simt_fwd(const T* __restrict__ feats, const uint8_t* __restrict__ mask,
             int64_t n, int cin, const int32_t* __restrict__ nbr, int64_t m,
-            int kk, const float* __restrict__ w, int cout,
+            int kk, const T* __restrict__ w, int cout,
             const float* __restrict__ bias, float* __restrict__ out) {
   __shared__ float as[SC_BK][SC_BM];  // gathered rows, transposed
   __shared__ float bs[SC_BK][SC_BN];  // W[k] slice
@@ -115,18 +134,19 @@ sc_simt_fwd(const float* __restrict__ feats, const uint8_t* __restrict__ mask,
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const int c = c0 + cc + q;
-          as[cc + q][r] = (src >= 0 && c < cin) ? feats[src * cin + c] : 0.f;
+          as[cc + q][r] =
+              (src >= 0 && c < cin) ? to_f32(feats[src * cin + c]) : 0.f;
         }
       }
       {  // B: 16 channels x 64 outputs, 4 consecutive outputs per thread
         const int c = tid / 16;
         const int jj = (tid % 16) * 4;
         const int gc = c0 + c;
-        const float* wrow = w + (static_cast<int64_t>(k) * cin + gc) * cout;
+        const T* wrow = w + (static_cast<int64_t>(k) * cin + gc) * cout;
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const int gj = n0 + jj + q;
-          bs[c][jj + q] = (gc < cin && gj < cout) ? wrow[gj] : 0.f;
+          bs[c][jj + q] = (gc < cin && gj < cout) ? to_f32(wrow[gj]) : 0.f;
         }
       }
       __syncthreads();
@@ -168,37 +188,107 @@ constexpr int TC_BM = 64;      // output rows per block
 constexpr int TC_BK = 32;      // input channels per pipeline step
 constexpr int TC_STAGES = 3;   // depth of the cp.async ring
 constexpr int TC_MAXK = 27;    // offsets per split (the wrapper's limit)
-constexpr int TC_APAD = 4;     // row pads that keep fragment reads free of
-constexpr int TC_BPAD = 8;     // shared-memory bank conflicts
 
-template <int BN>
+// T: float (3xTF32) or bf16_t. Row pads keep fragment reads free of
+// shared-memory bank conflicts and staged rows 16-byte aligned: float rows
+// of A are 36 words (fragment rows land 4 banks apart), bfloat16 ones 20
+// words (g * 20 mod 32 covers the 8 multiples of 4); rows of B are BN + 8
+// elements either way (bfloat16 rows 2t and 2t + 1 of a fragment then lie
+// 4 banks apart).
+template <typename T, int BN>
 struct TcShape {
+  static constexpr int kVec = 16 / sizeof(T);     // elements a 16-byte copy
   static constexpr int kWarpsN = BN / 32;
   static constexpr int kThreads = 64 * kWarpsN;  // 2 x kWarpsN warps
-  static constexpr int kAStride = TC_BK + TC_APAD;
-  static constexpr int kBStride = BN + TC_BPAD;
-  static constexpr int kAFloats = TC_BM * kAStride;
-  static constexpr int kBFloats = TC_BK * kBStride;
+  static constexpr int kAStride = TC_BK + (sizeof(T) == 4 ? 4 : 8);
+  static constexpr int kBStride = BN + 8;
+  static constexpr int kAElems = TC_BM * kAStride;
+  static constexpr int kBElems = TC_BK * kBStride;
   static constexpr size_t kSmem =
-      sizeof(float) * TC_STAGES * (kAFloats + kBFloats) +
+      sizeof(T) * TC_STAGES * (kAElems + kBElems) +
       sizeof(int) * (TC_MAXK * TC_BM + 2 * TC_MAXK + 1);
 };
+
+// One 32-channel step of a warp's 32 x 32 piece into part: 3xTF32 over
+// float operands (m16n8k8, each operand split into TF32 parts as its
+// fragment is read)
+template <int AS, int BS>
+__device__ __forceinline__ void tc_step(float (&part)[2][4][4],
+                                        const float* as, const float* bs,
+                                        int wm, int wn, int g, int t) {
+#pragma unroll
+  for (int k8 = 0; k8 < TC_BK; k8 += 8) {
+    uint32_t ahi[2][4], alo[2][4], bhi[4][2], blo[4][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float* p = as + (wm + i * 16 + g) * AS + k8 + t;
+      split_tf32(p[0], ahi[i][0], alo[i][0]);
+      split_tf32(p[8 * AS], ahi[i][1], alo[i][1]);
+      split_tf32(p[4], ahi[i][2], alo[i][2]);
+      split_tf32(p[8 * AS + 4], ahi[i][3], alo[i][3]);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float* p = bs + (k8 + t) * BS + wn + j * 8 + g;
+      split_tf32(p[0], bhi[j][0], blo[j][0]);
+      split_tf32(p[4 * BS], bhi[j][1], blo[j][1]);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        mma_3xtf32(part[i][j], ahi[i], alo[i], bhi[j], blo[j]);
+  }
+}
+
+// the same over bfloat16 operands: m16n8k16, one product a fragment pair.
+// A fragment: rows g, g + 8 by channels 2t, 2t + 1 (+ 8); B fragment:
+// channels 2t, 2t + 1 (+ 8) of column g, two rows of B packed in a
+// register
+template <int AS, int BS>
+__device__ __forceinline__ void tc_step(float (&part)[2][4][4],
+                                        const bf16_t* as, const bf16_t* bs,
+                                        int wm, int wn, int g, int t) {
+#pragma unroll
+  for (int k16 = 0; k16 < TC_BK; k16 += 16) {
+    uint32_t a[2][4], b[4][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const bf16_t* p = as + (wm + i * 16 + g) * AS + k16 + 2 * t;
+      a[i][0] = *reinterpret_cast<const uint32_t*>(p);
+      a[i][1] = *reinterpret_cast<const uint32_t*>(p + 8 * AS);
+      a[i][2] = *reinterpret_cast<const uint32_t*>(p + 8);
+      a[i][3] = *reinterpret_cast<const uint32_t*>(p + 8 * AS + 8);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const bf16_t* p = bs + (k16 + 2 * t) * BS + wn + j * 8 + g;
+      b[j][0] = pack_bf16(p[0], p[BS]);
+      b[j][1] = pack_bf16(p[8 * BS], p[9 * BS]);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mma_bf16(part[i][j], a[i], b[j]);
+  }
+}
 
 // grid (ceil(m / 64), ceil(cout / BN), splits); split z covers the offsets
 // [z * per, min(kk, (z + 1) * per)). With ws == null (one split) it writes
 // out (+ bias); otherwise its partial sums to ws[z] (m x cout).
-template <int BN>
-__global__ void __launch_bounds__(TcShape<BN>::kThreads)
-sc_tc_fwd(const float* __restrict__ feats, const uint8_t* __restrict__ mask,
+template <typename T, int BN>
+__global__ void __launch_bounds__(TcShape<T, BN>::kThreads)
+sc_tc_fwd(const T* __restrict__ feats, const uint8_t* __restrict__ mask,
           int64_t n, int cin, const int32_t* __restrict__ nbr, int64_t m,
-          int kk, int per, const float* __restrict__ w, int cout,
+          int kk, int per, const T* __restrict__ w, int cout,
           const float* __restrict__ bias, float* __restrict__ out,
           float* __restrict__ ws) {
-  using S = TcShape<BN>;
+  using S = TcShape<T, BN>;
+  constexpr int V = S::kVec;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* a_s = reinterpret_cast<float*>(smem_raw);
-  float* b_s = a_s + TC_STAGES * S::kAFloats;
-  int* rows = reinterpret_cast<int*>(b_s + TC_STAGES * S::kBFloats);
+  T* a_s = reinterpret_cast<T*>(smem_raw);
+  T* b_s = a_s + TC_STAGES * S::kAElems;
+  int* rows = reinterpret_cast<int*>(b_s + TC_STAGES * S::kBElems);
   int* hit = rows + TC_MAXK * TC_BM;  // per offset: some row has a neighbor
   int* act = hit + TC_MAXK;           // the offsets that are computed
   int* n_act = act + TC_MAXK;
@@ -241,25 +331,26 @@ sc_tc_fwd(const float* __restrict__ feats, const uint8_t* __restrict__ mask,
     const int c0 = (step - a * n_chunks) * TC_BK;
     const int j = act[a];
     const int* rj = rows + j * TC_BM;
-    float* as = a_s + slot * S::kAFloats;
-    float* bs = b_s + slot * S::kBFloats;
-    // A: 64 rows x 32 channels = 512 chunks of 4 floats
-    for (int c = tid; c < TC_BM * (TC_BK / 4); c += S::kThreads) {
-      const int r = c / (TC_BK / 4), q = c % (TC_BK / 4);
+    T* as = a_s + slot * S::kAElems;
+    T* bs = b_s + slot * S::kBElems;
+    // A: 64 rows x 32 channels, in chunks of V channels (4 floats or 8
+    // bfloat16)
+    for (int c = tid; c < TC_BM * (TC_BK / V); c += S::kThreads) {
+      const int r = c / (TC_BK / V), q = c % (TC_BK / V);
       const int src = rj[r];
-      const int ch = c0 + q * 4;
+      const int ch = c0 + q * V;
       const bool ok = src >= 0 && ch < cin;
-      const float* g = ok ? feats + static_cast<int64_t>(src) * cin + ch : feats;
-      cp_async16(smem_addr(as + r * S::kAStride + q * 4), g, ok ? 16 : 0);
+      const T* g = ok ? feats + static_cast<int64_t>(src) * cin + ch : feats;
+      cp_async16(smem_addr(as + r * S::kAStride + q * V), g, ok ? 16 : 0);
     }
     // B: 32 channels x BN outputs of W[k]
-    const float* wk = w + static_cast<int64_t>(k_lo + j) * cin * cout;
-    for (int c = tid; c < TC_BK * (BN / 4); c += S::kThreads) {
-      const int kr = c / (BN / 4), q = c % (BN / 4);
-      const int ch = c0 + kr, col = n0 + q * 4;
+    const T* wk = w + static_cast<int64_t>(k_lo + j) * cin * cout;
+    for (int c = tid; c < TC_BK * (BN / V); c += S::kThreads) {
+      const int kr = c / (BN / V), q = c % (BN / V);
+      const int ch = c0 + kr, col = n0 + q * V;
       const bool ok = ch < cin && col < cout;
-      const float* g = ok ? wk + static_cast<int64_t>(ch) * cout + col : w;
-      cp_async16(smem_addr(bs + kr * S::kBStride + q * 4), g, ok ? 16 : 0);
+      const T* g = ok ? wk + static_cast<int64_t>(ch) * cout + col : w;
+      cp_async16(smem_addr(bs + kr * S::kBStride + q * V), g, ok ? 16 : 0);
     }
   };
 
@@ -288,8 +379,8 @@ sc_tc_fwd(const float* __restrict__ feats, const uint8_t* __restrict__ mask,
     if (nxt < steps) load_step(nxt, nxt % TC_STAGES);
     cp_async_commit();
 
-    const float* as = a_s + (step % TC_STAGES) * S::kAFloats;
-    const float* bs = b_s + (step % TC_STAGES) * S::kBFloats;
+    const T* as = a_s + (step % TC_STAGES) * S::kAElems;
+    const T* bs = b_s + (step % TC_STAGES) * S::kBElems;
     float part[2][4][4];
 #pragma unroll
     for (int i = 0; i < 2; ++i)
@@ -297,29 +388,7 @@ sc_tc_fwd(const float* __restrict__ feats, const uint8_t* __restrict__ mask,
       for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int q = 0; q < 4; ++q) part[i][j][q] = 0.f;
-#pragma unroll
-    for (int k8 = 0; k8 < TC_BK; k8 += 8) {
-      uint32_t ahi[2][4], alo[2][4], bhi[4][2], blo[4][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float* p = as + (wm + i * 16 + g) * S::kAStride + k8 + t;
-        split_tf32(p[0], ahi[i][0], alo[i][0]);
-        split_tf32(p[8 * S::kAStride], ahi[i][1], alo[i][1]);
-        split_tf32(p[4], ahi[i][2], alo[i][2]);
-        split_tf32(p[8 * S::kAStride + 4], ahi[i][3], alo[i][3]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float* p = bs + (k8 + t) * S::kBStride + wn + j * 8 + g;
-        split_tf32(p[0], bhi[j][0], blo[j][0]);
-        split_tf32(p[4 * S::kBStride], bhi[j][1], blo[j][1]);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          mma_3xtf32(part[i][j], ahi[i], alo[i], bhi[j], blo[j]);
-    }
+    tc_step<S::kAStride, S::kBStride>(part, as, bs, wm, wn, g, t);
     // the tensor cores' own float32 sums truncate; adding each step's
     // 32-channel partial into the accumulators here rounds to nearest
 #pragma unroll
@@ -372,12 +441,12 @@ __global__ void sc_reduce(const float4* __restrict__ ws, int splits,
   out[i] = s;
 }
 
-template <int BN>
-int launch_tc(const float* feats, const uint8_t* mask, int64_t n, int cin,
+template <typename T, int BN>
+int launch_tc(const T* feats, const uint8_t* mask, int64_t n, int cin,
               const int32_t* nbr, int64_t m, int kk, int per, int splits,
-              const float* w, int cout, const float* bias, float* out,
+              const T* w, int cout, const float* bias, float* out,
               float* ws, cudaStream_t s) {
-  using S = TcShape<BN>;
+  using S = TcShape<T, BN>;
   // above 48 KB of shared memory only by request, once per device
   constexpr int kMaxDevices = 64;
   static bool smem_set[kMaxDevices] = {};
@@ -386,7 +455,7 @@ int launch_tc(const float* feats, const uint8_t* mask, int64_t n, int cin,
   if (e != cudaSuccess) return static_cast<int>(e);
   if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
   if (!smem_set[dev]) {
-    e = cudaFuncSetAttribute(sc_tc_fwd<BN>,
+    e = cudaFuncSetAttribute(sc_tc_fwd<T, BN>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(S::kSmem));
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -394,7 +463,7 @@ int launch_tc(const float* feats, const uint8_t* mask, int64_t n, int cin,
   }
   dim3 grid(static_cast<unsigned>((m + TC_BM - 1) / TC_BM),
             (cout + BN - 1) / BN, splits);
-  sc_tc_fwd<BN><<<grid, S::kThreads, S::kSmem, s>>>(
+  sc_tc_fwd<T, BN><<<grid, S::kThreads, S::kSmem, s>>>(
       feats, mask, n, cin, nbr, m, kk, per, w, cout, bias, out,
       splits > 1 ? ws : nullptr);
   e = cudaGetLastError();
@@ -407,6 +476,43 @@ int launch_tc(const float* feats, const uint8_t* mask, int64_t n, int cin,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int conv_simt(const T* feats, const uint8_t* mask, int64_t n, int cin,
+              const int32_t* nbr, int64_t m, int kk, const T* w, int cout,
+              const float* bias, float* out, void* stream) {
+  if (m <= 0 || cout <= 0) return 0;
+  if (cin <= 0 || kk <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t mt = (m + SC_BM - 1) / SC_BM;
+  if (mt > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(static_cast<unsigned>(mt), (cout + SC_BN - 1) / SC_BN);
+  sc_simt_fwd<T><<<grid, SC_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      feats, mask, n, cin, nbr, m, kk, w, cout, bias, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int conv_tc(const T* feats, const uint8_t* mask, int64_t n, int cin,
+            const int32_t* nbr, int64_t m, int kk, const T* w, int cout,
+            const float* bias, float* out, int bn, int per, int splits,
+            float* ws, void* stream) {
+  constexpr int V = 16 / sizeof(T);
+  if (m <= 0 || cout <= 0) return 0;
+  if (cin <= 0 || kk <= 0 || cin % V || cout % V || per <= 0 ||
+      per > TC_MAXK || splits <= 0 || splits > 65535 ||
+      static_cast<int64_t>(splits - 1) * per >= kk ||
+      static_cast<int64_t>(splits) * per < kk || (splits > 1 && !ws) ||
+      (m + TC_BM - 1) / TC_BM > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bn == 64)
+    return launch_tc<T, 64>(feats, mask, n, cin, nbr, m, kk, per, splits, w,
+                            cout, bias, out, ws, s);
+  if (bn == 128)
+    return launch_tc<T, 128>(feats, mask, n, cin, nbr, m, kk, per, splits, w,
+                             cout, bias, out, ws, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // feats: (n, cin) f32; mask: (n,) bool bytes; nbr: (m, kk) int32;
@@ -417,14 +523,8 @@ extern "C" int es_sparse_conv_simt(const float* feats, const uint8_t* mask,
                                    int64_t m, int kk, const float* w, int cout,
                                    const float* bias, float* out,
                                    void* stream) {
-  if (m <= 0 || cout <= 0) return 0;
-  if (cin <= 0 || kk <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t mt = (m + SC_BM - 1) / SC_BM;
-  if (mt > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(static_cast<unsigned>(mt), (cout + SC_BN - 1) / SC_BN);
-  sc_simt_fwd<<<grid, SC_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      feats, mask, n, cin, nbr, m, kk, w, cout, bias, out);
-  return static_cast<int>(cudaGetLastError());
+  return conv_simt(feats, mask, n, cin, nbr, m, kk, w, cout, bias, out,
+                   stream);
 }
 
 // The tensor-core route, same arguments plus the wrapper's plan: the block
@@ -437,19 +537,30 @@ extern "C" int es_sparse_conv_tc(const float* feats, const uint8_t* mask,
                                  const float* bias, float* out, int bn,
                                  int per, int splits, float* ws,
                                  void* stream) {
-  if (m <= 0 || cout <= 0) return 0;
-  if (cin <= 0 || kk <= 0 || cin % 4 || cout % 4 || per <= 0 ||
-      per > TC_MAXK || splits <= 0 || splits > 65535 ||
-      static_cast<int64_t>(splits - 1) * per >= kk ||
-      static_cast<int64_t>(splits) * per < kk || (splits > 1 && !ws) ||
-      (m + TC_BM - 1) / TC_BM > 0x7fffffff)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bn == 64)
-    return launch_tc<64>(feats, mask, n, cin, nbr, m, kk, per, splits, w, cout,
-                         bias, out, ws, s);
-  if (bn == 128)
-    return launch_tc<128>(feats, mask, n, cin, nbr, m, kk, per, splits, w,
-                          cout, bias, out, ws, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return conv_tc(feats, mask, n, cin, nbr, m, kk, w, cout, bias, out, bn, per,
+                 splits, ws, stream);
+}
+
+// K2-bf16: the two routes with feats (n, cin) and w (kk, cin, cout) as
+// bfloat16 bits; bias, accumulation and out stay float32. The tensor-core
+// route takes cin % 8 == 0, cout % 8 == 0 and 16-byte aligned feats and w.
+extern "C" int es_sparse_conv_simt_bf16(const bf16_t* feats,
+                                        const uint8_t* mask, int64_t n,
+                                        int cin, const int32_t* nbr,
+                                        int64_t m, int kk, const bf16_t* w,
+                                        int cout, const float* bias,
+                                        float* out, void* stream) {
+  return conv_simt(feats, mask, n, cin, nbr, m, kk, w, cout, bias, out,
+                   stream);
+}
+
+extern "C" int es_sparse_conv_tc_bf16(const bf16_t* feats,
+                                      const uint8_t* mask, int64_t n, int cin,
+                                      const int32_t* nbr, int64_t m, int kk,
+                                      const bf16_t* w, int cout,
+                                      const float* bias, float* out, int bn,
+                                      int per, int splits, float* ws,
+                                      void* stream) {
+  return conv_tc(feats, mask, n, cin, nbr, m, kk, w, cout, bias, out, bn, per,
+                 splits, ws, stream);
 }

@@ -63,6 +63,18 @@
 //    a 16-byte boundary: one thread per channel of the wide side, each with
 //    the 4 accumulators of a group of the narrow side, over the same pairs
 //    and chunks, so no column of a 64-wide tile idles.
+// 6. The bfloat16 variant (K3-bf16, es_sparse_wgrad_bf16): the contract of
+//    the reference's bf16 compute route on its custom-VJP backwards
+//    (_subm_bwd :367-370, _strided_bwd :427-430): x and y arrive as
+//    bfloat16 (the wrapper casts each once per call), products are exact
+//    in float32, sums and G are float32. The pair pass, the chunks and the
+//    narrow route (FP32 FMAs over the converted values) are the float32
+//    route's; the tensor-core kernel is the same template on the operand
+//    type: a step is 64 pairs (one 128-byte line of bfloat16), the pass
+//    after the gathers only transposes the staged rows into the K-major
+//    swizzled part (no hi and lo parts), and each 32-byte slice of the
+//    lines is one wgmma.m64nNk16.bf16 where 3xTF32 takes three m64nNk8.
+//    Bound: bf16 dense products at 989 TFLOP/s.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -270,19 +282,14 @@ __device__ __forceinline__ void fence_reg(float& r) {
   asm volatile("" : "+f"(r)::"memory");
 }
 
-// K-major operand in shared memory with the 128-byte swizzle: row m (a
-// channel) holds 32 pairs in one 128-byte line, 8 rows form a 1024-byte
-// atom, and 16-byte chunk q of row m sits at chunk q ^ (m % 8)
+// descriptor of a K-major operand in shared memory with the 128-byte
+// swizzle (see sw128 below): 128-byte lines, 8 to a 1024-byte atom
 __device__ __forceinline__ uint64_t sw128_desc(const void* p) {
   const uint32_t a = smem_addr(p);
   return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(1) << 16) |          // LBO (unused here)
          (static_cast<uint64_t>(1024 >> 4) << 32) |  // SBO: next 8 rows
          (static_cast<uint64_t>(1) << 62);           // 128-byte swizzle
-}
-
-__device__ __forceinline__ int sw128(int m, int p) {
-  return m * WG_STEP + ((((p >> 2) ^ m) & 7) << 2) + (p & 3);
 }
 
 #define WG_D8(i)                                                        \
@@ -332,32 +339,107 @@ __device__ __forceinline__ void wgmma_tf32<128>(float* d, uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// the same over bfloat16 operands: a: 64 x 16, b: N x 16, both K-major in
+// shared memory (imm-trans-a and imm-trans-b 0)
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float* d, uint64_t a, uint64_t b,
+                                           int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<64>(float* d, uint64_t a,
+                                               uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<128>(float* d, uint64_t a,
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32), WG_D8(40),
+        WG_D8(48), WG_D8(56)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 #undef WG_D8
 
+// The operand types: float (3xTF32 over TF32 hi and lo parts) or bf16_t
+// (the bfloat16 variant: one part, the values themselves). A step is the
+// pairs that fill one 128-byte line of a channel's K-major part: 32 TF32
+// values or 64 bfloat16 ones; V elements make a 16-byte chunk.
+template <typename E>
+struct WgOperand;
+
+template <>
+struct WgOperand<float> {
+  static constexpr int kStep = WG_STEP;
+  static constexpr int kParts = 2;
+};
+
+template <>
+struct WgOperand<bf16_t> {
+  static constexpr int kStep = 2 * WG_STEP;
+  static constexpr int kParts = 1;
+};
+
 // S: slots of staged rows (S - 1 steps of gathers in flight). Two buffers
-// of TF32 parts: a step's split pass runs while the last step's products
-// are in flight.
-template <int BM, int BN, int S>
+// of parts: a step's split (or transposition) pass runs while the last
+// step's products are in flight.
+template <typename E, int BM, int BN, int S>
 struct WgTile {
   static_assert(S >= 3, "a step's gathers and the next split need 2 slots");
+  static constexpr int kStep = WgOperand<E>::kStep;
+  static constexpr int kV = 16 / sizeof(E);
   static constexpr int kThreads = BM * 2;  // BM / 64 warpgroups
-  static constexpr int kStage = WG_STEP * (BM + BN);  // staged fp32 rows
-  // one step's TF32 parts: A hi, B hi, A lo, B lo, each 1024-byte aligned
-  static constexpr int kParts = 2 * (BM + BN) * WG_STEP;
-  static constexpr int kA = WG_STEP * (BM / 4) / kThreads;  // copies of a
-  static constexpr int kB = WG_STEP * (BN / 4) / kThreads;  // thread a step
+  static constexpr int kStage = kStep * (BM + BN);  // staged rows
+  // one step's parts (float: A hi, B hi, A lo, B lo; bf16_t: A, B), each
+  // 1024-byte aligned
+  static constexpr int kParts = WgOperand<E>::kParts * (BM + BN) * kStep;
+  static constexpr int kA = kStep * (BM / kV) / kThreads;  // copies of a
+  static constexpr int kB = kStep * (BN / kV) / kThreads;  // thread a step
   // parts, staged rows, and 1024 bytes of slack to align the swizzled
   // parts to their atoms
   static constexpr size_t kSmem =
-      1024 + sizeof(float) * (2 * kParts + S * kStage);
+      1024 + sizeof(E) * (2 * kParts + S * kStage);
 };
 
-// staged rows: row p of W floats keeps 16-byte chunk q at chunk
-// q ^ ((p / 4) % 8), so the split pass's float4 reads (rows 4 j + c of 8
+// staged rows: row p of W elements keeps 16-byte chunk q at chunk
+// q ^ ((p / V) % 8), so the split pass's 16-byte reads (rows V j + c of 8
 // values of j) are conflict-free
-template <int W>
+template <typename E, int W>
 __device__ __forceinline__ int staged(int p, int q) {
-  return p * W + ((q ^ ((p >> 2) & 7)) << 2);
+  constexpr int V = 16 / sizeof(E);
+  return p * W + (q ^ ((p / V) & 7)) * V;
+}
+
+// K-major part with the 128-byte swizzle: row m (a channel) holds a step's
+// pairs in one 128-byte line, 8 rows form a 1024-byte atom, and 16-byte
+// chunk q of row m sits at chunk q ^ (m % 8)
+template <typename E>
+__device__ __forceinline__ int sw128(int m, int p) {
+  constexpr int V = 16 / sizeof(E), L = 128 / sizeof(E);
+  return m * L + ((((p / V) ^ m) & 7) * V) + (p % V);
 }
 
 // cvt.rna.tf32.f32 in two integer operations (round half away from zero at
@@ -378,8 +460,8 @@ __device__ __forceinline__ void split_stage(const float* src, float* hi,
     float v[4][4];  // [pair 4 pq + j][channel 4 mq + i]
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const float4 t =
-          *reinterpret_cast<const float4*>(src + staged<W>(4 * pq + j, mq));
+      const float4 t = *reinterpret_cast<const float4*>(
+          src + staged<float, W>(4 * pq + j, mq));
       v[j][0] = t.x, v[j][1] = t.y, v[j][2] = t.z, v[j][3] = t.w;
     }
 #pragma unroll
@@ -391,26 +473,67 @@ __device__ __forceinline__ void split_stage(const float* src, float* hi,
         l[j] = tf32_rna(v[j][i] - __uint_as_float(h[j]));
       }
       const int m = 4 * mq + i;
-      const int off = sw128(m, 4 * pq);  // pairs 4 pq .. 4 pq + 3 of line m
+      // pairs 4 pq .. 4 pq + 3 of line m
+      const int off = sw128<float>(m, 4 * pq);
       *reinterpret_cast<uint4*>(hi + off) = make_uint4(h[0], h[1], h[2], h[3]);
       *reinterpret_cast<uint4*>(lo + off) = make_uint4(l[0], l[1], l[2], l[3]);
     }
   }
 }
 
-// grid (ceil(cx / BM) * ceil(cy / BN), kk, chunks), BM * 2 threads
-template <int BM, int BN, int S>
-__global__ void __launch_bounds__(WgTile<BM, BN, S>::kThreads)
-wg_wgmma(const float* __restrict__ x, int cx, const float* __restrict__ y,
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// The bfloat16 variant's pass: one landed step (64 pairs x W channels)
+// transposed into its K-major swizzled part, no split. A thread takes 8
+// pairs x 8 channels: eight 16-byte reads (a pair's 8 channels each), a
+// register transpose by byte permutes, then per channel one 16-byte store
+// of its 8 pairs; the 8 threads of a quarter warp fill one 128-byte line
+template <int W>
+__device__ __forceinline__ void transpose_stage(const bf16_t* src,
+                                                bf16_t* dst, int tid,
+                                                int threads) {
+  for (int e = tid; e < 8 * (W / 8); e += threads) {
+    const int pq = e & 7, mq = e >> 3;
+    uint4 r[8];  // pair 8 pq + j: channels 8 mq .. 8 mq + 7
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      r[j] = *reinterpret_cast<const uint4*>(
+          src + staged<bf16_t, W>(8 * pq + j, mq));
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      // channel 8 mq + i of pairs 2 h and 2 h + 1 into word h: the low
+      // halves of word i / 2 for an even i, the high halves for an odd one
+      const unsigned sel = (i & 1) ? 0x7632u : 0x5410u;
+      uint32_t w[4];
+#pragma unroll
+      for (int h = 0; h < 4; ++h)
+        w[h] = __byte_perm(word_of(r[2 * h], i >> 1),
+                           word_of(r[2 * h + 1], i >> 1), sel);
+      *reinterpret_cast<uint4*>(dst + sw128<bf16_t>(8 * mq + i, 8 * pq)) =
+          make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+// grid (ceil(cx / BM) * ceil(cy / BN), kk, chunks), BM * 2 threads; E is
+// the operand type (float, or bf16_t for the bfloat16 variant)
+template <typename E, int BM, int BN, int S>
+__global__ void __launch_bounds__(WgTile<E, BM, BN, S>::kThreads)
+wg_wgmma(const E* __restrict__ x, int cx, const E* __restrict__ y,
          int cy, int64_t r, const int2* __restrict__ pairs,
          const int* __restrict__ counts, int chunks, float* __restrict__ out,
          float* __restrict__ ws) {
-  using T = WgTile<BM, BN, S>;
+  using T = WgTile<E, BM, BN, S>;
   constexpr int kThreads = T::kThreads;
+  constexpr int kStep = T::kStep;
+  constexpr int V = T::kV;
+  constexpr bool kBf16 = sizeof(E) == 2;
   extern __shared__ unsigned char wg_smem[];
-  float* parts = reinterpret_cast<float*>(
+  E* parts = reinterpret_cast<E*>(
       (reinterpret_cast<uintptr_t>(wg_smem) + 1023) & ~uintptr_t(1023));
-  float* ring = parts + 2 * T::kParts;
+  E* ring = parts + 2 * T::kParts;
 
   const Chunk ch = block_chunk(counts, chunks, cx, cy, out, ws);
   if (ch.dst == nullptr) return;
@@ -419,44 +542,44 @@ wg_wgmma(const float* __restrict__ x, int cx, const float* __restrict__ y,
   const int cx0 = (blockIdx.x % tiles_x) * BM;
   const int cy0 = (blockIdx.x / tiles_x) * BN;
   const int2* pk = pairs + blockIdx.y * r;
-  const int steps = (ch.p1 - ch.p0 + WG_STEP - 1) / WG_STEP;
+  const int steps = (ch.p1 - ch.p0 + kStep - 1) / kStep;
 
   // the x and y rows of this thread's copies of one step (-1 past the
   // chunk), loaded an iteration before their gathers are issued
   int xr[T::kA], yr[T::kB];
   auto fetch_rows = [&](int s) {
-    const int pb = ch.p0 + s * WG_STEP;
+    const int pb = ch.p0 + s * kStep;
 #pragma unroll
     for (int i = 0; i < T::kA; ++i) {
-      const int p = pb + (tid + i * kThreads) / (BM / 4);
+      const int p = pb + (tid + i * kThreads) / (BM / V);
       xr[i] = p < ch.p1 ? pk[p].x : -1;
     }
 #pragma unroll
     for (int i = 0; i < T::kB; ++i) {
-      const int p = pb + (tid + i * kThreads) / (BN / 4);
+      const int p = pb + (tid + i * kThreads) / (BN / V);
       yr[i] = p < ch.p1 ? pk[p].y : -1;
     }
   };
   // gather step s into ring slot s % S: x rows then y rows, 16 B a copy,
   // zero-filled past the chunk's pairs and the channels
   auto load_step = [&](int s) {
-    float* as = ring + (s % S) * T::kStage;
-    float* bs = as + WG_STEP * BM;
+    E* as = ring + (s % S) * T::kStage;
+    E* bs = as + kStep * BM;
 #pragma unroll
     for (int i = 0; i < T::kA; ++i) {
       const int e = tid + i * kThreads;
-      const int rr = e / (BM / 4), q = e % (BM / 4), col = cx0 + q * 4;
+      const int rr = e / (BM / V), q = e % (BM / V), col = cx0 + q * V;
       const bool ok = xr[i] >= 0 && col < cx;
-      const float* g = ok ? x + static_cast<int64_t>(xr[i]) * cx + col : x;
-      cp_async16(smem_addr(as + staged<BM>(rr, q)), g, ok ? 16 : 0);
+      const E* g = ok ? x + static_cast<int64_t>(xr[i]) * cx + col : x;
+      cp_async16(smem_addr(as + staged<E, BM>(rr, q)), g, ok ? 16 : 0);
     }
 #pragma unroll
     for (int i = 0; i < T::kB; ++i) {
       const int e = tid + i * kThreads;
-      const int rr = e / (BN / 4), q = e % (BN / 4), col = cy0 + q * 4;
+      const int rr = e / (BN / V), q = e % (BN / V), col = cy0 + q * V;
       const bool ok = yr[i] >= 0 && col < cy;
-      const float* g = ok ? y + static_cast<int64_t>(yr[i]) * cy + col : y;
-      cp_async16(smem_addr(bs + staged<BN>(rr, q)), g, ok ? 16 : 0);
+      const E* g = ok ? y + static_cast<int64_t>(yr[i]) * cy + col : y;
+      cp_async16(smem_addr(bs + staged<E, BN>(rr, q)), g, ok ? 16 : 0);
     }
   };
 
@@ -464,18 +587,24 @@ wg_wgmma(const float* __restrict__ x, int cx, const float* __restrict__ y,
   float acc[BN / 2], part[BN / 2];
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = part[i] = 0.f;
-  // descriptors of parts buffer 0; buffer 1 is kParts floats further
-  const uint64_t dahi = sw128_desc(parts + wg * 64 * WG_STEP);
-  const uint64_t dbhi = sw128_desc(parts + BM * WG_STEP);
-  const uint64_t dalo = sw128_desc(parts + (BM + BN + wg * 64) * WG_STEP);
-  const uint64_t dblo = sw128_desc(parts + (2 * BM + BN) * WG_STEP);
+  // descriptors of parts buffer 0; buffer 1 is kParts elements further.
+  // float: A hi, B hi, A lo, B lo; bf16_t: A, B (the lo ones unused)
+  const uint64_t dahi = sw128_desc(parts + wg * 64 * kStep);
+  const uint64_t dbhi = sw128_desc(parts + BM * kStep);
+  const uint64_t dalo = sw128_desc(parts + (BM + BN + wg * 64) * kStep);
+  const uint64_t dblo = sw128_desc(parts + (2 * BM + BN) * kStep);
   // step s's landed rows into parts buffer s % 2
   auto split = [&](int s) {
-    const float* as = ring + (s % S) * T::kStage;
-    float* pb = parts + (s & 1) * T::kParts;
-    split_stage<BM>(as, pb, pb + (BM + BN) * WG_STEP, tid, kThreads);
-    split_stage<BN>(as + WG_STEP * BM, pb + BM * WG_STEP,
-                    pb + (2 * BM + BN) * WG_STEP, tid, kThreads);
+    const E* as = ring + (s % S) * T::kStage;
+    E* pb = parts + (s & 1) * T::kParts;
+    if constexpr (kBf16) {
+      transpose_stage<BM>(as, pb, tid, kThreads);
+      transpose_stage<BN>(as + kStep * BM, pb + BM * kStep, tid, kThreads);
+    } else {
+      split_stage<BM>(as, pb, pb + (BM + BN) * kStep, tid, kThreads);
+      split_stage<BN>(as + kStep * BM, pb + BM * kStep,
+                      pb + (2 * BM + BN) * kStep, tid, kThreads);
+    }
     fence_proxy_async();  // the parts' stores, visible to the tensor cores
   };
 #pragma unroll
@@ -502,16 +631,21 @@ wg_wgmma(const float* __restrict__ x, int cx, const float* __restrict__ y,
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) fence_reg(part[i]);
     wgmma_fence();
-    const uint64_t bo = (step & 1) * (T::kParts / 4);  // 16-byte units
+    const uint64_t bo = (step & 1) * (T::kParts / V);  // 16-byte units
+    // each product takes 32 bytes of every line: 8 TF32 or 16 bf16 pairs
 #pragma unroll
-    for (int k8 = 0; k8 < WG_STEP / 8; ++k8) {
-      const uint64_t o = bo + 2 * k8;  // 32 bytes further along each line
-      if (WG_TF32_TERMS == 3) {
-        wgmma_tf32<BN>(part, dalo + o, dbhi + o, k8 > 0);
-        wgmma_tf32<BN>(part, dahi + o, dblo + o, 1);
+    for (int kq = 0; kq < 4; ++kq) {
+      const uint64_t o = bo + 2 * kq;  // 32 bytes further along each line
+      if constexpr (kBf16) {
+        wgmma_bf16<BN>(part, dahi + o, dbhi + o, kq > 0);
+      } else {
+        if (WG_TF32_TERMS == 3) {
+          wgmma_tf32<BN>(part, dalo + o, dbhi + o, kq > 0);
+          wgmma_tf32<BN>(part, dahi + o, dblo + o, 1);
+        }
+        wgmma_tf32<BN>(part, dahi + o, dbhi + o,
+                       WG_TF32_TERMS == 3 || kq > 0);
       }
-      wgmma_tf32<BN>(part, dahi + o, dbhi + o,
-                     WG_TF32_TERMS == 3 || k8 > 0);
     }
     wgmma_commit();
 
@@ -564,9 +698,11 @@ constexpr int WN_NARROW = 4;                      // narrow channels a block
 constexpr int WN_STEP = 128;                      // pairs staged at a time
 
 // grid (tiles, kk, chunks). y_narrow: the wide side is x (64 x channels a
-// block, groups of 4 y channels), else the wide side is y
+// block, groups of 4 y channels), else the wide side is y. E: float, or
+// bf16_t (converted to float32 as it is read)
+template <typename E>
 __global__ void __launch_bounds__(WN_THREADS)
-wg_narrow(const float* __restrict__ x, int cx, const float* __restrict__ y,
+wg_narrow(const E* __restrict__ x, int cx, const E* __restrict__ y,
           int cy, int64_t r, const int2* __restrict__ pairs,
           const int* __restrict__ counts, int chunks, bool y_narrow,
           float* __restrict__ out, float* __restrict__ ws) {
@@ -575,8 +711,8 @@ wg_narrow(const float* __restrict__ x, int cx, const float* __restrict__ y,
   __shared__ float s_red[WN_GROUPS][WN_NARROW][WN_WIDE];
   const Chunk ch = block_chunk(counts, chunks, cx, cy, out, ws);
   if (ch.dst == nullptr) return;
-  const float* wsrc = y_narrow ? x : y;
-  const float* nsrc = y_narrow ? y : x;
+  const E* wsrc = y_narrow ? x : y;
+  const E* nsrc = y_narrow ? y : x;
   const int cw = y_narrow ? cx : cy, cn = y_narrow ? cy : cx;
   const int tiles_w = (cw + WN_WIDE - 1) / WN_WIDE;
   const int cw0 = (blockIdx.x % tiles_w) * WN_WIDE;
@@ -595,7 +731,8 @@ wg_narrow(const float* __restrict__ x, int cx, const float* __restrict__ y,
       if (i < cnt) {
         const int2 pr = pk[pb + i];
         const int nrow = y_narrow ? pr.y : pr.x;
-        if (cn0 + q < cn) v = nsrc[static_cast<int64_t>(nrow) * cn + cn0 + q];
+        if (cn0 + q < cn)
+          v = to_f32(nsrc[static_cast<int64_t>(nrow) * cn + cn0 + q]);
         if (q == 0) s_wrow[i] = y_narrow ? pr.x : pr.y;
       }
       s_nv[i][q] = v;
@@ -604,7 +741,8 @@ wg_narrow(const float* __restrict__ x, int cx, const float* __restrict__ y,
     if (wc < cw) {
 #pragma unroll 4
       for (int i = grp; i < cnt; i += WN_GROUPS) {
-        const float v = wsrc[static_cast<int64_t>(s_wrow[i]) * cw + wc];
+        const float v =
+            to_f32(wsrc[static_cast<int64_t>(s_wrow[i]) * cw + wc]);
 #pragma unroll
         for (int q = 0; q < WN_NARROW; ++q)
           acc[q] = fmaf(v, s_nv[i][q], acc[q]);
@@ -664,16 +802,16 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, bool* done) {
 
 // the tensor-core launch for a bm x bn tile (with 3 slots of staged rows
 // the 64 x 64 block still fits twice on an SM)
-template <int BM, int BN>
-cudaError_t launch_wgmma(dim3 grid, cudaStream_t s, const float* x, int cx,
-                         const float* y, int cy, int64_t r, const int2* pairs,
+template <typename E, int BM, int BN>
+cudaError_t launch_wgmma(dim3 grid, cudaStream_t s, const E* x, int cx,
+                         const E* y, int cy, int64_t r, const int2* pairs,
                          const int* counts, int chunks, float* out,
                          float* ws) {
-  using T = WgTile<BM, BN, WG_STAGES>;
+  using T = WgTile<E, BM, BN, WG_STAGES>;
   static bool done[64] = {};
-  cudaError_t e = allow_smem(wg_wgmma<BM, BN, WG_STAGES>, T::kSmem, done);
+  cudaError_t e = allow_smem(wg_wgmma<E, BM, BN, WG_STAGES>, T::kSmem, done);
   if (e != cudaSuccess) return e;
-  wg_wgmma<BM, BN, WG_STAGES><<<grid, T::kThreads, T::kSmem, s>>>(
+  wg_wgmma<E, BM, BN, WG_STAGES><<<grid, T::kThreads, T::kSmem, s>>>(
       x, cx, y, cy, r, pairs, counts, chunks, out, ws);
   return cudaGetLastError();
 }
@@ -701,6 +839,62 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// The call for operands of type E (see es_sparse_wgrad)
+template <typename E>
+int sparse_wgrad(int narrow, const E* x, const uint8_t* x_mask, int64_t r,
+                 int cx, const int32_t* idx, int kk, const E* y,
+                 const uint8_t* y_mask, int64_t ny, int cy, int bm, int bn,
+                 int chunks, int32_t* pairs, int32_t* meta, float* ws,
+                 float* out, void* stream) {
+  constexpr int V = 16 / sizeof(E);
+  if (cx <= 0 || cy <= 0 || kk <= 0 || kk > 65535 || r < 0 ||
+      r > 0x7fffffff || ny < 0 || chunks <= 0 || chunks > 65535 ||
+      (chunks > 1 && ws == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool y_narrow = bn == WN_NARROW;
+  const bool tc_ok = (bm == 64 || bm == 128) && (bn == 64 || bn == 128) &&
+                     cx % V == 0 && cy % V == 0 && aligned16(x) &&
+                     aligned16(y);
+  const bool narrow_ok = (bm == WN_WIDE && bn == WN_NARROW) ||
+                         (bm == WN_NARROW && bn == WN_WIDE);
+  if (narrow ? !narrow_ok : !tc_ok)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t tiles = static_cast<int64_t>((cx + bm - 1) / bm) *
+                        ((cy + bn - 1) / bn);
+  if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int e = launch_pairs(x_mask, r, idx, kk, y_mask, ny, pairs, meta, s);
+  if (e != 0) return e;
+  const int2* pr = reinterpret_cast<const int2*>(pairs);
+  const int* counts = meta;
+  float* dst_ws = chunks > 1 ? ws : nullptr;
+  dim3 grid(static_cast<unsigned>(tiles), kk, chunks);
+  cudaError_t err;
+  if (narrow) {
+    wg_narrow<E><<<grid, WN_THREADS, 0, s>>>(x, cx, y, cy, r, pr, counts,
+                                             chunks, y_narrow, out, dst_ws);
+    err = cudaGetLastError();
+  } else if (bm == 128 && bn == 128) {
+    err = launch_wgmma<E, 128, 128>(grid, s, x, cx, y, cy, r, pr, counts,
+                                    chunks, out, dst_ws);
+  } else if (bm == 128) {
+    err = launch_wgmma<E, 128, 64>(grid, s, x, cx, y, cy, r, pr, counts,
+                                   chunks, out, dst_ws);
+  } else if (bn == 128) {
+    err = launch_wgmma<E, 64, 128>(grid, s, x, cx, y, cy, r, pr, counts,
+                                   chunks, out, dst_ws);
+  } else {
+    err = launch_wgmma<E, 64, 64>(grid, s, x, cx, y, cy, r, pr, counts,
+                                  chunks, out, dst_ws);
+  }
+  if (err != cudaSuccess || chunks == 1) return static_cast<int>(err);
+  const int64_t plane = static_cast<int64_t>(cx) * cy;
+  const int threads = 256;
+  wg_reduce<<<dim3(static_cast<unsigned>((plane + threads - 1) / threads), kk),
+              threads, 0, s>>>(ws, counts, chunks, plane, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // K3. x: (r, cx) f32; x_mask: (r,) bool bytes; idx: (r, kk) int32 rows of
@@ -722,50 +916,20 @@ extern "C" int es_sparse_wgrad(int narrow, const float* x,
                                int bm, int bn, int chunks, int32_t* pairs,
                                int32_t* meta, float* ws, float* out,
                                void* stream) {
-  if (cx <= 0 || cy <= 0 || kk <= 0 || kk > 65535 || r < 0 ||
-      r > 0x7fffffff || ny < 0 || chunks <= 0 || chunks > 65535 ||
-      (chunks > 1 && ws == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const bool y_narrow = bn == WN_NARROW;
-  const bool tc_ok = (bm == 64 || bm == 128) && (bn == 64 || bn == 128) &&
-                     cx % 4 == 0 && cy % 4 == 0 && aligned16(x) &&
-                     aligned16(y);
-  const bool narrow_ok = (bm == WN_WIDE && bn == WN_NARROW) ||
-                         (bm == WN_NARROW && bn == WN_WIDE);
-  if (narrow ? !narrow_ok : !tc_ok)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t tiles = static_cast<int64_t>((cx + bm - 1) / bm) *
-                        ((cy + bn - 1) / bn);
-  if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int e = launch_pairs(x_mask, r, idx, kk, y_mask, ny, pairs, meta, s);
-  if (e != 0) return e;
-  const int2* pr = reinterpret_cast<const int2*>(pairs);
-  const int* counts = meta;
-  float* dst_ws = chunks > 1 ? ws : nullptr;
-  dim3 grid(static_cast<unsigned>(tiles), kk, chunks);
-  cudaError_t err;
-  if (narrow) {
-    wg_narrow<<<grid, WN_THREADS, 0, s>>>(x, cx, y, cy, r, pr, counts, chunks,
-                                          y_narrow, out, dst_ws);
-    err = cudaGetLastError();
-  } else if (bm == 128 && bn == 128) {
-    err = launch_wgmma<128, 128>(grid, s, x, cx, y, cy, r, pr, counts, chunks,
-                                 out, dst_ws);
-  } else if (bm == 128) {
-    err = launch_wgmma<128, 64>(grid, s, x, cx, y, cy, r, pr, counts, chunks,
-                                out, dst_ws);
-  } else if (bn == 128) {
-    err = launch_wgmma<64, 128>(grid, s, x, cx, y, cy, r, pr, counts, chunks,
-                                out, dst_ws);
-  } else {
-    err = launch_wgmma<64, 64>(grid, s, x, cx, y, cy, r, pr, counts, chunks,
-                               out, dst_ws);
-  }
-  if (err != cudaSuccess || chunks == 1) return static_cast<int>(err);
-  const int64_t plane = static_cast<int64_t>(cx) * cy;
-  const int threads = 256;
-  wg_reduce<<<dim3(static_cast<unsigned>((plane + threads - 1) / threads), kk),
-              threads, 0, s>>>(ws, counts, chunks, plane, out);
-  return static_cast<int>(cudaGetLastError());
+  return sparse_wgrad(narrow, x, x_mask, r, cx, idx, kk, y, y_mask, ny, cy,
+                      bm, bn, chunks, pairs, meta, ws, out, stream);
+}
+
+// K3-bf16: the same call with x (r, cx) and y (ny, cy) as bfloat16 bits;
+// accumulation, the chunk partials and out stay float32. The tensor-core
+// route takes cx and cy multiples of 8.
+extern "C" int es_sparse_wgrad_bf16(int narrow, const bf16_t* x,
+                                    const uint8_t* x_mask, int64_t r, int cx,
+                                    const int32_t* idx, int kk,
+                                    const bf16_t* y, const uint8_t* y_mask,
+                                    int64_t ny, int cy, int bm, int bn,
+                                    int chunks, int32_t* pairs, int32_t* meta,
+                                    float* ws, float* out, void* stream) {
+  return sparse_wgrad(narrow, x, x_mask, r, cx, idx, kk, y, y_mask, ny, cy,
+                      bm, bn, chunks, pairs, meta, ws, out, stream);
 }

@@ -33,13 +33,14 @@ class SparseFusionDetector(nn.Module):
                  resnet_depth: int = 50, mink_depth: int = 34,
                  img_dtype: torch.dtype = torch.float32,
                  bbox_mode: str = 'euler9d',
-                 predict_protocol: str = 'reference'):
+                 predict_protocol: str = 'reference',
+                 remat: bool | str = 'none'):
         super().__init__()
         self.trunk = SparseFusionTrunk(
             voxel_size=voxel_size, input_capacity=input_capacity,
             backbone_capacities=tuple(backbone_capacities),
             resnet_depth=resnet_depth, mink_depth=mink_depth,
-            img_dtype=img_dtype)
+            img_dtype=img_dtype, remat=remat)
         self.bbox_head = FCAF3DHead(
             num_classes=num_classes, in_channels=self.trunk.out_channels,
             voxel_size=voxel_size, strides=STRIDES,

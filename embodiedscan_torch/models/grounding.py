@@ -244,7 +244,8 @@ class SparseFusionGrounder(nn.Module):
                  cost_cls_weight: float = 1.0, cost_l1_weight: float = 2.0,
                  cost_iou_weight: float = 2.0,
                  decouple_weights=(0.2, 0.2, 0.2, 0.4),
-                 img_dtype: torch.dtype = torch.float32):
+                 img_dtype: torch.dtype = torch.float32,
+                 remat: bool | str = 'none'):
         super().__init__()
         if box_coder not in _BOX_CODERS:
             raise ValueError(f'unknown box coder {box_coder!r}')
@@ -263,7 +264,7 @@ class SparseFusionGrounder(nn.Module):
             voxel_size=voxel_size, input_capacity=input_capacity,
             backbone_capacities=tuple(backbone_capacities),
             resnet_depth=resnet_depth, mink_depth=mink_depth,
-            img_dtype=img_dtype)
+            img_dtype=img_dtype, remat=remat)
         self.neck = MinkNeck(self.trunk.out_channels, embed_dims,
                              voxel_size=voxel_size,
                              fpn_capacities=tuple(fpn_capacities))

@@ -13,6 +13,19 @@ a train step updates, as in the reference.
 import torch
 from torch import nn
 
+from .remat import recomputing
+
+
+def _running_update(norm: nn.Module, mean: torch.Tensor,
+                    var: torch.Tensor) -> None:
+    """The running statistics' momentum update, once per forward: a
+    rematerialized forward's recompute (``remat.recomputing``) skips it."""
+    if recomputing():
+        return
+    with torch.no_grad():
+        norm.mean.mul_(norm.MOMENTUM).add_((1 - norm.MOMENTUM) * mean)
+        norm.var.mul_(norm.MOMENTUM).add_((1 - norm.MOMENTUM) * var)
+
 
 class MaskedBatchNorm(nn.Module):
     """BatchNorm over (B, N, C) masked features: batch statistics over the
@@ -40,9 +53,7 @@ class MaskedBatchNorm(nn.Module):
             dims = tuple(range(f32.dim() - 1))
             mean = (f32 * m).sum(dim=dims) / cnt
             var = (torch.square(f32 - mean) * m).sum(dim=dims) / cnt
-            with torch.no_grad():
-                self.mean.mul_(self.MOMENTUM).add_((1 - self.MOMENTUM) * mean)
-                self.var.mul_(self.MOMENTUM).add_((1 - self.MOMENTUM) * var)
+            _running_update(self, mean, var)
         out = (feats - mean) * torch.rsqrt(var + self.epsilon)
         out = out * self.scale + self.bias
         return torch.where(mask[..., None], out,
@@ -98,9 +109,7 @@ class DenseBatchNorm(nn.Module):
             mean = xf.mean(dim=dims)
             var = torch.maximum(xf.square().mean(dim=dims) - mean.square(),
                                 torch.zeros_like(mean))
-            with torch.no_grad():
-                self.mean.mul_(self.MOMENTUM).add_((1 - self.MOMENTUM) * mean)
-                self.var.mul_(self.MOMENTUM).add_((1 - self.MOMENTUM) * var)
+            _running_update(self, mean, var)
         mul = torch.rsqrt(var + self.epsilon) * self.scale
         out = (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
         return out.to(x.dtype)

@@ -33,6 +33,7 @@ from .fpn import FPN
 from .fusion import point_image_sample_batched
 from .losses import cross_entropy_ignore
 from .norm import DenseBatchNorm
+from .remat import checkpointed, covers
 from .resnet2d import ResNet
 from .sparse_nn import MinkResNet
 from .trunk import mink_channels
@@ -286,7 +287,8 @@ class DenseFusionOccPredictor(nn.Module):
                  resnet_depth: int = 50, resnet_base_channels: int = 64,
                  mink_depth: int = 34, neck3d_channels: int = 128,
                  fpn_channels: int = 256, pre_neck_channels: int = 0,
-                 neck_dtype: torch.dtype = torch.float32):
+                 neck_dtype: torch.dtype = torch.float32,
+                 remat: bool | str = 'none'):
         super().__init__()
         self.n_voxels = tuple(n_voxels)
         self.point_cloud_range = tuple(point_cloud_range)
@@ -299,14 +301,19 @@ class DenseFusionOccPredictor(nn.Module):
         # upstream of the sum over views
         self.view_group = None
         self.prior = _prior_points(prior_range, self.n_voxels, prior_origin)
+        # remat (models.remat): '2d' the ResNet's blocks, '3d' the
+        # MinkResNet's stages and the whole U-Net (occupancy.py:260-345)
+        self.remat_neck = covers(remat, '3d')
         self.ResNet_0 = ResNet(depth=resnet_depth,
-                               base_channels=resnet_base_channels)
+                               base_channels=resnet_base_channels,
+                               remat=covers(remat, '2d'))
         expansion = 4 if resnet_depth >= 50 else 1
         self.FPN_0 = FPN([resnet_base_channels * 2**i * expansion
                           for i in range(4)], fpn_channels)
         self.view_branch = (self.ResNet_0, self.FPN_0)
         self.MinkResNet_0 = MinkResNet(depth=mink_depth,
-                                       capacities=tuple(backbone_capacities))
+                                       capacities=tuple(backbone_capacities),
+                                       remat=self.remat_neck)
         c = fpn_channels + mink_channels(mink_depth)[-1]
         if pre_neck_channels:
             self.pre_neck = nn.Linear(c, pre_neck_channels)
@@ -377,7 +384,9 @@ class DenseFusionOccPredictor(nn.Module):
         """The U-Net on a (B, X, Y, Z, C) volume: per-scale (B, X/2^i,
         Y/2^i, Z/2^i, neck3d_channels) features."""
         x = x.permute(0, 4, 1, 2, 3).contiguous()
-        return [f.permute(0, 2, 3, 4, 1) for f in self.ImVoxelNeck_0(x)]
+        feats = checkpointed(self.ImVoxelNeck_0, x) if self.remat_neck \
+            else self.ImVoxelNeck_0(x)
+        return [f.permute(0, 2, 3, 4, 1) for f in feats]
 
     def logits(self, batch: dict):
         """Per-scale (B, X/2^i, Y/2^i, Z/2^i, num_classes) logits."""

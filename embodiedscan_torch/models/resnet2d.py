@@ -12,6 +12,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from .norm import FrozenBatchNorm
+from .remat import checkpointed
 
 
 def _conv(cin, cout, k, stride=1):
@@ -95,10 +96,14 @@ class ResNet(nn.Module):
     }
 
     def __init__(self, depth: int = 50, base_channels: int = 16,
-                 out_indices=(0, 1, 2, 3), dtype: torch.dtype = torch.float32):
+                 out_indices=(0, 1, 2, 3), dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         block, stage_blocks = self.arch[depth]
         self.dtype = dtype
+        # recompute each block's activations in the backward pass (the
+        # reference's remat, resnet2d.py:177-194); names are unchanged
+        self.remat = remat
         self.out_indices = tuple(out_indices)
         self.stage_blocks = stage_blocks
         self.stem_conv = nn.Conv2d(3, base_channels, 7, stride=2, padding=3,
@@ -121,7 +126,8 @@ class ResNet(nn.Module):
         outs = []
         for i, blocks in enumerate(self.stage_blocks):
             for j in range(blocks):
-                x = getattr(self, f'layer{i + 1}_{j}')(x)
+                block = getattr(self, f'layer{i + 1}_{j}')
+                x = checkpointed(block, x) if self.remat else block(x)
             if i in self.out_indices:
                 outs.append(x.permute(0, 2, 3, 1))
         return tuple(outs)

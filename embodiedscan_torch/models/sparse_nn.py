@@ -17,6 +17,7 @@ from torch.nn import functional as F
 from ..ops import sparse as S
 from ..ops.hashing import lookup_merge_b, lookup_merge_multi_b
 from .norm import MaskedBatchNorm, MaskedInstanceNorm
+from .remat import checkpointed
 
 
 class SparseConv(nn.Module):
@@ -371,9 +372,12 @@ class MinkResNet(nn.Module):
 
     def __init__(self, depth: int = 34,
                  capacities=(65536, 32768, 24576, 8192, 4096, 2048),
-                 in_channels: int = 3):
+                 in_channels: int = 3, remat: bool = False):
         super().__init__()
         self.capacities = tuple(capacities)
+        # recompute each stage in the backward pass, its tables included
+        # (the reference's remat, sparse_nn.py:530-557); names are unchanged
+        self.remat = remat
         block, stage_blocks = self.arch[depth]
         self.SparseConv_0 = SparseConv(in_channels, 64)
         self.MaskedInstanceNorm_0 = MaskedInstanceNorm(64)
@@ -394,6 +398,7 @@ class MinkResNet(nn.Module):
         x = S.maxpool2(x, S.downsample_coords_b(x, self.capacities[1]))
         outs = []
         for i in range(self.n_stages):
-            x = getattr(self, f'SparseStage_{i}')(x)
+            stage = getattr(self, f'SparseStage_{i}')
+            x = checkpointed(stage, x) if self.remat else stage(x)
             outs.append(x)
         return tuple(outs)

@@ -6,6 +6,7 @@ from torch import nn
 
 from ..ops import sparse as S
 from .fusion import point_image_sample_batched
+from .remat import covers
 from .resnet2d import ResNet
 from .sparse_nn import MinkResNet
 
@@ -28,21 +29,24 @@ class SparseFusionTrunk(nn.Module):
     voxel. ``view_group``: the process group over which the batch's views
     are split (``parallel.mesh.use_mesh``), else None; ``view_branch``: the
     submodules upstream of the sum over views, each process's gradients of
-    which are of its own views alone."""
+    which are of its own views alone. ``remat``: 'none', '2d' (the ResNet's
+    blocks), '3d' (the MinkResNet's stages) or 'all' (``models.remat``)."""
 
     def __init__(self, voxel_size: float = 0.01, input_capacity: int = 98304,
                  backbone_capacities=(65536, 32768, 24576, 8192, 4096, 2048),
                  resnet_depth: int = 50, mink_depth: int = 34,
-                 img_dtype: torch.dtype = torch.float32):
+                 img_dtype: torch.dtype = torch.float32,
+                 remat: bool | str = 'none'):
         super().__init__()
         self.voxel_size = voxel_size
         self.input_capacity = input_capacity
         self.img_dtype = img_dtype
         self.view_group = None
         self.MinkResNet_0 = MinkResNet(depth=mink_depth,
-                                       capacities=tuple(backbone_capacities))
+                                       capacities=tuple(backbone_capacities),
+                                       remat=covers(remat, '3d'))
         self.ResNet_0 = ResNet(depth=resnet_depth, base_channels=16,
-                               dtype=img_dtype)
+                               dtype=img_dtype, remat=covers(remat, '2d'))
         self.view_branch = (self.ResNet_0,)
         self.out_channels = tuple(
             c3 + c2 for c3, c2 in zip(mink_channels(mink_depth),

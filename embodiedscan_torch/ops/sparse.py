@@ -23,6 +23,12 @@ any other table). Their input gradients run through the same kernel K2
 (:func:`conv_dgrad`, or ``index_add_`` for the generic route), their weight
 gradients through kernel K3 (``csrc/sparse_conv_wgrad.cu``,
 :func:`conv_wgrad`).
+
+:func:`set_conv_compute_dtype` (``torch.bfloat16``) turns on the reference's
+bf16 compute route: every conv then follows one of its three rounding
+contracts, launching the kernels' bfloat16 variants K2-bf16 and K3-bf16 on
+the card (see :func:`set_conv_compute_dtype`). Features in and out stay
+float32.
 """
 
 import functools
@@ -42,6 +48,52 @@ OFFSETS_3 = np.array(
 OFFSETS_2 = np.array(
     [[dx, dy, dz] for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)],
     dtype=np.int32)  # (8, 3)
+
+# The sparse convs' compute dtype (the reference's name and switch): None
+# computes in float32; torch.bfloat16 rounds each conv's operands to
+# bfloat16 and accumulates in float32. Read when a conv runs (an autograd
+# conv keeps its forward's choice for its backward).
+CONV_COMPUTE_DTYPE = None
+
+
+def set_conv_compute_dtype(dtype) -> None:
+    """Set the sparse convs' compute dtype: None (float32) or
+    ``torch.bfloat16``, the reference's ``set_conv_compute_dtype``.
+
+    Under bfloat16 each conv follows the reference's contract for its
+    route, cast for cast:
+
+    - forward (every route): the masked features and the weights rounded
+      to bfloat16 (features before the gather, which halves its bytes),
+      products and sums in float32 (K2-bf16);
+    - submanifold and strided backwards (the reference's custom VJPs): the
+      output gradient (masked, for a submanifold conv), the features and
+      the weights rounded to bfloat16; dfeats through K2-bf16 and dW
+      through K3-bf16, summed and stored in float32;
+    - generic backward (the reference's autodiff of the forward: the stem,
+      the K = 1 downsamples): the output gradient stays float32; each
+      offset's ``dout @ W_bf16^T`` is rounded to bfloat16 and the feature
+      gradient summed by bfloat16 adds (``index_add_``); dW is the float32
+      K3 over the bfloat16-rounded features and the float32 output
+      gradient, rounded to bfloat16.
+
+    The dtype is a module global, as in the reference: set it before the
+    model runs, and restore it when done.
+    """
+    if dtype not in (None, torch.bfloat16):
+        raise ValueError(f'conv compute dtype {dtype}: None or '
+                         'torch.bfloat16')
+    global CONV_COMPUTE_DTYPE
+    CONV_COMPUTE_DTYPE = dtype
+
+
+def _bf16_route() -> bool:
+    return CONV_COMPUTE_DTYPE is not None
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bfloat16 (nearest even), as float32."""
+    return t.to(torch.bfloat16).to(torch.float32)
 
 
 class SparseTensor(NamedTuple):
@@ -239,6 +291,14 @@ def _gather_matmul_conv_plain(feats, mask, nbr, weights, bias=None):
     return out
 
 
+def _gather_matmul_conv_bf16_plain(feats, mask, nbr, weights, bias=None):
+    """K2-bf16's plain version: feats and weights rounded to bfloat16, then
+    the float32 plain version (a product of two bfloat16 values is exact in
+    float32, so this is the contract itself)."""
+    return _gather_matmul_conv_plain(_bf16(feats), mask, nbr, _bf16(weights),
+                                     bias)
+
+
 # H100 SXM: streaming multiprocessors; a grid of fewer 64 x 64 output tiles
 # than two waves of them is split over the K offsets
 NUM_SMS = 132
@@ -267,13 +327,16 @@ class ConvPlan(NamedTuple):
     per_split: int
 
 
-def conv_plan(m: int, k: int, cin: int, cout: int) -> ConvPlan:
-    """The route, tile and split for an (M, K, Cin, Cout) call.
+def conv_plan(m: int, k: int, cin: int, cout: int, bf16: bool = False
+              ) -> ConvPlan:
+    """The route, tile and split for an (M, K, Cin, Cout) call (of
+    K2-bf16 with ``bf16``).
 
     Chosen by shape only, never by a failed launch. The tensor-core route
-    stages rows as 16-byte chunks, so it takes Cin >= 8 with Cin and Cout
-    multiples of 4 and K <= 27; other shapes (the stem's Cin = 3) take the
-    SIMT route.
+    stages rows as 16-byte chunks (4 float32 or 8 bfloat16 channels), so
+    it takes Cin >= 8 with Cin and Cout multiples of the chunk's channels
+    and K <= 27; other shapes (the stem's Cin = 3) take the SIMT route.
+    K2-bf16 takes the float32 kernel's tiles and splits.
 
     With at least two waves of 64 x 64 tiles the call is not split; its
     tiles are 64 x 128 (each gathered row feeds twice the columns) when
@@ -288,7 +351,8 @@ def conv_plan(m: int, k: int, cin: int, cout: int) -> ConvPlan:
     9 x 264 x 64 x 64 floats (37 MiB). The thresholds are the ones the
     main path's calls favoured on an H100 (``kernel_ab.py --plans``).
     """
-    if cin < 8 or cin % 4 or cout % 4 or k > TC_MAX_OFFSETS:
+    vec = 8 if bf16 else 4
+    if cin < 8 or cin % vec or cout % vec or k > TC_MAX_OFFSETS:
         return ConvPlan('simt', 64, 64, 1, k)
     tiles_m = -(-m // TC_BM)
     if tiles_m * -(-cout // 64) >= SPLIT_BELOW_TILES:
@@ -316,12 +380,12 @@ def cuda_plan(feats, nbr, weights) -> ConvPlan:
     return plan
 
 
-def _gather_matmul_conv_cuda(feats, mask, nbr, weights, bias, plan=None):
+def _launch_k2(feats, mask, nbr, weights, bias, plan, suffix=''):
+    """K2 by ``plan`` over float32 feats and weights, or K2-bf16 (the
+    ``_bf16`` entry points, ``suffix``) over bfloat16 ones."""
     n, cin = feats.shape
     m, k = nbr.shape
     cout = weights.shape[-1]
-    if plan is None:
-        plan = cuda_plan(feats, nbr, weights)
     out = torch.empty((m, cout), dtype=torch.float32, device=feats.device)
     lib = kernels.library()
     common = (feats.data_ptr(), mask.data_ptr(), n, cin, nbr.data_ptr(), m, k,
@@ -333,14 +397,37 @@ def _gather_matmul_conv_cuda(feats, mask, nbr, weights, bias, plan=None):
         if plan.splits > 1:
             ws = torch.empty((plan.splits, m, cout), dtype=torch.float32,
                              device=feats.device)
-        err = lib.es_sparse_conv_tc(
+        name = 'es_sparse_conv_tc' + suffix
+        err = getattr(lib, name)(
             *common, plan.bn, plan.per_split, plan.splits,
             None if ws is None else ws.data_ptr(), stream)
-        kernels.check(err, 'es_sparse_conv_tc')
     else:
-        err = lib.es_sparse_conv_simt(*common, stream)
-        kernels.check(err, 'es_sparse_conv_simt')
+        name = 'es_sparse_conv_simt' + suffix
+        err = getattr(lib, name)(*common, stream)
+    kernels.check(err, name)
     return out
+
+
+def _gather_matmul_conv_cuda(feats, mask, nbr, weights, bias, plan=None):
+    return _launch_k2(feats, mask, nbr, weights, bias,
+                      plan or cuda_plan(feats, nbr, weights))
+
+
+def bf16_plan(nbr, feats, weights) -> ConvPlan:
+    """K2-bf16's plan for these float32 inputs: :func:`conv_plan` with
+    16-byte chunks of 8 bfloat16 channels (the cast copies are aligned)."""
+    (m, k), cin, cout = nbr.shape, feats.shape[1], weights.shape[-1]
+    return conv_plan(m, k, cin, cout, bf16=True)
+
+
+def _gather_matmul_conv_bf16_cuda(feats, mask, nbr, weights, bias,
+                                  plan=None):
+    """K2-bf16 over float32 inputs: feats and weights cast to bfloat16 once
+    (a masked row is read as zero by the kernel, whatever its bits), then
+    the kernel by ``plan``."""
+    return _launch_k2(feats.to(torch.bfloat16), mask, nbr,
+                      weights.to(torch.bfloat16), bias,
+                      plan or bf16_plan(nbr, feats, weights), '_bf16')
 
 
 def _check_device(name, tensors):
@@ -357,10 +444,10 @@ def _check_device(name, tensors):
     return dev
 
 
-def _k2(feats, mask, nbr, weights, bias, launches, name):
-    """Checks K2's inputs, then launches it on a CUDA tensor (counting the
-    launch by route in ``launches``) or runs its plain version on a CPU
-    tensor."""
+def _k2(feats, mask, nbr, weights, bias, launches, name, bf16):
+    """Checks K2's inputs, then launches it (K2-bf16 with ``bf16``) on a
+    CUDA tensor, counting the launch by route in ``launches`` (``<route>``
+    or ``<route>_bf16``), or runs its plain version on a CPU tensor."""
     if feats.dim() != 2 or mask.shape != feats.shape[:1] or nbr.dim() != 2 \
             or weights.dim() != 3 or weights.shape[:2] != (nbr.shape[1],
                                                            feats.shape[1]):
@@ -377,10 +464,19 @@ def _k2(feats, mask, nbr, weights, bias, launches, name):
                         'and int32 nbr')
     tensors = [feats, mask, nbr, weights] + ([] if bias is None else [bias])
     if _check_device(name, tensors).type == 'cuda':
-        plan = cuda_plan(feats, nbr, weights)
-        out = _gather_matmul_conv_cuda(feats, mask, nbr, weights, bias, plan)
-        launches[plan.route] += 1
+        if bf16:
+            plan = bf16_plan(nbr, feats, weights)
+            out = _gather_matmul_conv_bf16_cuda(feats, mask, nbr, weights,
+                                                bias, plan)
+            launches[plan.route + '_bf16'] += 1
+        else:
+            plan = cuda_plan(feats, nbr, weights)
+            out = _gather_matmul_conv_cuda(feats, mask, nbr, weights, bias,
+                                           plan)
+            launches[plan.route] += 1
         return out
+    if bf16:
+        return _gather_matmul_conv_bf16_plain(feats, mask, nbr, weights, bias)
     return _gather_matmul_conv_plain(feats, mask, nbr, weights, bias)
 
 
@@ -409,27 +505,36 @@ def gather_matmul_conv(feats: torch.Tensor, mask: torch.Tensor,
     partial sums are added in a fixed order, no float atomics). It reads
     feats and weights in 16-byte chunks; where either does not start at a
     16-byte aligned address the call takes the SIMT route.
+
+    Under ``set_conv_compute_dtype(torch.bfloat16)`` the call takes the
+    bf16 contract: feats and weights rounded to bfloat16, products and sums
+    in float32 (K2-bf16 on the card: one bfloat16 tensor-core product where
+    3xTF32 takes three; :func:`_gather_matmul_conv_bf16_plain` on the CPU).
     """
     return _k2(feats, mask, nbr, weights, bias, gather_matmul_conv.launches,
-               'gather_matmul_conv')
+               'gather_matmul_conv', _bf16_route())
 
 
 def conv_dgrad(dout: torch.Tensor, out_mask: torch.Tensor,
-               table: torch.Tensor, weights_t: torch.Tensor) -> torch.Tensor:
+               table: torch.Tensor, weights_t: torch.Tensor,
+               bf16: bool = False) -> torch.Tensor:
     """A sparse conv's input gradient through K2's contract:
     ``sum_k dout[table[:, k]] @ weights_t[k]``, the rows of ``dout`` whose
     ``out_mask`` is false read as zero. ``table`` is the mirrored table of a
     submanifold conv (its own, with ``weights_t = W.flip(0)^T``) or the
     transpose table of a strided one (``weights_t = W^T``). The same kernel
     and plain version as :func:`gather_matmul_conv`; launches are counted
-    apart in ``conv_dgrad.launches``."""
+    apart in ``conv_dgrad.launches``. ``bf16``: the bf16 contract
+    (K2-bf16), whatever the compute dtype; the autograd routes pass their
+    forward's."""
     return _k2(dout, out_mask, table, weights_t, None, conv_dgrad.launches,
-               'conv_dgrad')
+               'conv_dgrad', bf16)
 
 
-# kernel launches by route (CUDA path only)
-gather_matmul_conv.launches = {'tc': 0, 'simt': 0}
-conv_dgrad.launches = {'tc': 0, 'simt': 0}
+# kernel launches by route (CUDA path only); '_bf16': the bfloat16 variants
+gather_matmul_conv.launches = {'tc': 0, 'simt': 0, 'tc_bf16': 0,
+                               'simt_bf16': 0}
+conv_dgrad.launches = {'tc': 0, 'simt': 0, 'tc_bf16': 0, 'simt_bf16': 0}
 
 
 # --- K3: the weight gradient ------------------------------------------------
@@ -449,7 +554,8 @@ class WgradPlan(NamedTuple):
     """How ``conv_wgrad`` runs one shape on the card.
 
     Attributes:
-        route: ``'tc'`` (tensor cores, 3xTF32) or ``'narrow'`` (FP32 FMAs).
+        route: ``'tc'`` (tensor cores, 3xTF32, or bfloat16 for K3-bf16) or
+            ``'narrow'`` (FP32 FMAs).
         bm, bn: the block's tile of G (x channels x y channels); on the
             narrow route (64, 4) when y is the narrow side, (4, 64) when x
             is.
@@ -462,15 +568,20 @@ class WgradPlan(NamedTuple):
     chunks: int
 
 
-def wgrad_smem(bm: int, bn: int) -> int:
+def wgrad_smem(bm: int, bn: int, bf16: bool = False) -> int:
     """Dynamic shared memory of a tensor-core block with a bm x bn tile of
     G: 1 KB of alignment slack, two buffers of the TF32 hi and lo parts of
-    both operands (32 pairs each) and three slots of staged fp32 rows."""
+    both operands (32 pairs each) and three slots of staged fp32 rows; for
+    K3-bf16 two buffers of one bfloat16 part (64 pairs) and three slots of
+    staged bfloat16 rows (the same bytes a step moves)."""
+    if bf16:
+        return 1024 + 2 * (2 + WG_STAGES) * (bm + bn) * 2 * WG_STEP
     return 1024 + 4 * (2 * 2 + WG_STAGES) * (bm + bn) * WG_STEP
 
 
 @functools.lru_cache(maxsize=1024)
-def wgrad_plan(r: int, k: int, cx: int, cy: int) -> WgradPlan:
+def wgrad_plan(r: int, k: int, cx: int, cy: int,
+               bf16: bool = False) -> WgradPlan:
     """The route, tile and pair chunks of an (R, K, Cx, Cy) weight-gradient
     call.
 
@@ -479,6 +590,10 @@ def wgrad_plan(r: int, k: int, cx: int, cy: int) -> WgradPlan:
     4; its tile of G is 128 on a side of at least 128 channels, else 64.
     Other shapes (the stem's Cy = 3) take the narrow route, whose tile is
     64 channels of the wider side by 4 of the narrower.
+
+    K3-bf16 (``bf16``) stages 16-byte chunks of 8 bfloat16 channels: its
+    tensor-core route takes Cx, Cy >= 8 and multiples of 8, with the same
+    tiles and chunks (its blocks take 64 pairs a step).
 
     The pairs of each offset are cut into ``chunks`` only when the tiles
     of G (x K) fill fewer than two waves of the blocks the card keeps
@@ -489,10 +604,12 @@ def wgrad_plan(r: int, k: int, cx: int, cy: int) -> WgradPlan:
     (:func:`wgrad_chunk_bounds`). The thresholds are the ones the main
     path's calls favoured on an H100 (``kernel_ab.py --train --plans``).
     """
-    if min(cx, cy) < 8 or cx % 4 or cy % 4:
+    vec = 8 if bf16 else 4
+    if min(cx, cy) < 8 or cx % vec or cy % vec:
         return _narrow_plan(r, k, cx, cy)
     bm, bn = (128 if cx >= 128 else 64), (128 if cy >= 128 else 64)
-    per_sm = max(1, SMEM_PER_SM // (wgrad_smem(bm, bn) + SMEM_PER_BLOCK))
+    per_sm = max(1, SMEM_PER_SM // (wgrad_smem(bm, bn, bf16) +
+                                    SMEM_PER_BLOCK))
     return WgradPlan('tc', bm, bn, _wgrad_chunks(r, k, cx, cy, bm, bn,
                                                  NUM_SMS * per_sm))
 
@@ -551,6 +668,12 @@ def _conv_wgrad_plain(x, x_mask, idx, y, y_mask):
                         for j in range(idx.shape[1])])
 
 
+def _conv_wgrad_bf16_plain(x, x_mask, idx, y, y_mask):
+    """K3-bf16's plain version: x and y rounded to bfloat16, then the
+    float32 plain version (the products are exact in float32)."""
+    return _conv_wgrad_plain(_bf16(x), x_mask, idx, _bf16(y), y_mask)
+
+
 def _wgrad_pairs_plain(x_mask, idx, y_mask):
     """K3's pair lists: for each offset k the pairs (r, idx[r, k]) whose x
     row and y row are both valid, in ascending r. Returns pairs (K, R, 2)
@@ -576,8 +699,9 @@ def _wgrad_meta_words(r: int, k: int) -> int:
 
 
 def _wgrad_cuda(x, x_mask, idx, y, y_mask, plan, lists=False):
-    """Launches K3 by ``plan``; returns G, and with ``lists`` also the pair
-    lists (K, R, 2) and counts (K,) the call computed."""
+    """Launches K3 by ``plan`` (K3-bf16 where x and y are bfloat16);
+    returns G, and with ``lists`` also the pair lists (K, R, 2) and counts
+    (K,) the call computed."""
     r, cx = x.shape
     k = idx.shape[1]
     ny, cy = y.shape
@@ -589,14 +713,15 @@ def _wgrad_cuda(x, x_mask, idx, y, y_mask, plan, lists=False):
     n_ws = plan.chunks * k * cx * cy if plan.chunks > 1 else 0
     buf = torch.empty(n_pairs + n_meta + n_ws, dtype=torch.int32, device=dev)
     base = buf.data_ptr()
+    name = 'es_sparse_wgrad' + ('_bf16' if x.dtype == torch.bfloat16 else '')
     if out.numel():
-        err = kernels.library().es_sparse_wgrad(
+        err = getattr(kernels.library(), name)(
             int(plan.route == 'narrow'), x.data_ptr(), x_mask.data_ptr(), r,
             cx, idx.data_ptr(), k, y.data_ptr(), y_mask.data_ptr(), ny, cy,
             plan.bm, plan.bn, plan.chunks, base, base + 4 * n_pairs,
             base + 4 * (n_pairs + n_meta) if n_ws else None, out.data_ptr(),
             kernels.stream_handle(dev))
-        kernels.check(err, 'es_sparse_wgrad')
+        kernels.check(err, name)
     if not lists:
         return out
     counts = buf[n_pairs:n_pairs + k]
@@ -610,8 +735,23 @@ def _conv_wgrad_cuda(x, x_mask, idx, y, y_mask, plan=None):
     return _wgrad_cuda(x, x_mask, idx, y, y_mask, plan)
 
 
+def bf16_wgrad_plan(x, idx, y) -> WgradPlan:
+    """K3-bf16's plan for these float32 inputs (the cast copies are
+    aligned)."""
+    return wgrad_plan(*idx.shape, x.shape[1], y.shape[1], bf16=True)
+
+
+def _conv_wgrad_bf16_cuda(x, x_mask, idx, y, y_mask, plan=None, lists=False):
+    """K3-bf16 over float32 inputs: x and y cast to bfloat16 once each,
+    then the kernel by ``plan`` (see :func:`_wgrad_cuda` for ``lists``)."""
+    return _wgrad_cuda(x.to(torch.bfloat16), x_mask, idx,
+                       y.to(torch.bfloat16), y_mask,
+                       plan or bf16_wgrad_plan(x, idx, y), lists)
+
+
 def conv_wgrad(x: torch.Tensor, x_mask: torch.Tensor, idx: torch.Tensor,
-               y: torch.Tensor, y_mask: torch.Tensor) -> torch.Tensor:
+               y: torch.Tensor, y_mask: torch.Tensor,
+               bf16: bool = False) -> torch.Tensor:
     """Kernel K3: ``G[k] = sum_r x[r]^T @ y[idx[r, k]]``, (K, Cx, Cy).
 
     Args:
@@ -635,6 +775,12 @@ def conv_wgrad(x: torch.Tensor, x_mask: torch.Tensor, idx: torch.Tensor,
     accuracy, within 1e-4 x max|G| of the plain version) and a call gives
     the same bits every time (chunks are added in a fixed order). On a CPU
     tensor it runs :func:`_conv_wgrad_plain`.
+
+    ``bf16``: K3-bf16, the bf16 contract of the reference's custom-VJP
+    backwards: x and y rounded to bfloat16, G summed in float32 (one
+    bfloat16 ``wgmma`` where 3xTF32 takes three;
+    :func:`_conv_wgrad_bf16_plain` on the CPU). Launches count as
+    ``<route>_bf16``.
     """
     if x.dim() != 2 or x_mask.shape != x.shape[:1] or idx.dim() != 2 or \
             idx.shape[0] != x.shape[0] or y.dim() != 2 or \
@@ -654,14 +800,21 @@ def conv_wgrad(x: torch.Tensor, x_mask: torch.Tensor, idx: torch.Tensor,
         if x.shape[0] >= 2**31 or idx.shape[1] > 65535:
             raise ValueError('conv_wgrad: the kernel takes R < 2^31 and '
                              'K <= 65535')
-        plan = cuda_wgrad_plan(x, idx, y)
-        out = _conv_wgrad_cuda(x, x_mask, idx, y, y_mask, plan)
-        conv_wgrad.launches[plan.route] += 1
+        if bf16:
+            plan = bf16_wgrad_plan(x, idx, y)
+            out = _conv_wgrad_bf16_cuda(x, x_mask, idx, y, y_mask, plan)
+            conv_wgrad.launches[plan.route + '_bf16'] += 1
+        else:
+            plan = cuda_wgrad_plan(x, idx, y)
+            out = _conv_wgrad_cuda(x, x_mask, idx, y, y_mask, plan)
+            conv_wgrad.launches[plan.route] += 1
         return out
+    if bf16:
+        return _conv_wgrad_bf16_plain(x, x_mask, idx, y, y_mask)
     return _conv_wgrad_plain(x, x_mask, idx, y, y_mask)
 
 
-conv_wgrad.launches = {'tc': 0, 'narrow': 0}
+conv_wgrad.launches = {'tc': 0, 'narrow': 0, 'tc_bf16': 0, 'narrow_bf16': 0}
 
 
 # --- autograd: the three routes of SparseConv -------------------------------
@@ -670,7 +823,8 @@ conv_wgrad.launches = {'tc': 0, 'narrow': 0}
 # strided_gather_conv) and of XLA's autodiff of gather_matmul_conv. Each
 # backward runs dfeats through K2 (or index_add_ for the generic route) and
 # dW through K3. The serving path calls gather_matmul_conv directly and
-# never builds these.
+# never builds these. Each forward records whether it took the bf16 route,
+# and its backward follows that route's contract (set_conv_compute_dtype).
 
 
 def _masked_rows(t, mask):
@@ -685,6 +839,7 @@ class _SubmConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, feats, mask, nbr, weights):
         ctx.save_for_backward(feats, mask, nbr, weights)
+        ctx.bf16 = _bf16_route()
         return gather_matmul_conv(feats, mask, nbr, weights)
 
     @staticmethod
@@ -694,9 +849,10 @@ class _SubmConv(torch.autograd.Function):
         dfeats = dw = None
         if ctx.needs_input_grad[0]:
             wt = weights.flip(0).transpose(1, 2).contiguous()
-            dfeats = _masked_rows(conv_dgrad(dout, mask, nbr, wt), mask)
+            dfeats = _masked_rows(conv_dgrad(dout, mask, nbr, wt, ctx.bf16),
+                                  mask)
         if ctx.needs_input_grad[3]:
-            dw = conv_wgrad(feats, mask, nbr, dout, mask).flip(0)
+            dw = conv_wgrad(feats, mask, nbr, dout, mask, ctx.bf16).flip(0)
         return dfeats, None, None, dw
 
 
@@ -707,6 +863,7 @@ class _StridedConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, feats, mask, nbr, t_nbr, weights, out_mask):
         ctx.save_for_backward(feats, mask, t_nbr, weights, out_mask)
+        ctx.bf16 = _bf16_route()
         return gather_matmul_conv(feats, mask, nbr, weights)
 
     @staticmethod
@@ -716,19 +873,24 @@ class _StridedConv(torch.autograd.Function):
         dfeats = dw = None
         if ctx.needs_input_grad[0]:
             wt = weights.transpose(1, 2).contiguous()
-            dfeats = _masked_rows(conv_dgrad(dout, out_mask, t_nbr, wt), mask)
+            dfeats = _masked_rows(
+                conv_dgrad(dout, out_mask, t_nbr, wt, ctx.bf16), mask)
         if ctx.needs_input_grad[4]:
-            dw = conv_wgrad(feats, mask, t_nbr, dout, out_mask)
+            dw = conv_wgrad(feats, mask, t_nbr, dout, out_mask, ctx.bf16)
         return dfeats, None, None, None, dw, None
 
 
 class _GenericConv(torch.autograd.Function):
     """Any other table (the stem, the K = 1 downsamples): dfeats by
-    ``index_add_``, as XLA's autodiff of the gather does."""
+    ``index_add_``, as XLA's autodiff of the gather does; on the bf16 route
+    as that autodiff does under the reference's bf16 compute dtype (each
+    offset's product rounded to bfloat16 and added in bfloat16, the last
+    offset first; dW rounded to bfloat16)."""
 
     @staticmethod
     def forward(ctx, feats, mask, nbr, weights, out_mask):
         ctx.save_for_backward(feats, mask, nbr, weights, out_mask)
+        ctx.bf16 = _bf16_route()
         return gather_matmul_conv(feats, mask, nbr, weights)
 
     @staticmethod
@@ -738,15 +900,21 @@ class _GenericConv(torch.autograd.Function):
         dfeats = dw = None
         if ctx.needs_input_grad[0]:
             n = feats.shape[0]
-            acc = feats.new_zeros(n + 1, feats.shape[1])
-            for j in range(nbr.shape[1]):
+            dtype = torch.bfloat16 if ctx.bf16 else feats.dtype
+            acc = feats.new_zeros(n + 1, feats.shape[1], dtype=dtype)
+            order = range(nbr.shape[1])
+            for j in (reversed(order) if ctx.bf16 else order):
                 col = nbr[:, j]
                 rows = torch.where((col >= 0) & (col < n), col,
                                    torch.full_like(col, n)).long()
-                acc.index_add_(0, rows, dout @ weights[j].T)
-            dfeats = _masked_rows(acc[:n], mask)
+                w = _bf16(weights[j]) if ctx.bf16 else weights[j]
+                acc.index_add_(0, rows, (dout @ w.T).to(dtype))
+            dfeats = _masked_rows(acc[:n].to(feats.dtype), mask)
         if ctx.needs_input_grad[3]:
-            dw = conv_wgrad(dout, out_mask, nbr, feats, mask).transpose(1, 2)
+            x = _bf16(feats) if ctx.bf16 else feats
+            dw = conv_wgrad(dout, out_mask, nbr, x, mask).transpose(1, 2)
+            if ctx.bf16:
+                dw = _bf16(dw)
         return dfeats, None, None, dw, None
 
 
