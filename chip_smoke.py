@@ -158,14 +158,18 @@ Phases (one line each; any failure exits non-zero before the last line):
      60`` on the card, its report in chiprun_out/quality_smoke.md, failing
      on its gate.
 12c. the bf16 sparse-conv route and remat, in a process of their own
-     (``--precision``): the edge shapes of K2-bf16 and K3-bf16;
-     [sparse_bf16] the full-width mv_det3d under
+     (``--precision``): the edge shapes of K2-bf16 and K3-bf16 (every
+     tile, split and chunked calls, the input gradient through the
+     transposed weights, the weights' bfloat16 copy across in-place
+     updates); [sparse_bf16] the full-width mv_det3d under
      ``set_conv_compute_dtype(torch.bfloat16)`` serving three of [main]'s
      requests and taking three of [train]'s steps (latency, step, split,
      peak, wrapper calls), every K2-bf16 and K3-bf16 call of the warm-up
      request and step replayed against its plain version (within 1e-4 x
      max|ref|, the same bits twice) and timed beside it, the bound at the
-     bf16 peak and the library call in bfloat16; the small detector in
+     bf16 peak and the library call in bfloat16, its CUDA launches held
+     to BF16_MAX_LAUNCHES (no reduction kernel, no cast of W or dout inside
+     a call); the small detector in
      bf16 mode card vs cpu; [remat] the full-width mv_det3d step at b = 4
      under 'none', '2d', '3d' and 'all' and the cont_occ 10-sweep step
      under 'all' and 'none' (step, peak, wrapper calls; every gradient
@@ -398,10 +402,13 @@ class Recorder:
     ``conv``: K2's forward calls (feats, mask, nbr, weights, bias);
     ``dgrad``: K2's input-gradient calls (dout, out_mask, table, weights_t,
     None); ``wgrad``: K3's calls (x, x_mask, idx, y, y_mask); ``scan``:
-    K1's calls; ``conv16``, ``dgrad16``, ``wgrad16``: the same of K2-bf16
-    and K3-bf16 (their float32 inputs). A call made inside a logged one
-    (a plain bf16 version's float32 core) is not logged again. A name the
-    checkout lacks (an earlier one, timed by kernel_ab.py) is not patched.
+    K1's calls; ``conv16``, ``wgrad16``: the same of K2-bf16 and K3-bf16
+    (the inputs their wrappers got: float32, or the bfloat16 copies a
+    backward made); ``dgrad16``: K2-bf16's input-gradient calls (dout,
+    out_mask, table, the forward's weights, mirror). A call made inside a
+    logged one (a plain bf16 version's float32 core) is not logged again.
+    A name the checkout lacks (an earlier one, timed by kernel_ab.py) is
+    not patched.
     """
 
     def __init__(self, S, P):
@@ -456,6 +463,8 @@ class Recorder:
         self._patch(self.S, 'conv_dgrad', dgrad)
         for name in ('_conv_wgrad_cuda', '_conv_wgrad_plain'):
             self._patch(self.S, name, self._logging(lambda: self.wgrad))
+        for name in ('_conv_dgrad_bf16_cuda', '_conv_dgrad_bf16_plain'):
+            self._patch(self.S, name, self._logging(lambda: self.dgrad16))
         for name in ('_conv_wgrad_bf16_cuda', '_conv_wgrad_bf16_plain'):
             self._patch(self.S, name, self._logging(lambda: self.wgrad16))
         for name in ('_join_scan_cuda', '_join_scan_plain'):
@@ -985,16 +994,22 @@ def profile_run(fn, what, host=True):
                 device_ops=[dict(op=k, ms=t, count=c) for k, t, c in ops])
 
 
-def _conv_bound(feats, mask, nbr, w, bias):
-    """(bytes, flops, hits) this call needs: inputs read once, output
-    written once; FLOPs over the (row, offset) pairs that hit a valid row."""
+def _conv_bound(feats, mask, nbr, w, bias, mirror=None, bf16=False):
+    """(bytes, flops, hits) this call needs: inputs read once (at the
+    size the wrapper got them; with ``bf16`` the weights at 2 bytes, the
+    kept copy the kernel reads: ``bf16_weights`` casts them once per
+    version, outside the timed calls), output written once; FLOPs over
+    the (row, offset) pairs that hit a valid row. ``mirror``: w is the
+    forward's (K, Cout, Cin) of an input-gradient call."""
     n, cin = feats.shape
     m, k = nbr.shape
-    cout = w.shape[-1]
+    cout = w.shape[-1] if mirror is None else w.shape[1]
     safe = torch.where(nbr >= 0, nbr, torch.zeros_like(nbr)).long()
     hits = int(((nbr >= 0) & mask[safe]).sum())
-    nbytes = (feats.numel() * 4 + mask.numel() + nbr.numel() * 4 +
-              w.numel() * 4 + (0 if bias is None else cout * 4) + m * cout * 4)
+    wsize = 2 if bf16 else w.element_size()
+    nbytes = (feats.numel() * feats.element_size() + mask.numel() +
+              nbr.numel() * 4 + w.numel() * wsize +
+              (0 if bias is None else cout * 4) + m * cout * 4)
     return nbytes, 2.0 * cin * cout * hits, hits
 
 
@@ -1032,18 +1047,27 @@ def device_profile(fn):
     return sum(e.count for e in ev), sum(_self_device_us(e) for e in ev) / 1e3
 
 
-def _conv_fns(S, bf16):
-    """(plain, kernel) of K2, or of K2-bf16 with ``bf16``."""
+def _conv_fns(S, bf16, mirror=None):
+    """(plain, kernel) of K2, or of K2-bf16 with ``bf16``: its forward,
+    or with ``mirror`` (True or False) its input gradient from the
+    forward's own weights, called as (feats, mask, nbr, w, bias[, plan])."""
+    if bf16 and mirror is not None:
+        return ((lambda f, m, n, w, b: S._conv_dgrad_bf16_plain(
+                    f, m, n, w, mirror)),
+                (lambda f, m, n, w, b, plan=None: S._conv_dgrad_bf16_cuda(
+                    f, m, n, w, mirror, plan)))
     if bf16:
         return S._gather_matmul_conv_bf16_plain, \
             S._gather_matmul_conv_bf16_cuda
     return S._gather_matmul_conv_plain, S._gather_matmul_conv_cuda
 
 
-def _check_conv(S, feats, mask, nbr, w, bias, what, plan=None, bf16=False):
-    """Kernel (K2-bf16 with ``bf16``) vs plain within the gate, and the
-    same bits twice; returns (out, max|d|, max|ref|)."""
-    plain, kernel = _conv_fns(S, bf16)
+def _check_conv(S, feats, mask, nbr, w, bias, what, plan=None, bf16=False,
+                mirror=None):
+    """Kernel (K2-bf16 with ``bf16``; its input gradient with
+    ``mirror``) vs plain within the gate, and the same bits twice; returns
+    (out, max|d|, max|ref|)."""
+    plain, kernel = _conv_fns(S, bf16, mirror)
     ref = plain(feats, mask, nbr, w, bias)
     got = kernel(feats, mask, nbr, w, bias, plan)
     again = kernel(feats, mask, nbr, w, bias, plan)
@@ -1111,8 +1135,8 @@ def _wgrad_bound(x, xm, idx, y, ym):
     k, cy = idx.shape[1], y.shape[1]
     safe = torch.where(idx >= 0, idx, torch.zeros_like(idx)).long()
     hits = int(((idx >= 0) & xm[:, None] & ym[safe]).sum())
-    nbytes = (x.numel() * 4 + xm.numel() + idx.numel() * 4 + y.numel() * 4 +
-              ym.numel() + k * cx * cy * 4)
+    nbytes = (x.numel() * x.element_size() + xm.numel() + idx.numel() * 4 +
+              y.numel() * y.element_size() + ym.numel() + k * cx * cy * 4)
     return nbytes, 2.0 * cx * cy * hits, hits
 
 
@@ -1127,27 +1151,36 @@ def _bound(nbytes, flops, bf16=False):
             max(t_bytes, flops / FP32_FLOPS) * 1e3)
 
 
-def _conv_call(S, feats, mask, nbr, w, bias, what, run, timing, bf16=False):
+def _conv_call(S, feats, mask, nbr, w, bias, what, run, timing, bf16=False,
+               mirror=None):
     """One K2 call (forward, or dgrad with ``run`` = conv_dgrad; K2-bf16
-    with ``bf16``): checked, then timed (``cuda_ms(**timing)``) beside its
+    with ``bf16``, its input gradient from the forward's weights with
+    ``mirror``): checked, then timed (``cuda_ms(**timing)``) beside its
     plain version and the library gather-matmul (in bfloat16 with
     ``bf16``)."""
-    plan = S.bf16_plan(nbr, feats, w) if bf16 else S.cuda_plan(feats, nbr, w)
+    if mirror is not None:
+        k_, cin_, cout_ = w.shape
+        plan = S.conv_plan(nbr.shape[0], k_, cout_, cin_, bf16=True)
+    else:
+        plan = S.bf16_plan(nbr, feats, w) if bf16 else \
+            S.cuda_plan(feats, nbr, w)
     _, err, scale = _check_conv(S, feats, mask, nbr, w, bias, what,
-                                bf16=bf16)
-    plain = _conv_fns(S, bf16)[0]
+                                bf16=bf16, mirror=mirror)
+    plain = _conv_fns(S, bf16, mirror)[0]
     dtype = torch.bfloat16 if bf16 else feats.dtype
     padded = torch.cat([torch.where(mask[:, None], feats,
                                     torch.zeros_like(feats)),
                         feats.new_zeros(1, feats.shape[1])]).to(dtype)
     idx = torch.where(nbr >= 0, nbr, torch.full_like(nbr, feats.shape[0]))
-    kcin = w.shape[0] * w.shape[1]
-    w2 = w.reshape(kcin, w.shape[2]).to(dtype)
-    nbytes, flops, hits = _conv_bound(feats, mask, nbr, w, bias)
+    wb = w if mirror is None else S._dgrad_weights_t(w, mirror)
+    kcin = wb.shape[0] * wb.shape[1]
+    w2 = wb.reshape(kcin, wb.shape[2]).to(dtype)
+    nbytes, flops, hits = _conv_bound(feats, mask, nbr, w, bias, mirror,
+                                      bf16)
     bound, by, bound32 = _bound(nbytes, flops, bf16)
     m, k = nbr.shape
     return dict(
-        m=m, k=k, cin=w.shape[1], cout=w.shape[2], n=feats.shape[0],
+        m=m, k=k, cin=wb.shape[1], cout=wb.shape[2], n=feats.shape[0],
         route=plan.route, tile=[plan.bm, plan.bn], splits=plan.splits,
         per_split=plan.per_split, hit_share=hits / (m * k),
         work_share=_work_share(mask, nbr, plan.bm), max_abs_err=err,
@@ -1562,11 +1595,16 @@ def phase_edges_bf16(device):
     """Edge shapes of K2-bf16 and K3-bf16 on the card against their plain
     versions (the float32 inputs rounded to bfloat16, float32 sums): the
     SIMT and narrow routes at C = 3, the tensor-core routes from their
-    least channels (8) up, the shapes whose channels are not 16-byte chunks
-    of bfloat16 (12, 284: the SIMT and narrow routes), ragged rows, K = 1,
-    a split K2 call against the unsplit one, K3's 64-pair steps at offsets
-    of 1, 63, 64 and 65 pairs, many chunks against one, all-absent and
-    all-masked tables."""
+    least channels (8) up, channels that fill no whole 128-byte line (24,
+    40) and a Cout ragged against the tile (72, 200), the shapes whose
+    channels are not 16-byte chunks of bfloat16 (12, 284: the SIMT and
+    narrow routes), ragged rows, K = 1, a split K2 call against the
+    unsplit one, the input gradient through the transposed weights (a
+    submanifold and a strided table; a bfloat16 dout gives the same bits),
+    every tile unsplit against split and one chunk against seven, the
+    weights' bfloat16 copy across ``add_`` and an optimizer step, K3's
+    64-pair steps at offsets of 1, 63, 64 and 65 pairs, many chunks against
+    one, all-absent and all-masked tables."""
     from embodiedscan_torch.ops import sparse as S
     g = torch.Generator(device=device).manual_seed(1)
     checked = []
@@ -1604,6 +1642,79 @@ def phase_edges_bf16(device):
         raise RuntimeError(f'bf16 split vs unsplit: max|d| {d}')
     checked.append(f'split {plan.splits}x{plan.per_split} vs unsplit '
                    f'(max|d| {d:.3g})')
+    # channels that fill no whole 128-byte line (a zero-filled tail), and
+    # Cout ragged against the tile
+    conv('cin24', 3000, 3000, 27, 24, 64, route='tc')
+    conv('cin40_cout72', 3000, 3000, 27, 40, 72, route='tc')
+    conv('cout200', 3000, 3000, 27, 64, 200, route='tc')
+
+    def dgrad_case(n, m, k, cin, cout):
+        """(dout, out_mask, table, W, None): the input gradient of a Cin ->
+        Cout conv, W its own (K, Cin, Cout) weights."""
+        dout, mask, table, wt, _ = _conv_case(g, n, m, k, cout, cin,
+                                              bias=False, device=device)
+        return dout, mask, table, wt.transpose(1, 2).contiguous(), None
+
+    for what, shape, mirror in (('subm', (8000, 8000, 27, 128, 128), True),
+                                ('strided', (9000, 4000, 27, 64, 128), False),
+                                ('ragged', (3000, 2500, 27, 200, 72), True)):
+        args = dgrad_case(*shape)
+        dout, mask, table, w, _ = args
+        plan = S.conv_plan(table.shape[0], 27, dout.shape[1], w.shape[1],
+                           bf16=True)
+        out, err, scale = _check_conv(S, *args, f'bf16 dgrad {what}', plan,
+                                      bf16=True, mirror=mirror)
+        if not torch.equal(out, S._conv_dgrad_bf16_cuda(
+                dout.to(torch.bfloat16), mask, table, w, mirror, plan)):
+            raise RuntimeError(f'bf16 dgrad {what}: a bfloat16 dout gives '
+                               'other bits')
+        checked.append(f'dgrad {what} ({plan.bm}x{plan.bn}, split '
+                       f'{plan.splits}, max|d|/max|ref| '
+                       f'{err / max(scale, 1e-30):.1e})')
+    # every tile the plan may pick, forward and input gradient, unsplit
+    # against split (the folded reduction)
+    for bm, bn in S.BF16_TILES:
+        fwd = _conv_case(g, 6000, 5000, 27, 64, 200, device=device)
+        for args, mirror in ((fwd, None),
+                             (dgrad_case(6000, 5000, 27, 64, 200), True)):
+            outs = []
+            for splits, per in ((1, 27), (9, 3)):
+                out, err, scale = _check_conv(
+                    S, *args, f'bf16 tile {bm}x{bn} split {splits}',
+                    S.ConvPlan('tc', bm, bn, splits, per), bf16=True,
+                    mirror=mirror)
+                outs.append(out)
+            d = float((outs[0] - outs[1]).abs().max())
+            if not d <= CONV_GATE * scale:
+                raise RuntimeError(f'bf16 {bm}x{bn} split vs unsplit '
+                                   f'(mirror {mirror}): max|d| {d}')
+            checked.append(f'tile {bm}x{bn} {"dgrad" if mirror else "fwd"} '
+                           f'9 splits vs 1 (max|d|/max|ref| '
+                           f'{d / scale:.1e})')
+    # the weights' bfloat16 copy across in-place updates on the card
+    feats, mask, nbr, w, b = _conv_case(g, 3000, 3000, 27, 64, 128,
+                                        device=device)
+    w = torch.nn.Parameter(w)
+    first, _, _ = _check_conv(S, feats, mask, nbr, w, b, 'bf16 cache',
+                              bf16=True)
+    kept = S.bf16_weights(w)
+    with torch.no_grad():
+        w.add_(0.25 * torch.randn_like(w))
+    again, _, _ = _check_conv(S, feats, mask, nbr, w, b,
+                              'bf16 cache after add_', bf16=True)
+    w.grad = torch.randn_like(w)
+    torch.optim.AdamW([w], lr=0.05).step()
+    stepped, _, _ = _check_conv(S, feats, mask, nbr, w, b,
+                                'bf16 cache after a step', bf16=True)
+    w.data.mul_(0.5)  # bumps no version counter: dropped by hand
+    S.drop_bf16_weights()
+    halved, _, _ = _check_conv(S, feats, mask, nbr, w, b,
+                               'bf16 cache after a .data write', bf16=True)
+    if S.bf16_weights(w) is kept or torch.equal(first, again) or \
+            torch.equal(again, stepped) or torch.equal(stepped, halved):
+        raise RuntimeError('bf16 weights cache: a stale copy')
+    checked.append('weights cache across add_, an optimizer step and a '
+                   '.data write')
     for what in ('all_absent', 'all_masked'):
         feats, mask, nbr, w, b = _conv_case(g, 2000, 1500, 27, 64, 128,
                                             device=device)
@@ -1651,6 +1762,24 @@ def phase_edges_bf16(device):
     wgrad('c512', 2048, 2048, 27, 512, 512, route='tc')
     wgrad('c64x512', 4096, 2048, 27, 64, 512, route='tc')
     wgrad('c1024', 2048, 2048, 27, 1024, 1024, route='tc')
+    # every tile, one chunk against seven (the folded chunk reduction)
+    for bm in (64, 128):
+        for bn in (64, 128):
+            x, xm, idx, y, ym = _wgrad_case(g, 6000, 6000, 27, 136, 200,
+                                            device=device)
+            res = []
+            for chunks in (1, 7):
+                got, err, scale, _ = _check_wgrad(
+                    S, x, xm, idx, y, ym, f'bf16 tile {bm}x{bn} chunks '
+                    f'{chunks}', S.WgradPlan('tc', bm, bn, chunks),
+                    bf16=True)
+                res.append(got)
+            d = float((res[0] - res[1]).abs().max())
+            if not d <= SPLIT_GATE * scale:
+                raise RuntimeError(f'bf16 wgrad {bm}x{bn}: 7 chunks vs one: '
+                                   f'max|d| {d} > {SPLIT_GATE} x {scale}')
+            checked.append(f'wgrad tile {bm}x{bn} 7 chunks vs one '
+                           f'(max|d|/max|ref| {d / scale:.1e})')
     _, counts = wgrad('counts_1_63_64_65', 3000, 3000, 27, 64, 64,
                       route='tc', edit=set_counts)
     if counts[:4].tolist() != [1, 63, 64, 65]:
@@ -4759,6 +4888,14 @@ EXPECTED_BF16_TRAIN_LAUNCHES = {
     'sparse_wgrad_tc_bf16': 39, 'sparse_wgrad_narrow_bf16': 0}
 BF16_KERNELS = ('sparse_conv_tc_bf16', 'sparse_conv_simt_bf16',
                 'sparse_dgrad_tc_bf16', 'sparse_wgrad_tc_bf16')
+# CUDA launches of one replayed wrapper call, the weights' bfloat16 copy
+# made (bf16_weights): K2-bf16 the cast of feats and the kernel (its split
+# reduction folded in, no sc_reduce); its input gradient the kernel alone
+# (the backward hands it dout in bfloat16, no transposed weights); K3-bf16
+# the memset, the pair pass and the product (chunks folded in, no
+# wg_reduce)
+BF16_MAX_LAUNCHES = {'sparse_conv_bf16': 2, 'sparse_dgrad_bf16': 1,
+                     'sparse_wgrad_bf16': 3}
 PRECISION_TIMING = dict(warmup=1, reps=2)
 # a bfloat16 rounding step: at most 2^-7 of the value rounded
 BF16_STEP = 2.0 ** -7
@@ -4883,7 +5020,7 @@ def phase_kernels_bf16(req_rec, train_rec, device, timing=PRECISION_TIMING):
     max|ref|, the same bits twice; K3's pair lists against the plain pair
     pass) and timed beside them and the library call in bfloat16, with the
     bound at the bf16 peak; then each call's CUDA launches and device time
-    by the profiler."""
+    by the profiler, the launches held to BF16_MAX_LAUNCHES."""
     from embodiedscan_torch.ops import sparse as S
     runs = {
         'sparse_conv_bf16': (
@@ -4892,7 +5029,7 @@ def phase_kernels_bf16(req_rec, train_rec, device, timing=PRECISION_TIMING):
             lambda a: S.gather_matmul_conv(*a)),
         'sparse_dgrad_bf16': (
             [('sparse_bf16_train', a) for a in train_rec.dgrad16],
-            lambda a: S.conv_dgrad(*a[:4], bf16=True)),
+            lambda a: S.conv_dgrad(*a[:4], bf16=True, mirror=a[4])),
         'sparse_wgrad_bf16': (
             [('sparse_bf16_train', a) for a in train_rec.wgrad16],
             lambda a: S.conv_wgrad(*a, bf16=True)),
@@ -4904,6 +5041,9 @@ def phase_kernels_bf16(req_rec, train_rec, device, timing=PRECISION_TIMING):
                 a = _on(args, device)
                 if name == 'sparse_wgrad_bf16':
                     row = _wgrad_call(S, *a, timing, bf16=True)
+                elif name == 'sparse_dgrad_bf16':
+                    row = _conv_call(S, *a[:4], None, name, lambda: run(a),
+                                     timing, bf16=True, mirror=a[4])
                 else:
                     row = _conv_call(S, *a, name, lambda: run(a), timing,
                                      bf16=True)
@@ -4914,6 +5054,11 @@ def phase_kernels_bf16(req_rec, train_rec, device, timing=PRECISION_TIMING):
                 a = _on(args, device)
                 row['cuda_launches'], row['device_ms'] = device_profile(
                     lambda: run(a))
+                if row['cuda_launches'] > BF16_MAX_LAUNCHES[name]:
+                    raise RuntimeError(
+                        f'{name} {row["m" if "m" in row else "r"]} rows: '
+                        f'{row["cuda_launches"]} CUDA launches, at most '
+                        f'{BF16_MAX_LAUNCHES[name]}')
     for name, rows in calls.items():
         for path in sorted({r['path'] for r in rows}):
             rs = [r for r in rows if r['path'] == path]

@@ -58,27 +58,57 @@
 // whose rows are not 16-byte chunks: Cin < 8 (the stem's 3) or a Cin or
 // Cout that is not a multiple of 4.
 //
-// The bfloat16 variant (K2-bf16; the es_*_bf16 entry points) is the
-// contract of the reference's bf16 compute route (ops/sparse.py:
-// set_conv_compute_dtype, gather_matmul_conv :311-316): feats and W arrive
-// as bfloat16 (the wrapper casts each once per call), products are exact
-// in float32 and sums are float32. Both routes are templates on the
-// operand type T, so one source serves both variants:
-// - tensor cores: a 16-byte cp.async moves 8 bfloat16 channels, half the
-//   gathered bytes of float32 a channel; the product is one mma.sync
-//   m16n8k16 bf16 per fragment pair where 3xTF32 takes three m16n8k8, at
-//   twice the tensor cores' TF32 rate. Rows and W must be 16-byte chunks
-//   of 8 channels (Cin, Cout multiples of 8). The promotion of each step's
-//   partial sum into the float32 accumulators is the float32 route's.
-// - SIMT for Cin < 8: float32 FMAs over the bfloat16 operands, converted
-//   exactly as they are read.
-// Bound: bf16 dense products at 989 TFLOP/s; at the main path's shapes
-// the operations still weigh more than the halved gathers.
+// The bfloat16 variant (K2-bf16) is the contract of the reference's bf16
+// compute route (ops/sparse.py: set_conv_compute_dtype, gather_matmul_conv
+// :311-316): feats and W arrive as bfloat16 (the wrapper casts feats per
+// call and keeps one bfloat16 copy of W per weight version), products are
+// exact in float32 and sums are float32. It replaces the same TPU kernel,
+// banded_conv_pallas, under the reference's bf16 route, and computes the
+// input gradient of the custom VJPs (_subm_bwd :367-370, _strided_bwd
+// :427-430) from the forward's own W.
+// Bound on this card: the bytes (3.35 TB/s; W as its kept bfloat16 copy)
+// and the bf16 products (989 TFLOP/s) weigh about the same at the main
+// path's shapes (summed, a request's forward calls are bound by the bytes,
+// a step's input-gradient calls by the products); what a tile re-reads
+// (the gathered rows once per column tile, W's slice once per row tile)
+// comes from L2, whose rate, not the tensor cores', sets the pace.
+// Design of its tensor-core route (sc_wgmma_bf16, es_sparse_conv_wgmma_bf16):
+// - wgmma.m64nNk16.f32.bf16.bf16 with A and B read from shared memory as
+//   they land: a step is 64 channels, one 128-byte line a row. cp.async
+//   writes each gathered row's 16-byte chunks straight to their places in
+//   the 128-byte swizzle (K-major A; absent rows zero-filled by src-size
+//   0) and W's slice the same way: in the forward W[k] (Cin x Cout, Cout
+//   contiguous) is read MN-major through the descriptor's transpose; the
+//   input gradient reads the same (K, Cin, Cout) bfloat16 W K-major at
+//   offset K - 1 - k (a submanifold table) or k (a strided conv's
+//   transpose table), so no transposed copy of W is made. No pass runs
+//   between the landing and the products.
+// - Tiles of 64, 128 or 256 rows (a warpgroup per 64) by 64, 128 or 256
+//   columns, a ring of 4 slots (3 steps of gathers in flight), one
+//   barrier a step; issue and wait of a step's four products stay in one
+//   iteration. A warpgroup whose 64 rows have no neighbor at a step's
+//   offset skips its products.
+// - Numbers: the products accumulate in the wgmma registers for the whole
+//   call. The tensor cores' float32 accumulation truncates, which moves the
+//   worst call of the main path to ~1e-5 x max|ref| (gate 1e-4; the
+//   float32 route's per-step promotion would need a second set of
+//   accumulators, which the 256-wide tiles cannot hold).
+// - The per-tile offset list as in the float32 route; each thread's copies
+//   are the same lines every step, so their places are computed once.
+// - Split calls: a block writes its partial sums to the workspace (one with
+//   no offset to compute writes none), and the last block of each output
+//   tile to arrive (a counter per tile, which it resets) adds the splits
+//   that wrote, in split order, plus the bias: no float atomics, no second
+//   kernel, the same bits every time.
+// The SIMT route serves the bfloat16 shapes whose rows are not 16-byte
+// chunks (Cin < 8): float32 FMAs over the bfloat16 operands, converted
+// exactly as they are read.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "sparse_mma.cuh"
+#include "sparse_wgmma.cuh"
 
 namespace {
 
@@ -189,23 +219,20 @@ constexpr int TC_BK = 32;      // input channels per pipeline step
 constexpr int TC_STAGES = 3;   // depth of the cp.async ring
 constexpr int TC_MAXK = 27;    // offsets per split (the wrapper's limit)
 
-// T: float (3xTF32) or bf16_t. Row pads keep fragment reads free of
-// shared-memory bank conflicts and staged rows 16-byte aligned: float rows
-// of A are 36 words (fragment rows land 4 banks apart), bfloat16 ones 20
-// words (g * 20 mod 32 covers the 8 multiples of 4); rows of B are BN + 8
-// elements either way (bfloat16 rows 2t and 2t + 1 of a fragment then lie
-// 4 banks apart).
-template <typename T, int BN>
+// Operands float (3xTF32). Row pads keep fragment reads free of shared-memory
+// bank conflicts and staged rows 16-byte aligned: rows of A are 36 words
+// (fragment rows land 4 banks apart), rows of B BN + 8 elements.
+template <int BN>
 struct TcShape {
-  static constexpr int kVec = 16 / sizeof(T);     // elements a 16-byte copy
+  static constexpr int kVec = 4;  // floats a 16-byte copy
   static constexpr int kWarpsN = BN / 32;
   static constexpr int kThreads = 64 * kWarpsN;  // 2 x kWarpsN warps
-  static constexpr int kAStride = TC_BK + (sizeof(T) == 4 ? 4 : 8);
+  static constexpr int kAStride = TC_BK + 4;
   static constexpr int kBStride = BN + 8;
   static constexpr int kAElems = TC_BM * kAStride;
   static constexpr int kBElems = TC_BK * kBStride;
   static constexpr size_t kSmem =
-      sizeof(T) * TC_STAGES * (kAElems + kBElems) +
+      sizeof(float) * TC_STAGES * (kAElems + kBElems) +
       sizeof(int) * (TC_MAXK * TC_BM + 2 * TC_MAXK + 1);
 };
 
@@ -241,53 +268,21 @@ __device__ __forceinline__ void tc_step(float (&part)[2][4][4],
   }
 }
 
-// the same over bfloat16 operands: m16n8k16, one product a fragment pair.
-// A fragment: rows g, g + 8 by channels 2t, 2t + 1 (+ 8); B fragment:
-// channels 2t, 2t + 1 (+ 8) of column g, two rows of B packed in a
-// register
-template <int AS, int BS>
-__device__ __forceinline__ void tc_step(float (&part)[2][4][4],
-                                        const bf16_t* as, const bf16_t* bs,
-                                        int wm, int wn, int g, int t) {
-#pragma unroll
-  for (int k16 = 0; k16 < TC_BK; k16 += 16) {
-    uint32_t a[2][4], b[4][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const bf16_t* p = as + (wm + i * 16 + g) * AS + k16 + 2 * t;
-      a[i][0] = *reinterpret_cast<const uint32_t*>(p);
-      a[i][1] = *reinterpret_cast<const uint32_t*>(p + 8 * AS);
-      a[i][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-      a[i][3] = *reinterpret_cast<const uint32_t*>(p + 8 * AS + 8);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const bf16_t* p = bs + (k16 + 2 * t) * BS + wn + j * 8 + g;
-      b[j][0] = pack_bf16(p[0], p[BS]);
-      b[j][1] = pack_bf16(p[8 * BS], p[9 * BS]);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) mma_bf16(part[i][j], a[i], b[j]);
-  }
-}
-
 // grid (ceil(m / 64), ceil(cout / BN), splits); split z covers the offsets
 // [z * per, min(kk, (z + 1) * per)). With ws == null (one split) it writes
 // out (+ bias); otherwise its partial sums to ws[z] (m x cout).
-template <typename T, int BN>
-__global__ void __launch_bounds__(TcShape<T, BN>::kThreads)
-sc_tc_fwd(const T* __restrict__ feats, const uint8_t* __restrict__ mask,
+template <int BN>
+__global__ void __launch_bounds__(TcShape<BN>::kThreads)
+sc_tc_fwd(const float* __restrict__ feats, const uint8_t* __restrict__ mask,
           int64_t n, int cin, const int32_t* __restrict__ nbr, int64_t m,
-          int kk, int per, const T* __restrict__ w, int cout,
+          int kk, int per, const float* __restrict__ w, int cout,
           const float* __restrict__ bias, float* __restrict__ out,
           float* __restrict__ ws) {
-  using S = TcShape<T, BN>;
+  using S = TcShape<BN>;
   constexpr int V = S::kVec;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* a_s = reinterpret_cast<T*>(smem_raw);
-  T* b_s = a_s + TC_STAGES * S::kAElems;
+  float* a_s = reinterpret_cast<float*>(smem_raw);
+  float* b_s = a_s + TC_STAGES * S::kAElems;
   int* rows = reinterpret_cast<int*>(b_s + TC_STAGES * S::kBElems);
   int* hit = rows + TC_MAXK * TC_BM;  // per offset: some row has a neighbor
   int* act = hit + TC_MAXK;           // the offsets that are computed
@@ -331,25 +326,24 @@ sc_tc_fwd(const T* __restrict__ feats, const uint8_t* __restrict__ mask,
     const int c0 = (step - a * n_chunks) * TC_BK;
     const int j = act[a];
     const int* rj = rows + j * TC_BM;
-    T* as = a_s + slot * S::kAElems;
-    T* bs = b_s + slot * S::kBElems;
-    // A: 64 rows x 32 channels, in chunks of V channels (4 floats or 8
-    // bfloat16)
+    float* as = a_s + slot * S::kAElems;
+    float* bs = b_s + slot * S::kBElems;
+    // A: 64 rows x 32 channels, in chunks of V = 4 channels
     for (int c = tid; c < TC_BM * (TC_BK / V); c += S::kThreads) {
       const int r = c / (TC_BK / V), q = c % (TC_BK / V);
       const int src = rj[r];
       const int ch = c0 + q * V;
       const bool ok = src >= 0 && ch < cin;
-      const T* g = ok ? feats + static_cast<int64_t>(src) * cin + ch : feats;
+      const float* g = ok ? feats + static_cast<int64_t>(src) * cin + ch : feats;
       cp_async16(smem_addr(as + r * S::kAStride + q * V), g, ok ? 16 : 0);
     }
     // B: 32 channels x BN outputs of W[k]
-    const T* wk = w + static_cast<int64_t>(k_lo + j) * cin * cout;
+    const float* wk = w + static_cast<int64_t>(k_lo + j) * cin * cout;
     for (int c = tid; c < TC_BK * (BN / V); c += S::kThreads) {
       const int kr = c / (BN / V), q = c % (BN / V);
       const int ch = c0 + kr, col = n0 + q * V;
       const bool ok = ch < cin && col < cout;
-      const T* g = ok ? wk + static_cast<int64_t>(ch) * cout + col : w;
+      const float* g = ok ? wk + static_cast<int64_t>(ch) * cout + col : w;
       cp_async16(smem_addr(bs + kr * S::kBStride + q * V), g, ok ? 16 : 0);
     }
   };
@@ -379,8 +373,8 @@ sc_tc_fwd(const T* __restrict__ feats, const uint8_t* __restrict__ mask,
     if (nxt < steps) load_step(nxt, nxt % TC_STAGES);
     cp_async_commit();
 
-    const T* as = a_s + (step % TC_STAGES) * S::kAElems;
-    const T* bs = b_s + (step % TC_STAGES) * S::kBElems;
+    const float* as = a_s + (step % TC_STAGES) * S::kAElems;
+    const float* bs = b_s + (step % TC_STAGES) * S::kBElems;
     float part[2][4][4];
 #pragma unroll
     for (int i = 0; i < 2; ++i)
@@ -441,12 +435,12 @@ __global__ void sc_reduce(const float4* __restrict__ ws, int splits,
   out[i] = s;
 }
 
-template <typename T, int BN>
-int launch_tc(const T* feats, const uint8_t* mask, int64_t n, int cin,
+template <int BN>
+int launch_tc(const float* feats, const uint8_t* mask, int64_t n, int cin,
               const int32_t* nbr, int64_t m, int kk, int per, int splits,
-              const T* w, int cout, const float* bias, float* out,
+              const float* w, int cout, const float* bias, float* out,
               float* ws, cudaStream_t s) {
-  using S = TcShape<T, BN>;
+  using S = TcShape<BN>;
   // above 48 KB of shared memory only by request, once per device
   constexpr int kMaxDevices = 64;
   static bool smem_set[kMaxDevices] = {};
@@ -455,7 +449,7 @@ int launch_tc(const T* feats, const uint8_t* mask, int64_t n, int cin,
   if (e != cudaSuccess) return static_cast<int>(e);
   if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
   if (!smem_set[dev]) {
-    e = cudaFuncSetAttribute(sc_tc_fwd<T, BN>,
+    e = cudaFuncSetAttribute(sc_tc_fwd<BN>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(S::kSmem));
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -463,7 +457,7 @@ int launch_tc(const T* feats, const uint8_t* mask, int64_t n, int cin,
   }
   dim3 grid(static_cast<unsigned>((m + TC_BM - 1) / TC_BM),
             (cout + BN - 1) / BN, splits);
-  sc_tc_fwd<T, BN><<<grid, S::kThreads, S::kSmem, s>>>(
+  sc_tc_fwd<BN><<<grid, S::kThreads, S::kSmem, s>>>(
       feats, mask, n, cin, nbr, m, kk, per, w, cout, bias, out,
       splits > 1 ? ws : nullptr);
   e = cudaGetLastError();
@@ -474,6 +468,323 @@ int launch_tc(const T* feats, const uint8_t* mask, int64_t n, int cin,
               0, s>>>(reinterpret_cast<const float4*>(ws), splits, quads,
                       cout, bias, reinterpret_cast<float4*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------- K2-bf16's tensor-core route
+
+constexpr int KB_STAGES = 4;  // ring slots of 64-channel steps (3 ahead)
+constexpr int KB_ILP = 8;     // table entries a thread reads at once
+
+// mode of a K2-bf16 call: how B, the (K x N) matrix of offset k, is read
+// from w
+enum KbMode : int {
+  KB_FORWARD = 0,  // W[k] (Cin x Cout rows, Cout contiguous): MN-major
+  KB_MIRROR = 1,   // W[K - 1 - k]^T of a (K, N, Cin) w: K-major (the input
+                   // gradient over a submanifold conv's own table)
+  KB_TRANSPOSE = 2,  // W[k]^T of a (K, N, Cin) w: K-major (the input
+                     // gradient over a strided conv's transpose table)
+};
+
+// A block tile of 64 WM rows by BN columns, WM warpgroups of 64 rows by
+// all BN columns. A slot holds one step: A, the tile's rows' 64 channels
+// (a 128-byte line a row, K-major), then B, 64 channels by the tile's
+// columns (BN 128-byte lines: K-major lines of 64 channels a column, or
+// MN-major lines of 64 columns a channel, 64 channels a block of 64
+// columns); both with the 128-byte swizzle. kA, kB: a thread's 16-byte
+// copies of a step
+template <int WM, int BN>
+struct KbTile {
+  static constexpr int kBM = 64 * WM;
+  static constexpr int kThreads = 128 * WM;
+  static constexpr int kA = kBM * 8 / kThreads;
+  static constexpr int kB = BN * 8 / kThreads;
+  static constexpr int kStage = (kBM + BN) * 128;  // bytes
+  static constexpr size_t kSmem =
+      1024 + KB_STAGES * kStage +
+      sizeof(int) * (TC_MAXK * (kBM + WM) + 2 * TC_MAXK + 1);
+};
+
+// byte offset of 16-byte chunk q of line l in a swizzled region
+__device__ __forceinline__ uint32_t sw_chunk(int l, int q) {
+  return l * 128 + ((q ^ (l & 7)) << 4);
+}
+
+// grid (ceil(m / BM), ceil(cout / BN), splits); split z covers the offsets
+// [z * per, min(kk, (z + 1) * per)). feats: (n, cin) bfloat16; w: (kk,
+// cin, cout) (KB_FORWARD) or (kk, cout, cin) bfloat16. With one split the
+// block writes out (+ bias); else its partial sums to ws[z] (m x cout),
+// and the last block of the output tile to arrive (arrivals: two zeroed
+// words per tile, which it resets) adds the splits in split order (+
+// bias) into out.
+template <int WM, int BN, bool KMAJOR_B>
+__global__ void __launch_bounds__(KbTile<WM, BN>::kThreads)
+sc_wgmma_bf16(const bf16_t* __restrict__ feats,
+              const uint8_t* __restrict__ mask, int64_t n, int cin,
+              const int32_t* __restrict__ nbr, int64_t m, int kk, int per,
+              const bf16_t* __restrict__ w, int cout, int mirror,
+              const float* __restrict__ bias, float* __restrict__ out,
+              float* __restrict__ ws, int* __restrict__ arrivals) {
+  using T = KbTile<WM, BN>;
+  constexpr int BM = T::kBM, kThreads = T::kThreads;
+  extern __shared__ unsigned char kb_smem[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(kb_smem) + 1023) & ~uintptr_t(1023));
+  int* rows = reinterpret_cast<int*>(ring + KB_STAGES * T::kStage);
+  // per offset and warpgroup: some row of its 64 has a neighbor
+  int* hit = rows + TC_MAXK * BM;
+  int* act = hit + TC_MAXK * WM;  // the offsets that are computed
+  int* act_wg = act + TC_MAXK;    // and their warpgroups with a neighbor
+  int* n_act = act_wg + TC_MAXK;
+
+  const int tid = threadIdx.x;
+  const int64_t m0 = static_cast<int64_t>(blockIdx.x) * BM;
+  const int n0 = blockIdx.y * BN;
+  const int k_lo = blockIdx.z * per;
+  const int nk = min(kk, k_lo + per) - k_lo;
+
+  // 1. the tile's source rows per offset, and which offsets to compute.
+  // A thread issues the table reads of KB_ILP entries, then their mask
+  // reads, before it uses any: the two dependent loads an entry would
+  // otherwise cost in turn are what a block's start waits on
+  for (int j = tid; j < nk * WM; j += kThreads) hit[j] = 0;
+  __syncthreads();
+  for (int e0 = tid; e0 < BM * nk; e0 += KB_ILP * kThreads) {
+    int idx[KB_ILP];
+    bool ok[KB_ILP];
+#pragma unroll
+    for (int u = 0; u < KB_ILP; ++u) {
+      const int e = e0 + u * kThreads, r = e / nk;
+      idx[u] = e < BM * nk && m0 + r < m
+                   ? nbr[(m0 + r) * kk + k_lo + e - r * nk]
+                   : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < KB_ILP; ++u)
+      ok[u] = idx[u] >= 0 && idx[u] < n && mask[idx[u]];
+#pragma unroll
+    for (int u = 0; u < KB_ILP; ++u) {
+      const int e = e0 + u * kThreads, r = e / nk, j = e - r * nk;
+      if (e < BM * nk) {
+        rows[j * BM + r] = ok[u] ? idx[u] : -1;
+        if (ok[u]) hit[j * WM + r / 64] = 1;
+      }
+    }
+  }
+  __syncthreads();
+  if (tid < 32) {  // one warp lists them in order (nk <= 27 lanes)
+    int wgs = 0;
+    if (tid < nk)
+      for (int q = 0; q < WM; ++q) wgs |= hit[tid * WM + q] << q;
+    const unsigned some = __ballot_sync(0xffffffffu, wgs != 0);
+    if (wgs) {
+      const int c = __popc(some & ((1u << tid) - 1u));
+      act[c] = tid;
+      act_wg[c] = wgs;
+    }
+    if (tid == 0) *n_act = __popc(some);
+  }
+  __syncthreads();
+
+  const int n_chunks = (cin + 63) / 64;
+  const int steps = *n_act * n_chunks;
+
+  // 2. one (offset, 64-channel chunk) step into ring slot step % S: the
+  // gathered rows and W's slice land as the operands, 16 B a copy,
+  // zero-filled for absent rows and past the channels and columns. A
+  // thread's copies are the same lines and chunks every step: copy i is
+  // chunk (tid + i * threads) % 8 of line (tid + i * threads) / 8, so its
+  // place in the slot and its offset in W (from the step's offset and
+  // first channel) are set once here
+  uint32_t a_dst[T::kA], b_dst[T::kB];
+  int a_row[T::kA], a_ch[T::kA], b_ch[T::kB];
+  int64_t b_off[T::kB];
+#pragma unroll
+  for (int i = 0; i < T::kA; ++i) {
+    const int e = tid + i * kThreads;
+    a_dst[i] = sw_chunk(e >> 3, e & 7);
+    a_row[i] = e >> 3;
+    a_ch[i] = (e & 7) * 8;
+  }
+#pragma unroll
+  for (int i = 0; i < T::kB; ++i) {
+    const int e = tid + i * kThreads, l = e >> 3, q = e & 7;
+    b_dst[i] = sw_chunk(l, q);
+    int col;
+    if constexpr (KMAJOR_B) {  // line l: column n0 + l, 8 channels a chunk
+      b_ch[i] = q * 8;
+      col = n0 + l;
+      b_off[i] = static_cast<int64_t>(col) * cin + q * 8;
+    } else {  // line l: channel l % 64, 8 columns a chunk
+      b_ch[i] = l & 63;
+      col = n0 + (l >> 6) * 64 + q * 8;
+      b_off[i] = static_cast<int64_t>(l & 63) * cout + col;
+    }
+    if (col >= cout) b_ch[i] = cin;  // never in range: zero-filled
+  }
+  auto load_step = [&](int step) {
+    const int a = step / n_chunks;
+    const int c0 = (step - a * n_chunks) * 64;
+    const int j = act[a];
+    const int* rj = rows + j * BM;
+    const uint32_t as = smem_addr(ring + (step % KB_STAGES) * T::kStage);
+    const uint32_t bs = as + BM * 128;
+#pragma unroll
+    for (int i = 0; i < T::kA; ++i) {
+      const int src = rj[a_row[i]], ch = c0 + a_ch[i];
+      const bool ok = src >= 0 && ch < cin;
+      cp_async16(as + a_dst[i],
+                 ok ? feats + static_cast<int64_t>(src) * cin + ch : feats,
+                 ok ? 16 : 0);
+    }
+    const int k = k_lo + j, kw = mirror ? kk - 1 - k : k;
+    // W[kw]'s slice from channel c0: in K-major lines c0 channels along
+    // a line, in MN-major ones c0 lines (of cout values) further
+    const bf16_t* wk = w + static_cast<int64_t>(kw) * cin * cout +
+                       (KMAJOR_B ? c0 : static_cast<int64_t>(c0) * cout);
+#pragma unroll
+    for (int i = 0; i < T::kB; ++i) {
+      const bool ok = c0 + b_ch[i] < cin;
+      cp_async16(bs + b_dst[i], ok ? wk + b_off[i] : w, ok ? 16 : 0);
+    }
+  };
+
+  // 3. the ring: step s's slot landed (one barrier), step s + S - 1's
+  // gathers start into the slot step s - 1 read, step s's four k16
+  // products are issued and waited for in the same iteration; a
+  // warpgroup none of whose rows has a neighbor at the step's offset
+  // skips them (its rows landed as zeros)
+  const int wg = tid >> 7;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  // slot 0's descriptors; slot s is s * kStage bytes further. A: the
+  // warpgroup's 64 rows, the k16 product kq 32 bytes along each line. B:
+  // all BN columns; K-major: 32 bytes along each line; MN-major: 16 lines
+  // (2048 bytes) further, the next 64 columns 64 lines (8192 bytes)
+  // further
+  const uint64_t da = sw128_desc(ring + wg * 64 * 128);
+  const uint64_t db = KMAJOR_B ? sw128_desc(ring + BM * 128)
+                               : sw128_mn_desc(ring + BM * 128, 64 * 128);
+  constexpr int kBStep = KMAJOR_B ? 2 : 128;  // 16-byte units a k16 step
+#pragma unroll
+  for (int s = 0; s < KB_STAGES - 1; ++s) {
+    if (s < steps) load_step(s);
+    cp_async_commit();
+  }
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) fence_reg(acc[i]);
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<KB_STAGES - 2>();
+    fence_proxy_async();  // the landed rows, visible to the tensor cores
+    __syncthreads();
+    const int nxt = step + KB_STAGES - 1;
+    if (nxt < steps) load_step(nxt);
+    cp_async_commit();
+    if ((act_wg[step / n_chunks] >> wg) & 1) {
+      const uint64_t so = (step % KB_STAGES) * (T::kStage >> 4);
+      wgmma_fence();
+#pragma unroll
+      for (int kq = 0; kq < 4; ++kq)
+        wgmma_bf16<BN, 0, KMAJOR_B ? 0 : 1>(acc, da + so + 2 * kq,
+                                            db + so + kBStep * kq, 1);
+      wgmma_commit();
+      wgmma_wait_all();
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) fence_reg(acc[i]);
+  cp_async_wait<0>();
+
+  // 4. epilogue: warp w of a warpgroup holds rows 16 w + g, + 8; register
+  // 4 i + q columns 8 i + 2 t + (q & 1) of row + 8 (q >> 1). A split
+  // block with no offset to compute writes no partial (on a sparse level
+  // most do not): it only marks itself absent from its tile's sum
+  const bool split = gridDim.z > 1;
+  float* dst = split ? ws + blockIdx.z * m * cout : out;
+  const bool add_bias = !split && bias != nullptr;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int64_t row0 = m0 + wg * 64 + ((tid >> 5) & 3) * 16 + g;
+#pragma unroll
+  for (int i = 0; i < (split && steps == 0 ? 0 : BN / 8); ++i) {
+    const int col = n0 + i * 8 + 2 * t;
+    if (col >= cout) continue;
+    const float b0 = add_bias ? bias[col] : 0.f;
+    const float b1 = add_bias ? bias[col + 1] : 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int64_t row = row0 + h * 8;
+      if (row < m)
+        *reinterpret_cast<float2*>(dst + row * cout + col) = make_float2(
+            acc[4 * i + 2 * h] + b0, acc[4 * i + 2 * h + 1] + b1);
+    }
+  }
+  // 5. the split reduction, folded in: no second kernel, and the splits'
+  // partials added in split order (+ bias), the order sc_reduce takes
+  // (an absent split adds nothing). A tile's two words: its arrivals and
+  // the splits that wrote a partial
+  if (!split) return;
+  int* words = arrivals + 2 * (static_cast<int64_t>(blockIdx.y) * gridDim.x +
+                               blockIdx.x);
+  if (tid == 0 && steps > 0) atomicOr(words + 1, 1 << blockIdx.z);
+  if (!last_arrival(words, gridDim.z)) return;
+  __shared__ unsigned s_which;
+  if (tid == 0) {
+    s_which = static_cast<unsigned>(atomicExch(words + 1, 0));
+    words[0] = 0;  // ready for the next call on this buffer
+  }
+  __syncthreads();
+  const int64_t at = m0 * cout + n0;
+  reduce_parts4(out + at, ws + at, gridDim.z, s_which, m * cout,
+                static_cast<int>(min(static_cast<int64_t>(BM), m - m0)),
+                min(BN, cout - n0), cout, bias == nullptr ? nullptr
+                                                          : bias + n0);
+}
+
+template <int WM, int BN, bool KMAJOR_B>
+int launch_wgmma_bf16(const bf16_t* feats, const uint8_t* mask, int64_t n,
+                      int cin, const int32_t* nbr, int64_t m, int kk,
+                      int per, int splits, const bf16_t* w, int cout,
+                      int mirror, const float* bias, float* out, float* ws,
+                      int* arrivals, cudaStream_t s) {
+  using T = KbTile<WM, BN>;
+  constexpr int kMaxDevices = 64;
+  static bool smem_set[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!smem_set[dev]) {
+    e = cudaFuncSetAttribute(sc_wgmma_bf16<WM, BN, KMAJOR_B>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(T::kSmem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_set[dev] = true;
+  }
+  dim3 grid(static_cast<unsigned>((m + T::kBM - 1) / T::kBM),
+            (cout + BN - 1) / BN, splits);
+  sc_wgmma_bf16<WM, BN, KMAJOR_B><<<grid, T::kThreads, T::kSmem, s>>>(
+      feats, mask, n, cin, nbr, m, kk, per, w, cout, mirror, bias, out,
+      splits > 1 ? ws : nullptr, arrivals);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool KMAJOR_B>
+int conv_wgmma_bf16(const bf16_t* feats, const uint8_t* mask, int64_t n,
+                    int cin, const int32_t* nbr, int64_t m, int kk,
+                    int per, int splits, const bf16_t* w, int cout,
+                    int mirror, const float* bias, float* out, int bm,
+                    int bn, float* ws, int* arrivals, cudaStream_t s) {
+#define KB_LAUNCH(WM, BN)                                                    \
+  launch_wgmma_bf16<WM, BN, KMAJOR_B>(feats, mask, n, cin, nbr, m, kk, per,  \
+                                      splits, w, cout, mirror, bias, out,    \
+                                      ws, arrivals, s)
+  if (bm == 64 && bn == 64) return KB_LAUNCH(1, 64);
+  if (bm == 64 && bn == 128) return KB_LAUNCH(1, 128);
+  if (bm == 128 && bn == 128) return KB_LAUNCH(2, 128);
+  if (bm == 128 && bn == 256) return KB_LAUNCH(2, 256);
+  if (bm == 256 && bn == 128) return KB_LAUNCH(4, 128);
+#undef KB_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
@@ -490,14 +801,12 @@ int conv_simt(const T* feats, const uint8_t* mask, int64_t n, int cin,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int conv_tc(const T* feats, const uint8_t* mask, int64_t n, int cin,
-            const int32_t* nbr, int64_t m, int kk, const T* w, int cout,
+int conv_tc(const float* feats, const uint8_t* mask, int64_t n, int cin,
+            const int32_t* nbr, int64_t m, int kk, const float* w, int cout,
             const float* bias, float* out, int bn, int per, int splits,
             float* ws, void* stream) {
-  constexpr int V = 16 / sizeof(T);
   if (m <= 0 || cout <= 0) return 0;
-  if (cin <= 0 || kk <= 0 || cin % V || cout % V || per <= 0 ||
+  if (cin <= 0 || kk <= 0 || cin % 4 || cout % 4 || per <= 0 ||
       per > TC_MAXK || splits <= 0 || splits > 65535 ||
       static_cast<int64_t>(splits - 1) * per >= kk ||
       static_cast<int64_t>(splits) * per < kk || (splits > 1 && !ws) ||
@@ -505,10 +814,10 @@ int conv_tc(const T* feats, const uint8_t* mask, int64_t n, int cin,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bn == 64)
-    return launch_tc<T, 64>(feats, mask, n, cin, nbr, m, kk, per, splits, w,
+    return launch_tc<64>(feats, mask, n, cin, nbr, m, kk, per, splits, w,
                             cout, bias, out, ws, s);
   if (bn == 128)
-    return launch_tc<T, 128>(feats, mask, n, cin, nbr, m, kk, per, splits, w,
+    return launch_tc<128>(feats, mask, n, cin, nbr, m, kk, per, splits, w,
                              cout, bias, out, ws, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -554,13 +863,41 @@ extern "C" int es_sparse_conv_simt_bf16(const bf16_t* feats,
                    stream);
 }
 
-extern "C" int es_sparse_conv_tc_bf16(const bf16_t* feats,
-                                      const uint8_t* mask, int64_t n, int cin,
-                                      const int32_t* nbr, int64_t m, int kk,
-                                      const bf16_t* w, int cout,
-                                      const float* bias, float* out, int bn,
-                                      int per, int splits, float* ws,
-                                      void* stream) {
-  return conv_tc(feats, mask, n, cin, nbr, m, kk, w, cout, bias, out, bn, per,
-                 splits, ws, stream);
+// K2-bf16's tensor-core route (wgmma): feats (n, cin) and w as bfloat16
+// bits; bias, accumulation and out float32. mode 0 (KbMode): the forward,
+// w (kk, cin, cout); mode 1 or 2: the input gradient from the forward's
+// own weights, w (kk, cout, cin) read transposed, at offset kk - 1 - k
+// (1: a submanifold conv's table) or k (2: a strided conv's transpose
+// table). The plan: the block tile bm x bn ((64, 64), (64, 128), (128,
+// 128), (128, 256) or (256, 128)), the offsets per split and the splits.
+// With splits > 1 (at most 32), ws holds splits x m x cout floats and
+// arrivals at least 2 ceil(m / bm) ceil(cout / bn) int32 words, zero,
+// which the call leaves zero (one call at a time on a buffer); else both
+// null.
+// Takes cin and cout multiples of 8, 16-byte aligned feats and w.
+extern "C" int es_sparse_conv_wgmma_bf16(
+    const bf16_t* feats, const uint8_t* mask, int64_t n, int cin,
+    const int32_t* nbr, int64_t m, int kk, const bf16_t* w, int cout,
+    int mode, const float* bias, float* out, int bm, int bn, int per,
+    int splits, float* ws, int* arrivals, void* stream) {
+  if (m <= 0 || cout <= 0) return 0;
+  if (cin <= 0 || kk <= 0 || cin % 8 || cout % 8 || per <= 0 ||
+      per > TC_MAXK || splits <= 0 || splits > 32 ||
+      static_cast<int64_t>(splits - 1) * per >= kk ||
+      static_cast<int64_t>(splits) * per < kk ||
+      (splits > 1 && (!ws || !arrivals)) || mode < 0 || mode > 2 ||
+      (mode != KB_FORWARD && bias != nullptr) ||
+      (m + 63) / 64 > 0x7fffffff ||
+      reinterpret_cast<uintptr_t>(feats) % 16 ||
+      reinterpret_cast<uintptr_t>(w) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int mirror = mode == KB_MIRROR;
+  return mode == KB_FORWARD
+             ? conv_wgmma_bf16<false>(feats, mask, n, cin, nbr, m, kk, per,
+                                      splits, w, cout, 0, bias, out, bm, bn,
+                                      ws, arrivals, s)
+             : conv_wgmma_bf16<true>(feats, mask, n, cin, nbr, m, kk, per,
+                                     splits, w, cout, mirror, nullptr, out,
+                                     bm, bn, ws, arrivals, s);
 }

@@ -20,8 +20,8 @@
 // products; the bytes (x, y and idx read once, G written once) are far
 // below that at every main-path shape but the stem's.
 //
-// Design, one call = a memset, the pair pass, the product, and a reduction
-// when the pairs of an offset are cut into chunks:
+// Design, one call = a memset, the pair pass, the product, and (float32) a
+// reduction when the pairs of an offset are cut into chunks:
 // 1. Pair pass (wg_pairs): one read of idx, coalesced, with x_mask and
 //    y_mask[idx]. A block of 256 rows ballots each offset's hit rows, counts
 //    them, and finds its place among the blocks by a decoupled look-back
@@ -66,20 +66,39 @@
 // 6. The bfloat16 variant (K3-bf16, es_sparse_wgrad_bf16): the contract of
 //    the reference's bf16 compute route on its custom-VJP backwards
 //    (_subm_bwd :367-370, _strided_bwd :427-430): x and y arrive as
-//    bfloat16 (the wrapper casts each once per call), products are exact
-//    in float32, sums and G are float32. The pair pass, the chunks and the
-//    narrow route (FP32 FMAs over the converted values) are the float32
-//    route's; the tensor-core kernel is the same template on the operand
-//    type: a step is 64 pairs (one 128-byte line of bfloat16), the pass
-//    after the gathers only transposes the staged rows into the K-major
-//    swizzled part (no hi and lo parts), and each 32-byte slice of the
-//    lines is one wgmma.m64nNk16.bf16 where 3xTF32 takes three m64nNk8.
-//    Bound: bf16 dense products at 989 TFLOP/s.
+//    bfloat16 (the backward casts dout and feats once for this kernel and
+//    K2-bf16's input gradient), products are exact in float32, sums and G
+//    are float32. Bound: the bf16 products at 989 TFLOP/s (summed over a
+//    step's calls); the pair pass, the gathers and the chunks' partials,
+//    not the products, set its pace.
+//    The pair pass and the narrow route (FP32 FMAs over the converted
+//    values) are the float32 route's; its tensor-core kernel
+//    (wg_wgmma_bf16) is its own:
+//    - A 64-pair step lands its x rows and y rows as the operands
+//      themselves: for bfloat16, wgmma reads A (x channels x pairs) and B
+//      (pairs x y channels) MN-major through its transpose operands, so
+//      cp.async writes each row's 16-byte chunks straight into the
+//      128-byte swizzle those descriptors read (a line is 64 channels of
+//      one pair). No pass transposes them, no buffer holds parts, and a
+//      step costs one barrier.
+//    - A ring of 4 slots (3 steps of gathers in flight); the steps' pair
+//      indices come through shared memory too, copied S - 1 steps ahead
+//      of the gathers that read them, so no gather waits on a global load
+//      of its row numbers.
+//    - Each step's partial is added into float32 accumulators with a
+//      rounding add, as in the float32 route (the chunk sums run over
+//      thousands of pairs).
+//    - Chunk reduction folded in: the last block of each (tile of G,
+//      offset) to finish (a counter per pair, zeroed by the pair pass's
+//      memset) adds the chunks' partials in chunk order, wg_reduce's
+//      order; no reduction kernel runs (the narrow route folds the same
+//      way).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "sparse_mma.cuh"
+#include "sparse_wgmma.cuh"
 
 namespace {
 
@@ -261,37 +280,6 @@ __device__ __forceinline__ Chunk block_chunk(const int* counts, int chunks,
 
 // ---- 3-4. the tensor-core route: wgmma over pre-split TF32 parts ---------
 
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keeps the compiler from moving reads of a wgmma result above the wait
-__device__ __forceinline__ void fence_reg(float& r) {
-  asm volatile("" : "+f"(r)::"memory");
-}
-
-// descriptor of a K-major operand in shared memory with the 128-byte
-// swizzle (see sw128 below): 128-byte lines, 8 to a 1024-byte atom
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-  const uint32_t a = smem_addr(p);
-  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |          // LBO (unused here)
-         (static_cast<uint64_t>(1024 >> 4) << 32) |  // SBO: next 8 rows
-         (static_cast<uint64_t>(1) << 62);           // 128-byte swizzle
-}
-
 #define WG_D8(i)                                                        \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
@@ -339,107 +327,39 @@ __device__ __forceinline__ void wgmma_tf32<128>(float* d, uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
-// the same over bfloat16 operands: a: 64 x 16, b: N x 16, both K-major in
-// shared memory (imm-trans-a and imm-trans-b 0)
-template <int N>
-__device__ __forceinline__ void wgmma_bf16(float* d, uint64_t a, uint64_t b,
-                                           int scale_d);
-
-template <>
-__device__ __forceinline__ void wgmma_bf16<64>(float* d, uint64_t a,
-                                               uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_bf16<128>(float* d, uint64_t a,
-                                                uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32), WG_D8(40),
-        WG_D8(48), WG_D8(56)
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
 #undef WG_D8
 
-// The operand types: float (3xTF32 over TF32 hi and lo parts) or bf16_t
-// (the bfloat16 variant: one part, the values themselves). A step is the
-// pairs that fill one 128-byte line of a channel's K-major part: 32 TF32
-// values or 64 bfloat16 ones; V elements make a 16-byte chunk.
-template <typename E>
-struct WgOperand;
-
-template <>
-struct WgOperand<float> {
-  static constexpr int kStep = WG_STEP;
-  static constexpr int kParts = 2;
-};
-
-template <>
-struct WgOperand<bf16_t> {
-  static constexpr int kStep = 2 * WG_STEP;
-  static constexpr int kParts = 1;
-};
-
 // S: slots of staged rows (S - 1 steps of gathers in flight). Two buffers
-// of parts: a step's split (or transposition) pass runs while the last
-// step's products are in flight.
-template <typename E, int BM, int BN, int S>
+// of TF32 parts: a step's split pass runs while the last step's products
+// are in flight.
+template <int BM, int BN, int S>
 struct WgTile {
   static_assert(S >= 3, "a step's gathers and the next split need 2 slots");
-  static constexpr int kStep = WgOperand<E>::kStep;
-  static constexpr int kV = 16 / sizeof(E);
   static constexpr int kThreads = BM * 2;  // BM / 64 warpgroups
-  static constexpr int kStage = kStep * (BM + BN);  // staged rows
-  // one step's parts (float: A hi, B hi, A lo, B lo; bf16_t: A, B), each
-  // 1024-byte aligned
-  static constexpr int kParts = WgOperand<E>::kParts * (BM + BN) * kStep;
-  static constexpr int kA = kStep * (BM / kV) / kThreads;  // copies of a
-  static constexpr int kB = kStep * (BN / kV) / kThreads;  // thread a step
+  static constexpr int kStage = WG_STEP * (BM + BN);  // staged fp32 rows
+  // one step's TF32 parts: A hi, B hi, A lo, B lo, each 1024-byte aligned
+  static constexpr int kParts = 2 * (BM + BN) * WG_STEP;
+  static constexpr int kA = WG_STEP * (BM / 4) / kThreads;  // copies of a
+  static constexpr int kB = WG_STEP * (BN / 4) / kThreads;  // thread a step
   // parts, staged rows, and 1024 bytes of slack to align the swizzled
   // parts to their atoms
   static constexpr size_t kSmem =
-      1024 + sizeof(E) * (2 * kParts + S * kStage);
+      1024 + sizeof(float) * (2 * kParts + S * kStage);
 };
 
-// staged rows: row p of W elements keeps 16-byte chunk q at chunk
-// q ^ ((p / V) % 8), so the split pass's 16-byte reads (rows V j + c of 8
+// staged rows: row p of W floats keeps 16-byte chunk q at chunk
+// q ^ ((p / 4) % 8), so the split pass's float4 reads (rows 4 j + c of 8
 // values of j) are conflict-free
-template <typename E, int W>
+template <int W>
 __device__ __forceinline__ int staged(int p, int q) {
-  constexpr int V = 16 / sizeof(E);
-  return p * W + (q ^ ((p / V) & 7)) * V;
+  return p * W + ((q ^ ((p >> 2) & 7)) << 2);
 }
 
 // K-major part with the 128-byte swizzle: row m (a channel) holds a step's
 // pairs in one 128-byte line, 8 rows form a 1024-byte atom, and 16-byte
 // chunk q of row m sits at chunk q ^ (m % 8)
-template <typename E>
 __device__ __forceinline__ int sw128(int m, int p) {
-  constexpr int V = 16 / sizeof(E), L = 128 / sizeof(E);
-  return m * L + ((((p / V) ^ m) & 7) * V) + (p % V);
+  return m * WG_STEP + ((((p >> 2) ^ m) & 7) << 2) + (p & 3);
 }
 
 // cvt.rna.tf32.f32 in two integer operations (round half away from zero at
@@ -460,8 +380,8 @@ __device__ __forceinline__ void split_stage(const float* src, float* hi,
     float v[4][4];  // [pair 4 pq + j][channel 4 mq + i]
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const float4 t = *reinterpret_cast<const float4*>(
-          src + staged<float, W>(4 * pq + j, mq));
+      const float4 t =
+          *reinterpret_cast<const float4*>(src + staged<W>(4 * pq + j, mq));
       v[j][0] = t.x, v[j][1] = t.y, v[j][2] = t.z, v[j][3] = t.w;
     }
 #pragma unroll
@@ -473,67 +393,26 @@ __device__ __forceinline__ void split_stage(const float* src, float* hi,
         l[j] = tf32_rna(v[j][i] - __uint_as_float(h[j]));
       }
       const int m = 4 * mq + i;
-      // pairs 4 pq .. 4 pq + 3 of line m
-      const int off = sw128<float>(m, 4 * pq);
+      const int off = sw128(m, 4 * pq);  // pairs 4 pq .. 4 pq + 3 of line m
       *reinterpret_cast<uint4*>(hi + off) = make_uint4(h[0], h[1], h[2], h[3]);
       *reinterpret_cast<uint4*>(lo + off) = make_uint4(l[0], l[1], l[2], l[3]);
     }
   }
 }
 
-__device__ __forceinline__ uint32_t word_of(const uint4& v, int k) {
-  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
-}
-
-// The bfloat16 variant's pass: one landed step (64 pairs x W channels)
-// transposed into its K-major swizzled part, no split. A thread takes 8
-// pairs x 8 channels: eight 16-byte reads (a pair's 8 channels each), a
-// register transpose by byte permutes, then per channel one 16-byte store
-// of its 8 pairs; the 8 threads of a quarter warp fill one 128-byte line
-template <int W>
-__device__ __forceinline__ void transpose_stage(const bf16_t* src,
-                                                bf16_t* dst, int tid,
-                                                int threads) {
-  for (int e = tid; e < 8 * (W / 8); e += threads) {
-    const int pq = e & 7, mq = e >> 3;
-    uint4 r[8];  // pair 8 pq + j: channels 8 mq .. 8 mq + 7
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      r[j] = *reinterpret_cast<const uint4*>(
-          src + staged<bf16_t, W>(8 * pq + j, mq));
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      // channel 8 mq + i of pairs 2 h and 2 h + 1 into word h: the low
-      // halves of word i / 2 for an even i, the high halves for an odd one
-      const unsigned sel = (i & 1) ? 0x7632u : 0x5410u;
-      uint32_t w[4];
-#pragma unroll
-      for (int h = 0; h < 4; ++h)
-        w[h] = __byte_perm(word_of(r[2 * h], i >> 1),
-                           word_of(r[2 * h + 1], i >> 1), sel);
-      *reinterpret_cast<uint4*>(dst + sw128<bf16_t>(8 * mq + i, 8 * pq)) =
-          make_uint4(w[0], w[1], w[2], w[3]);
-    }
-  }
-}
-
-// grid (ceil(cx / BM) * ceil(cy / BN), kk, chunks), BM * 2 threads; E is
-// the operand type (float, or bf16_t for the bfloat16 variant)
-template <typename E, int BM, int BN, int S>
-__global__ void __launch_bounds__(WgTile<E, BM, BN, S>::kThreads)
-wg_wgmma(const E* __restrict__ x, int cx, const E* __restrict__ y,
+// grid (ceil(cx / BM) * ceil(cy / BN), kk, chunks), BM * 2 threads
+template <int BM, int BN, int S>
+__global__ void __launch_bounds__(WgTile<BM, BN, S>::kThreads)
+wg_wgmma(const float* __restrict__ x, int cx, const float* __restrict__ y,
          int cy, int64_t r, const int2* __restrict__ pairs,
          const int* __restrict__ counts, int chunks, float* __restrict__ out,
          float* __restrict__ ws) {
-  using T = WgTile<E, BM, BN, S>;
+  using T = WgTile<BM, BN, S>;
   constexpr int kThreads = T::kThreads;
-  constexpr int kStep = T::kStep;
-  constexpr int V = T::kV;
-  constexpr bool kBf16 = sizeof(E) == 2;
   extern __shared__ unsigned char wg_smem[];
-  E* parts = reinterpret_cast<E*>(
+  float* parts = reinterpret_cast<float*>(
       (reinterpret_cast<uintptr_t>(wg_smem) + 1023) & ~uintptr_t(1023));
-  E* ring = parts + 2 * T::kParts;
+  float* ring = parts + 2 * T::kParts;
 
   const Chunk ch = block_chunk(counts, chunks, cx, cy, out, ws);
   if (ch.dst == nullptr) return;
@@ -542,44 +421,44 @@ wg_wgmma(const E* __restrict__ x, int cx, const E* __restrict__ y,
   const int cx0 = (blockIdx.x % tiles_x) * BM;
   const int cy0 = (blockIdx.x / tiles_x) * BN;
   const int2* pk = pairs + blockIdx.y * r;
-  const int steps = (ch.p1 - ch.p0 + kStep - 1) / kStep;
+  const int steps = (ch.p1 - ch.p0 + WG_STEP - 1) / WG_STEP;
 
   // the x and y rows of this thread's copies of one step (-1 past the
   // chunk), loaded an iteration before their gathers are issued
   int xr[T::kA], yr[T::kB];
   auto fetch_rows = [&](int s) {
-    const int pb = ch.p0 + s * kStep;
+    const int pb = ch.p0 + s * WG_STEP;
 #pragma unroll
     for (int i = 0; i < T::kA; ++i) {
-      const int p = pb + (tid + i * kThreads) / (BM / V);
+      const int p = pb + (tid + i * kThreads) / (BM / 4);
       xr[i] = p < ch.p1 ? pk[p].x : -1;
     }
 #pragma unroll
     for (int i = 0; i < T::kB; ++i) {
-      const int p = pb + (tid + i * kThreads) / (BN / V);
+      const int p = pb + (tid + i * kThreads) / (BN / 4);
       yr[i] = p < ch.p1 ? pk[p].y : -1;
     }
   };
   // gather step s into ring slot s % S: x rows then y rows, 16 B a copy,
   // zero-filled past the chunk's pairs and the channels
   auto load_step = [&](int s) {
-    E* as = ring + (s % S) * T::kStage;
-    E* bs = as + kStep * BM;
+    float* as = ring + (s % S) * T::kStage;
+    float* bs = as + WG_STEP * BM;
 #pragma unroll
     for (int i = 0; i < T::kA; ++i) {
       const int e = tid + i * kThreads;
-      const int rr = e / (BM / V), q = e % (BM / V), col = cx0 + q * V;
+      const int rr = e / (BM / 4), q = e % (BM / 4), col = cx0 + q * 4;
       const bool ok = xr[i] >= 0 && col < cx;
-      const E* g = ok ? x + static_cast<int64_t>(xr[i]) * cx + col : x;
-      cp_async16(smem_addr(as + staged<E, BM>(rr, q)), g, ok ? 16 : 0);
+      const float* g = ok ? x + static_cast<int64_t>(xr[i]) * cx + col : x;
+      cp_async16(smem_addr(as + staged<BM>(rr, q)), g, ok ? 16 : 0);
     }
 #pragma unroll
     for (int i = 0; i < T::kB; ++i) {
       const int e = tid + i * kThreads;
-      const int rr = e / (BN / V), q = e % (BN / V), col = cy0 + q * V;
+      const int rr = e / (BN / 4), q = e % (BN / 4), col = cy0 + q * 4;
       const bool ok = yr[i] >= 0 && col < cy;
-      const E* g = ok ? y + static_cast<int64_t>(yr[i]) * cy + col : y;
-      cp_async16(smem_addr(bs + staged<E, BN>(rr, q)), g, ok ? 16 : 0);
+      const float* g = ok ? y + static_cast<int64_t>(yr[i]) * cy + col : y;
+      cp_async16(smem_addr(bs + staged<BN>(rr, q)), g, ok ? 16 : 0);
     }
   };
 
@@ -587,24 +466,18 @@ wg_wgmma(const E* __restrict__ x, int cx, const E* __restrict__ y,
   float acc[BN / 2], part[BN / 2];
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = part[i] = 0.f;
-  // descriptors of parts buffer 0; buffer 1 is kParts elements further.
-  // float: A hi, B hi, A lo, B lo; bf16_t: A, B (the lo ones unused)
-  const uint64_t dahi = sw128_desc(parts + wg * 64 * kStep);
-  const uint64_t dbhi = sw128_desc(parts + BM * kStep);
-  const uint64_t dalo = sw128_desc(parts + (BM + BN + wg * 64) * kStep);
-  const uint64_t dblo = sw128_desc(parts + (2 * BM + BN) * kStep);
+  // descriptors of parts buffer 0; buffer 1 is kParts floats further
+  const uint64_t dahi = sw128_desc(parts + wg * 64 * WG_STEP);
+  const uint64_t dbhi = sw128_desc(parts + BM * WG_STEP);
+  const uint64_t dalo = sw128_desc(parts + (BM + BN + wg * 64) * WG_STEP);
+  const uint64_t dblo = sw128_desc(parts + (2 * BM + BN) * WG_STEP);
   // step s's landed rows into parts buffer s % 2
   auto split = [&](int s) {
-    const E* as = ring + (s % S) * T::kStage;
-    E* pb = parts + (s & 1) * T::kParts;
-    if constexpr (kBf16) {
-      transpose_stage<BM>(as, pb, tid, kThreads);
-      transpose_stage<BN>(as + kStep * BM, pb + BM * kStep, tid, kThreads);
-    } else {
-      split_stage<BM>(as, pb, pb + (BM + BN) * kStep, tid, kThreads);
-      split_stage<BN>(as + kStep * BM, pb + BM * kStep,
-                      pb + (2 * BM + BN) * kStep, tid, kThreads);
-    }
+    const float* as = ring + (s % S) * T::kStage;
+    float* pb = parts + (s & 1) * T::kParts;
+    split_stage<BM>(as, pb, pb + (BM + BN) * WG_STEP, tid, kThreads);
+    split_stage<BN>(as + WG_STEP * BM, pb + BM * WG_STEP,
+                    pb + (2 * BM + BN) * WG_STEP, tid, kThreads);
     fence_proxy_async();  // the parts' stores, visible to the tensor cores
   };
 #pragma unroll
@@ -631,21 +504,16 @@ wg_wgmma(const E* __restrict__ x, int cx, const E* __restrict__ y,
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) fence_reg(part[i]);
     wgmma_fence();
-    const uint64_t bo = (step & 1) * (T::kParts / V);  // 16-byte units
-    // each product takes 32 bytes of every line: 8 TF32 or 16 bf16 pairs
+    const uint64_t bo = (step & 1) * (T::kParts / 4);  // 16-byte units
 #pragma unroll
-    for (int kq = 0; kq < 4; ++kq) {
-      const uint64_t o = bo + 2 * kq;  // 32 bytes further along each line
-      if constexpr (kBf16) {
-        wgmma_bf16<BN>(part, dahi + o, dbhi + o, kq > 0);
-      } else {
-        if (WG_TF32_TERMS == 3) {
-          wgmma_tf32<BN>(part, dalo + o, dbhi + o, kq > 0);
-          wgmma_tf32<BN>(part, dahi + o, dblo + o, 1);
-        }
-        wgmma_tf32<BN>(part, dahi + o, dbhi + o,
-                       WG_TF32_TERMS == 3 || kq > 0);
+    for (int k8 = 0; k8 < WG_STEP / 8; ++k8) {
+      const uint64_t o = bo + 2 * k8;  // 32 bytes further along each line
+      if (WG_TF32_TERMS == 3) {
+        wgmma_tf32<BN>(part, dalo + o, dbhi + o, k8 > 0);
+        wgmma_tf32<BN>(part, dahi + o, dblo + o, 1);
       }
+      wgmma_tf32<BN>(part, dahi + o, dbhi + o,
+                     WG_TF32_TERMS == 3 || k8 > 0);
     }
     wgmma_commit();
 
@@ -689,6 +557,192 @@ wg_wgmma(const E* __restrict__ x, int cx, const E* __restrict__ y,
   }
 }
 
+// ---- 6. K3-bf16's tensor-core route: wgmma on the landed rows ------------
+
+constexpr int WB_STEP = 64;    // pairs a step: 4 products of k16
+constexpr int WB_STAGES = 4;   // ring slots of landed rows (3 steps ahead)
+
+// A step lands its 64 pairs' rows as the operands themselves: x (A, BM
+// channels) and y (B, BN channels) MN-major with the 128-byte swizzle,
+// line 64 b + p holding channels 64 b .. 64 b + 63 of pair p (see
+// sparse_wgmma.cuh); kA and kB: a thread's 16-byte copies of a step.
+// After the ring, 2 S slots of a step's pair indices (their copies run S
+// - 1 steps ahead of the gathers that read them)
+template <int BM, int BN>
+struct WbTile {
+  static constexpr int kThreads = BM * 2;  // BM / 64 warpgroups
+  static constexpr int kStage = (BM + BN) * 128;  // bytes of a slot
+  static constexpr int kA = WB_STEP * (BM / 8) / kThreads;
+  static constexpr int kB = WB_STEP * (BN / 8) / kThreads;
+  static constexpr int kIdxSlots = 2 * WB_STAGES;
+  static constexpr size_t kSmem =
+      1024 + WB_STAGES * kStage + kIdxSlots * WB_STEP * sizeof(int2);
+};
+
+// 8-byte async copy (through L1); src_bytes = 0 zero-fills the destination
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+
+// byte offset of 16-byte chunk q8 (8 channels) of pair p in an MN-major
+// region
+__device__ __forceinline__ int mn_chunk(int p, int q8) {
+  const int line = (q8 >> 3) * WB_STEP + p;
+  return line * 128 + (((q8 & 7) ^ (p & 7)) << 4);
+}
+
+// grid (ceil(cx / BM) * ceil(cy / BN), kk, chunks), BM * 2 threads; x, y:
+// bfloat16. With more than one filled chunk the last block of a (tile,
+// offset) to finish adds the chunks' partials in chunk order (arrivals: kk
+// x tiles counters, zeroed)
+template <int BM, int BN>
+__global__ void __launch_bounds__(WbTile<BM, BN>::kThreads)
+wg_wgmma_bf16(const bf16_t* __restrict__ x, int cx,
+              const bf16_t* __restrict__ y, int cy, int64_t r,
+              const int2* __restrict__ pairs, const int* __restrict__ counts,
+              int chunks, float* __restrict__ out, float* __restrict__ ws,
+              int* __restrict__ arrivals) {
+  using T = WbTile<BM, BN>;
+  constexpr int kThreads = T::kThreads;
+  extern __shared__ unsigned char wb_smem[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(wb_smem) + 1023) & ~uintptr_t(1023));
+
+  const Chunk ch = block_chunk(counts, chunks, cx, cy, out, ws);
+  if (ch.dst == nullptr) return;
+  const int tid = threadIdx.x;
+  const int tiles_x = (cx + BM - 1) / BM;
+  const int cx0 = (blockIdx.x % tiles_x) * BM;
+  const int cy0 = (blockIdx.x / tiles_x) * BN;
+  const int2* pk = pairs + blockIdx.y * r;
+  const int steps = (ch.p1 - ch.p0 + WB_STEP - 1) / WB_STEP;
+
+  // step t's pair indices into index slot t % 2S, 8 B a copy (a pair a
+  // thread), zero-filled past the chunk; gathers test p < p1, not these
+  const int2* idx_s = reinterpret_cast<const int2*>(ring + WB_STAGES *
+                                                          T::kStage);
+  const uint32_t idx_a = smem_addr(idx_s);
+  auto load_idx = [&](int t) {
+    if (tid < WB_STEP && t < steps) {
+      const int p = ch.p0 + t * WB_STEP + tid;
+      cp_async8(idx_a + ((t % T::kIdxSlots) * WB_STEP + tid) * 8,
+                p < ch.p1 ? pk + p : pk, p < ch.p1 ? 8 : 0);
+    }
+  };
+  // step s's rows straight into their operand layout in slot s % S, 16 B
+  // a copy, zero-filled past the chunk's pairs and the channels
+  auto load_step = [&](int s) {
+    const uint32_t as = smem_addr(ring + (s % WB_STAGES) * T::kStage);
+    const uint32_t bs = as + BM * 128;
+    const int2* ix = idx_s + (s % T::kIdxSlots) * WB_STEP;
+    const int left = ch.p1 - (ch.p0 + s * WB_STEP);  // pairs in the step
+#pragma unroll
+    for (int i = 0; i < T::kA; ++i) {
+      const int e = tid + i * kThreads;
+      const int p = e / (BM / 8), q8 = e % (BM / 8), col = cx0 + q8 * 8;
+      const bool ok = p < left && col < cx;
+      const bf16_t* g =
+          ok ? x + static_cast<int64_t>(ix[p].x) * cx + col : x;
+      cp_async16(as + mn_chunk(p, q8), g, ok ? 16 : 0);
+    }
+#pragma unroll
+    for (int i = 0; i < T::kB; ++i) {
+      const int e = tid + i * kThreads;
+      const int p = e / (BN / 8), q8 = e % (BN / 8), col = cy0 + q8 * 8;
+      const bool ok = p < left && col < cy;
+      const bf16_t* g =
+          ok ? y + static_cast<int64_t>(ix[p].y) * cy + col : y;
+      cp_async16(bs + mn_chunk(p, q8), g, ok ? 16 : 0);
+    }
+  };
+
+  const int wg = tid >> 7;  // warpgroup: x channels wg * 64 ..
+  float acc[BN / 2], part[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = part[i] = 0.f;
+  // slot 0's descriptors (A: the warpgroup's 64 x channels; B: all BN y
+  // channels, 64 a line); slot s is s * kStage bytes further, and the
+  // k16 product kq 16 lines (2048 bytes) further
+  const uint64_t da = sw128_mn_desc(ring + wg * WB_STEP * 128,
+                                    WB_STEP * 128);
+  const uint64_t db = sw128_mn_desc(ring + BM * 128, WB_STEP * 128);
+  // the first S - 1 steps' indices, then their gathers, each group with
+  // the indices of the step S - 1 further
+#pragma unroll
+  for (int s = 0; s < WB_STAGES - 1; ++s) load_idx(s);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < WB_STAGES - 1; ++s) {
+    if (s < steps) load_step(s);
+    load_idx(s + WB_STAGES - 1);
+    cp_async_commit();
+  }
+  // step s: its rows landed (one barrier), step s + S - 1's gathers start
+  // into the slot step s - 1 read (their indices landed with step s), with
+  // the indices of step s + 2 S - 2; then step s's products are issued and
+  // waited for in the same iteration (no loop edge carries registers the
+  // tensor cores are still writing) and added into the running sum with a
+  // float32 add that rounds to nearest
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<WB_STAGES - 2>();
+    fence_proxy_async();  // the landed rows, visible to the tensor cores
+    __syncthreads();
+    const int nxt = step + WB_STAGES - 1;
+    if (nxt < steps) load_step(nxt);
+    load_idx(nxt + WB_STAGES - 1);
+    cp_async_commit();
+    const uint64_t so = (step % WB_STAGES) * (T::kStage >> 4);
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) fence_reg(part[i]);
+    wgmma_fence();
+#pragma unroll
+    for (int kq = 0; kq < 4; ++kq)
+      wgmma_bf16<BN, 1, 1>(part, da + so + 128 * kq, db + so + 128 * kq,
+                           kq > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) {
+      fence_reg(part[i]);
+      acc[i] += part[i];
+    }
+  }
+  cp_async_wait<0>();
+
+  // fragment: warp w of the warpgroup holds rows 16 w + g, + 8; register
+  // 4 i + q holds columns 8 i + 2 t + (q & 1) of row + 8 (q >> 1)
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = cx0 + wg * 64 + ((tid >> 5) & 3) * 16 + g;
+#pragma unroll
+  for (int i = 0; i < BN / 8; ++i) {
+    const int col = cy0 + i * 8 + 2 * t;
+    if (col >= cy) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + h * 8;
+      if (row < cx)
+        *reinterpret_cast<float2*>(ch.dst + static_cast<int64_t>(row) * cy +
+                                   col) =
+            make_float2(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
+    }
+  }
+  const int k = blockIdx.y, filled = chunks_filled(counts[k], chunks);
+  if (filled == 1 ||
+      !last_arrival(arrivals + static_cast<int64_t>(k) * gridDim.x +
+                        blockIdx.x, filled))
+    return;
+  // the last of the offset's chunks to finish: G[k]'s tile = the chunks'
+  // partials added in chunk order (wg_reduce's order)
+  const int64_t plane = static_cast<int64_t>(cx) * cy;
+  const int64_t at = k * plane + static_cast<int64_t>(cx0) * cy + cy0;
+  reduce_parts4(out + at, ws + at, filled, ~0u, gridDim.y * plane,
+                min(BM, cx - cx0), min(BN, cy - cy0), cy, nullptr);
+}
+
 // ---- 5. the narrow route -------------------------------------------------
 
 constexpr int WN_THREADS = 256;
@@ -705,7 +759,8 @@ __global__ void __launch_bounds__(WN_THREADS)
 wg_narrow(const E* __restrict__ x, int cx, const E* __restrict__ y,
           int cy, int64_t r, const int2* __restrict__ pairs,
           const int* __restrict__ counts, int chunks, bool y_narrow,
-          float* __restrict__ out, float* __restrict__ ws) {
+          float* __restrict__ out, float* __restrict__ ws,
+          int* __restrict__ arrivals) {
   __shared__ int s_wrow[WN_STEP];
   __shared__ float s_nv[WN_STEP][WN_NARROW];
   __shared__ float s_red[WN_GROUPS][WN_NARROW][WN_WIDE];
@@ -752,17 +807,44 @@ wg_narrow(const E* __restrict__ x, int cx, const E* __restrict__ y,
 #pragma unroll
   for (int q = 0; q < WN_NARROW; ++q) s_red[grp][q][c] = acc[q];
   __syncthreads();
-  if (grp != 0 || wc >= cw) return;
+  // the float32 route returns here in its blocks that write nothing;
+  // K3-bf16's take part in the folded chunk reduction below
+  if (grp != 0 || wc >= cw) {
+    if constexpr (sizeof(E) == 4) return;
+  } else {
 #pragma unroll
-  for (int q = 0; q < WN_NARROW; ++q) {
-    if (cn0 + q >= cn) break;
-    float s = s_red[0][q][c];
+    for (int q = 0; q < WN_NARROW; ++q) {
+      if (cn0 + q >= cn) break;
+      float s = s_red[0][q][c];
 #pragma unroll
-    for (int gr = 1; gr < WN_GROUPS; ++gr) s += s_red[gr][q][c];  // in order
-    const int64_t at = y_narrow
-                           ? static_cast<int64_t>(wc) * cy + cn0 + q
-                           : static_cast<int64_t>(cn0 + q) * cy + wc;
-    ch.dst[at] = s;
+      for (int gr = 1; gr < WN_GROUPS; ++gr) s += s_red[gr][q][c];  // in order
+      const int64_t at = y_narrow
+                             ? static_cast<int64_t>(wc) * cy + cn0 + q
+                             : static_cast<int64_t>(cn0 + q) * cy + wc;
+      ch.dst[at] = s;
+    }
+  }
+  if constexpr (sizeof(E) == 2) {
+    // K3-bf16: the chunk reduction folded in, as in wg_wgmma_bf16
+    const int k = blockIdx.y, filled = chunks_filled(counts[k], chunks);
+    if (filled == 1 ||
+        !last_arrival(arrivals + static_cast<int64_t>(k) * gridDim.x +
+                          blockIdx.x, filled))
+      return;
+    const int64_t plane = static_cast<int64_t>(cx) * cy;
+    const int nw = min(WN_WIDE, cw - cw0), nn = min(WN_NARROW, cn - cn0);
+    const int rows = y_narrow ? nw : nn, cols = y_narrow ? nn : nw;
+    const int64_t at = k * plane + (y_narrow ? static_cast<int64_t>(cw0) * cy
+                                             + cn0
+                                             : static_cast<int64_t>(cn0) * cy
+                                             + cw0);
+    for (int e = tid; e < rows * cols; e += WN_THREADS) {
+      const int64_t o = at + static_cast<int64_t>(e / cols) * cy + e % cols;
+      float s = __ldcg(ws + o);
+      for (int z = 1; z < filled; ++z)
+        s += __ldcg(ws + z * (gridDim.y * plane) + o);
+      out[o] = s;
+    }
   }
 }
 
@@ -802,27 +884,31 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, bool* done) {
 
 // the tensor-core launch for a bm x bn tile (with 3 slots of staged rows
 // the 64 x 64 block still fits twice on an SM)
-template <typename E, int BM, int BN>
-cudaError_t launch_wgmma(dim3 grid, cudaStream_t s, const E* x, int cx,
-                         const E* y, int cy, int64_t r, const int2* pairs,
+template <int BM, int BN>
+cudaError_t launch_wgmma(dim3 grid, cudaStream_t s, const float* x, int cx,
+                         const float* y, int cy, int64_t r, const int2* pairs,
                          const int* counts, int chunks, float* out,
                          float* ws) {
-  using T = WgTile<E, BM, BN, WG_STAGES>;
+  using T = WgTile<BM, BN, WG_STAGES>;
   static bool done[64] = {};
-  cudaError_t e = allow_smem(wg_wgmma<E, BM, BN, WG_STAGES>, T::kSmem, done);
+  cudaError_t e = allow_smem(wg_wgmma<BM, BN, WG_STAGES>, T::kSmem, done);
   if (e != cudaSuccess) return e;
-  wg_wgmma<E, BM, BN, WG_STAGES><<<grid, T::kThreads, T::kSmem, s>>>(
+  wg_wgmma<BM, BN, WG_STAGES><<<grid, T::kThreads, T::kSmem, s>>>(
       x, cx, y, cy, r, pairs, counts, chunks, out, ws);
   return cudaGetLastError();
 }
 
 int64_t status_offset(int kk) { return (kk + 2) & ~1; }  // ints
 
+int64_t pair_tiles(int64_t r) { return (r + WP_ROWS - 1) / WP_ROWS; }
+
+// the memset of meta (its counts, ticket and status words, and `extra`
+// words after them) and the pair pass
 int launch_pairs(const uint8_t* x_mask, int64_t r, const int32_t* idx,
                  int kk, const uint8_t* y_mask, int64_t ny, int32_t* pairs,
-                 int32_t* meta, cudaStream_t s) {
-  const int64_t ntiles = (r + WP_ROWS - 1) / WP_ROWS;
-  const int64_t words = status_offset(kk) + 2 * kk * ntiles;
+                 int32_t* meta, int64_t extra, cudaStream_t s) {
+  const int64_t ntiles = pair_tiles(r);
+  const int64_t words = status_offset(kk) + 2 * kk * ntiles + extra;
   cudaError_t e = cudaMemsetAsync(meta, 0, sizeof(int32_t) * words, s);
   if (e != cudaSuccess || ntiles == 0) return static_cast<int>(e);
   const int kg = kk < WP_KGROUP ? kk : WP_KGROUP;
@@ -839,7 +925,25 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-// The call for operands of type E (see es_sparse_wgrad)
+// K3-bf16's tensor-core launch for a bm x bn tile
+template <int BM, int BN>
+cudaError_t launch_wgmma_bf16(dim3 grid, cudaStream_t s, const bf16_t* x,
+                              int cx, const bf16_t* y, int cy, int64_t r,
+                              const int2* pairs, const int* counts,
+                              int chunks, float* out, float* ws,
+                              int* arrivals) {
+  using T = WbTile<BM, BN>;
+  static bool done[64] = {};
+  cudaError_t e = allow_smem(wg_wgmma_bf16<BM, BN>, T::kSmem, done);
+  if (e != cudaSuccess) return e;
+  wg_wgmma_bf16<BM, BN><<<grid, T::kThreads, T::kSmem, s>>>(
+      x, cx, y, cy, r, pairs, counts, chunks, out, ws, arrivals);
+  return cudaGetLastError();
+}
+
+// The call for operands of type E (see es_sparse_wgrad): float, or bf16_t
+// (K3-bf16: its own tensor-core kernel, and the chunk reduction folded
+// into the product's blocks)
 template <typename E>
 int sparse_wgrad(int narrow, const E* x, const uint8_t* x_mask, int64_t r,
                  int cx, const int32_t* idx, int kk, const E* y,
@@ -863,31 +967,51 @@ int sparse_wgrad(int narrow, const E* x, const uint8_t* x_mask, int64_t r,
                         ((cy + bn - 1) / bn);
   if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int e = launch_pairs(x_mask, r, idx, kk, y_mask, ny, pairs, meta, s);
+  constexpr bool kBf16 = sizeof(E) == 2;
+  // K3-bf16's arrival counters (kk x tiles) follow the status words
+  const int64_t arrivals = kBf16 && chunks > 1 ? kk * tiles : 0;
+  const int e = launch_pairs(x_mask, r, idx, kk, y_mask, ny, pairs, meta,
+                             arrivals, s);
   if (e != 0) return e;
   const int2* pr = reinterpret_cast<const int2*>(pairs);
   const int* counts = meta;
+  int* arr = meta + status_offset(kk) + 2 * kk * pair_tiles(r);
   float* dst_ws = chunks > 1 ? ws : nullptr;
   dim3 grid(static_cast<unsigned>(tiles), kk, chunks);
   cudaError_t err;
   if (narrow) {
     wg_narrow<E><<<grid, WN_THREADS, 0, s>>>(x, cx, y, cy, r, pr, counts,
-                                             chunks, y_narrow, out, dst_ws);
+                                             chunks, y_narrow, out, dst_ws,
+                                             arr);
     err = cudaGetLastError();
+  } else if constexpr (kBf16) {
+    if (bm == 128 && bn == 128)
+      err = launch_wgmma_bf16<128, 128>(grid, s, x, cx, y, cy, r, pr, counts,
+                                        chunks, out, dst_ws, arr);
+    else if (bm == 128)
+      err = launch_wgmma_bf16<128, 64>(grid, s, x, cx, y, cy, r, pr, counts,
+                                       chunks, out, dst_ws, arr);
+    else if (bn == 128)
+      err = launch_wgmma_bf16<64, 128>(grid, s, x, cx, y, cy, r, pr, counts,
+                                       chunks, out, dst_ws, arr);
+    else
+      err = launch_wgmma_bf16<64, 64>(grid, s, x, cx, y, cy, r, pr, counts,
+                                      chunks, out, dst_ws, arr);
   } else if (bm == 128 && bn == 128) {
-    err = launch_wgmma<E, 128, 128>(grid, s, x, cx, y, cy, r, pr, counts,
+    err = launch_wgmma<128, 128>(grid, s, x, cx, y, cy, r, pr, counts,
                                     chunks, out, dst_ws);
   } else if (bm == 128) {
-    err = launch_wgmma<E, 128, 64>(grid, s, x, cx, y, cy, r, pr, counts,
+    err = launch_wgmma<128, 64>(grid, s, x, cx, y, cy, r, pr, counts,
                                    chunks, out, dst_ws);
   } else if (bn == 128) {
-    err = launch_wgmma<E, 64, 128>(grid, s, x, cx, y, cy, r, pr, counts,
+    err = launch_wgmma<64, 128>(grid, s, x, cx, y, cy, r, pr, counts,
                                    chunks, out, dst_ws);
   } else {
-    err = launch_wgmma<E, 64, 64>(grid, s, x, cx, y, cy, r, pr, counts,
+    err = launch_wgmma<64, 64>(grid, s, x, cx, y, cy, r, pr, counts,
                                   chunks, out, dst_ws);
   }
-  if (err != cudaSuccess || chunks == 1) return static_cast<int>(err);
+  if (err != cudaSuccess || chunks == 1 || kBf16)
+    return static_cast<int>(err);
   const int64_t plane = static_cast<int64_t>(cx) * cy;
   const int threads = 256;
   wg_reduce<<<dim3(static_cast<unsigned>((plane + threads - 1) / threads), kk),
@@ -922,7 +1046,9 @@ extern "C" int es_sparse_wgrad(int narrow, const float* x,
 
 // K3-bf16: the same call with x (r, cx) and y (ny, cy) as bfloat16 bits;
 // accumulation, the chunk partials and out stay float32. The tensor-core
-// route takes cx and cy multiples of 8.
+// route takes cx and cy multiples of 8. With chunks > 1, meta holds kk x
+// tiles more words (the arrival counters of the folded reduction, tiles =
+// ceil(cx / bm) x ceil(cy / bn)); no reduction kernel runs.
 extern "C" int es_sparse_wgrad_bf16(int narrow, const bf16_t* x,
                                     const uint8_t* x_mask, int64_t r, int cx,
                                     const int32_t* idx, int kk,

@@ -32,17 +32,19 @@ _I = ctypes.c_int
 _L = ctypes.c_int64
 _CONV_SIMT = [_P, _P, _L, _I, _P, _L, _I, _P, _I, _P, _P, _P]
 _CONV_TC = [_P, _P, _L, _I, _P, _L, _I, _P, _I, _P, _P, _I, _I, _I, _P, _P]
+_CONV_WGMMA = [_P, _P, _L, _I, _P, _L, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I,
+               _P, _P, _P]
 _WGRAD = [_I, _P, _P, _L, _I, _P, _I, _P, _P, _L, _I, _I, _I, _I, _P, _P, _P,
           _P, _P]
 # C entry points: name -> argtypes (every one returns a cudaError_t as int);
-# the _bf16 ones are the bfloat16 variants of K2 and K3, same arguments
+# the _bf16 ones are the bfloat16 variants of K2 and K3
 _SIGNATURES = {
     'es_join_scan_tile': [],
     'es_join_scan': [_P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     'es_sparse_conv_simt': _CONV_SIMT,
     'es_sparse_conv_tc': _CONV_TC,
     'es_sparse_conv_simt_bf16': _CONV_SIMT,
-    'es_sparse_conv_tc_bf16': _CONV_TC,
+    'es_sparse_conv_wgmma_bf16': _CONV_WGMMA,
     'es_sparse_wgrad': _WGRAD,
     'es_sparse_wgrad_bf16': _WGRAD,
 }

@@ -330,13 +330,12 @@ class ConvPlan(NamedTuple):
 def conv_plan(m: int, k: int, cin: int, cout: int, bf16: bool = False
               ) -> ConvPlan:
     """The route, tile and split for an (M, K, Cin, Cout) call (of
-    K2-bf16 with ``bf16``).
+    K2-bf16 with ``bf16``: :func:`_bf16_conv_plan`).
 
     Chosen by shape only, never by a failed launch. The tensor-core route
-    stages rows as 16-byte chunks (4 float32 or 8 bfloat16 channels), so
-    it takes Cin >= 8 with Cin and Cout multiples of the chunk's channels
-    and K <= 27; other shapes (the stem's Cin = 3) take the SIMT route.
-    K2-bf16 takes the float32 kernel's tiles and splits.
+    stages rows as 16-byte chunks of 4 float32 channels, so it takes Cin
+    >= 8 with Cin and Cout multiples of 4 and K <= 27; other shapes (the
+    stem's Cin = 3) take the SIMT route.
 
     With at least two waves of 64 x 64 tiles the call is not split; its
     tiles are 64 x 128 (each gathered row feeds twice the columns) when
@@ -351,8 +350,9 @@ def conv_plan(m: int, k: int, cin: int, cout: int, bf16: bool = False
     9 x 264 x 64 x 64 floats (37 MiB). The thresholds are the ones the
     main path's calls favoured on an H100 (``kernel_ab.py --plans``).
     """
-    vec = 8 if bf16 else 4
-    if cin < 8 or cin % vec or cout % vec or k > TC_MAX_OFFSETS:
+    if bf16:
+        return _bf16_conv_plan(m, k, cin, cout)
+    if cin < 8 or cin % 4 or cout % 4 or k > TC_MAX_OFFSETS:
         return ConvPlan('simt', 64, 64, 1, k)
     tiles_m = -(-m // TC_BM)
     if tiles_m * -(-cout // 64) >= SPLIT_BELOW_TILES:
@@ -362,6 +362,77 @@ def conv_plan(m: int, k: int, cin: int, cout: int, bf16: bool = False
     bn = 128 if cout >= 128 and tiles_m >= WIDE_MIN_ROW_TILES else 64
     per = min(k, OFFSETS_PER_SPLIT)
     return ConvPlan('tc', TC_BM, bn, -(-k // per), per)
+
+
+# K2-bf16's tensor-core tiles (rows x columns) and the blocks of each that
+# an SM keeps resident (shared memory: 4 ring slots of (rows + columns) x
+# 128 bytes and the rows' table, csrc/sparse_conv.cu:KbTile)
+BF16_TILES = {(256, 128): 1, (128, 256): 1, (128, 128): 1, (64, 128): 2,
+              (64, 64): 3}
+BF16_UNSPLIT_WAVES = 0.75        # waves of blocks an unsplit tile needs
+BF16_SPLIT_WAVES = 3             # waves a split call fills
+BF16_MAX_SPLITS = 9              # offset groups of a split call, at most
+BF16_LONG_REDUCTION = 2**17      # Cin x Cout from which a full card splits
+BF16_LONG_SPLITS = 3             # into this many offset groups
+BF16_MAX_WS_BYTES = 2**27        # the split partials' workspace, at most
+
+
+def _bf16_conv_plan(m: int, k: int, cin: int, cout: int) -> ConvPlan:
+    """K2-bf16's route, tile and split for an (M, K, Cin, Cout) call.
+
+    Its tensor-core route (``wgmma``) lands rows and weights as 16-byte
+    chunks of 8 bfloat16 channels: it takes Cin and Cout multiples of 8
+    (Cin >= 8) and K <= 27; a step is 64 channels, the tail past Cin
+    zero-filled. Other shapes (the stem's Cin = 3) take the SIMT route.
+
+    - A long reduction (Cin x Cout >= ``BF16_LONG_REDUCTION``, Cout > 64)
+      whose 256 x 128 tiles fill ``BF16_UNSPLIT_WAVES`` waves of the card
+      is split into ``BF16_LONG_SPLITS`` offset groups on those tiles: on
+      the sparse levels the valid rows gather in few tiles, and a split
+      spreads each busy tile over more blocks (a block with no offset to
+      compute writes no partial).
+    - Else the first tile that fills ``BF16_UNSPLIT_WAVES`` waves of
+      resident blocks, in the order 128 x 256 (Cout >= 256: each gathered
+      row feeds every column) or 256 x 128 (Cout 72-128: each slice of W
+      feeds 256 rows), then 128 x 128, 64 x 128, 64 x 64 (Cout <= 64:
+      only this one).
+    - Below that, 64 x 64 tiles with the K offsets split into as few
+      groups (at most ``BF16_MAX_SPLITS``) as fill ``BF16_SPLIT_WAVES``
+      waves.
+
+    Splits are fewer where the partials' workspace would pass
+    ``BF16_MAX_WS_BYTES``; the last block of each output tile adds the
+    groups' partials in order. The thresholds are the ones the main
+    path's and the continuous paths' calls favoured on an H100
+    (``kernel_ab.py --bf16 --plans --cont``).
+    """
+    if cin < 8 or cin % 8 or cout % 8 or k > TC_MAX_OFFSETS:
+        return ConvPlan('simt', 64, 64, 1, k)
+
+    def waves(tile, splits=1):
+        blocks = -(-m // tile[0]) * -(-cout // tile[1]) * splits
+        return blocks / (NUM_SMS * BF16_TILES[tile])
+
+    def split(tile, groups):
+        per = -(-k // groups)
+        return ConvPlan('tc', *tile, -(-k // per), per)
+
+    groups = min(k, BF16_MAX_SPLITS,
+                 max(1, BF16_MAX_WS_BYTES // max(1, 4 * m * cout)))
+    if cin * cout >= BF16_LONG_REDUCTION and cout > 64 and groups > 1 and \
+            waves((256, 128)) >= BF16_UNSPLIT_WAVES:
+        return split((256, 128), min(groups, BF16_LONG_SPLITS))
+    if cout >= 256:
+        order = ((128, 256), (128, 128), (64, 128), (64, 64))
+    elif cout > 64:
+        order = ((256, 128), (128, 128), (64, 128), (64, 64))
+    else:
+        order = ((64, 64), )
+    for tile in order:
+        if waves(tile) >= BF16_UNSPLIT_WAVES:
+            return ConvPlan('tc', *tile, 1, k)
+    return split((64, 64), next((s for s in range(1, groups + 1) if waves(
+        (64, 64), s) >= BF16_SPLIT_WAVES), groups))
 
 
 def _aligned16(t: torch.Tensor) -> bool:
@@ -381,8 +452,8 @@ def cuda_plan(feats, nbr, weights) -> ConvPlan:
 
 
 def _launch_k2(feats, mask, nbr, weights, bias, plan, suffix=''):
-    """K2 by ``plan`` over float32 feats and weights, or K2-bf16 (the
-    ``_bf16`` entry points, ``suffix``) over bfloat16 ones."""
+    """K2 by ``plan`` over float32 feats and weights, or K2-bf16's SIMT
+    route (the ``_bf16`` entry point, ``suffix``) over bfloat16 ones."""
     n, cin = feats.shape
     m, k = nbr.shape
     cout = weights.shape[-1]
@@ -413,21 +484,151 @@ def _gather_matmul_conv_cuda(feats, mask, nbr, weights, bias, plan=None):
                       plan or cuda_plan(feats, nbr, weights))
 
 
+# bumped by drop_bf16_weights(): a copy kept at an older value is stale
+_BF16_EPOCH = [0]
+
+
+def drop_bf16_weights() -> None:
+    """Makes every copy that :func:`bf16_weights` kept stale: the next call
+    for any tensor casts anew. For writes that bump no version counter:
+    through ``.data`` (an alias with a counter of its own), or into the
+    tensor's memory by a collective or an extension. The port calls it
+    after each of its own such writes (``parallel.mesh.replicate``, the
+    checkpoint and weight loaders); code that writes weights through
+    ``.data`` calls it too."""
+    _BF16_EPOCH[0] += 1
+
+
+def bf16_weights(weights: torch.Tensor) -> torch.Tensor:
+    """``weights`` in bfloat16, cast at most once per version of
+    ``weights``: the copy is kept on the tensor with the version counter,
+    address, shape, strides and :func:`drop_bf16_weights` count it was
+    made from, and made anew when any of them changed. Every in-place
+    update through the tensor or a view of it (the optimizer's, ``copy_``,
+    ``load_state_dict``) bumps ``weights._version``; a write that does
+    not (through ``.data``, a collective) is followed by
+    :func:`drop_bf16_weights`. A tensor that keeps no version counter
+    (made under ``torch.inference_mode``) is cast on every call. A served
+    model then casts its weights once, and a train step once per conv,
+    its forward and input gradient sharing the copy."""
+    if weights.dtype == torch.bfloat16:
+        return weights.contiguous()
+    if torch.is_inference(weights):
+        return weights.to(torch.bfloat16).contiguous()
+    key = (weights._version, _BF16_EPOCH[0], weights.data_ptr(),
+           weights.device, tuple(weights.shape), weights.stride())
+    kept = getattr(weights, '_bf16_copy', None)
+    if kept is not None and kept[0] == key:
+        return kept[1]
+    copy = weights.detach().to(torch.bfloat16).contiguous()
+    weights._bf16_copy = (key, copy)
+    return copy
+
+
+def _as_bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in bfloat16: a bfloat16 ``t`` as it is (the backward's copies),
+    else its cast (a new, aligned tensor)."""
+    return t if t.dtype == torch.bfloat16 else t.to(torch.bfloat16)
+
+
+# K2-bf16's words of split calls, by (device, stream), two an output tile
+# (its arrivals, and the splits that wrote a partial): zeroed once, and
+# left at zero by every call (the last block of each tile resets them)
+_ARRIVALS = {}
+
+
+def _arrivals(device, stream: int, n: int) -> torch.Tensor:
+    key = (device, stream)
+    buf = _ARRIVALS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _ARRIVALS[key] = buf
+    return buf
+
+
+# K2-bf16's modes (csrc/sparse_conv.cu:KbMode): the forward, and the input
+# gradient from the forward's own weights over a submanifold conv's table
+# (W[K-1-k]^T) or a strided conv's transpose table (W[k]^T)
+KB_FORWARD, KB_MIRROR, KB_TRANSPOSE = 0, 1, 2
+
+
+def _launch_k2_bf16(feats16, mask, nbr, w16, bias, plan, mode):
+    """K2-bf16's tensor-core route (``wgmma``) by ``plan`` over bfloat16
+    feats and weights (``mode``: KB_FORWARD with w16 (K, Cin, Cout), else
+    the input gradient with the forward's w16 (K, Cout, Cin), read
+    transposed); one CUDA launch, the split reduction folded in."""
+    n, cin = feats16.shape
+    m, k = nbr.shape
+    cout = w16.shape[2] if mode == KB_FORWARD else w16.shape[1]
+    dev = feats16.device
+    out = torch.empty((m, cout), dtype=torch.float32, device=dev)
+    stream = kernels.stream_handle(dev)
+    ws = arrivals = None
+    if plan.splits > 1:
+        ws = torch.empty((plan.splits, m, cout), dtype=torch.float32,
+                         device=dev)
+        arrivals = _arrivals(dev, stream, 2 * -(-m // plan.bm) *
+                             -(-cout // plan.bn))
+    err = kernels.library().es_sparse_conv_wgmma_bf16(
+        feats16.data_ptr(), mask.data_ptr(), n, cin, nbr.data_ptr(), m, k,
+        w16.data_ptr(), cout, mode,
+        None if bias is None else bias.data_ptr(), out.data_ptr(), plan.bm,
+        plan.bn, plan.per_split, plan.splits,
+        None if ws is None else ws.data_ptr(),
+        None if arrivals is None else arrivals.data_ptr(), stream)
+    kernels.check(err, 'es_sparse_conv_wgmma_bf16')
+    return out
+
+
 def bf16_plan(nbr, feats, weights) -> ConvPlan:
-    """K2-bf16's plan for these float32 inputs: :func:`conv_plan` with
-    16-byte chunks of 8 bfloat16 channels (the cast copies are aligned)."""
+    """K2-bf16's plan for these inputs (``conv_plan(..., bf16=True)``; the cast
+    copies are aligned)."""
     (m, k), cin, cout = nbr.shape, feats.shape[1], weights.shape[-1]
     return conv_plan(m, k, cin, cout, bf16=True)
 
 
 def _gather_matmul_conv_bf16_cuda(feats, mask, nbr, weights, bias,
                                   plan=None):
-    """K2-bf16 over float32 inputs: feats and weights cast to bfloat16 once
-    (a masked row is read as zero by the kernel, whatever its bits), then
-    the kernel by ``plan``."""
-    return _launch_k2(feats.to(torch.bfloat16), mask, nbr,
-                      weights.to(torch.bfloat16), bias,
-                      plan or bf16_plan(nbr, feats, weights), '_bf16')
+    """K2-bf16: feats cast to bfloat16 (a masked row is read as zero by the
+    kernel, whatever its bits), the weights' cached bfloat16 copy
+    (:func:`bf16_weights`), then the kernel by ``plan``."""
+    plan = plan or bf16_plan(nbr, feats, weights)
+    feats16, w16 = _as_bf16(feats), bf16_weights(weights)
+    if plan.route == 'simt':
+        return _launch_k2(feats16, mask, nbr, w16, bias, plan, '_bf16')
+    return _launch_k2_bf16(feats16, mask, nbr, w16, bias, plan, KB_FORWARD)
+
+
+def _dgrad_weights_t(weights, mirror):
+    """The input gradient's (K, Cout, Cin) weights from the forward's:
+    W[K-1-k]^T (``mirror``) or W[k]^T."""
+    return (weights.flip(0) if mirror else weights).transpose(1, 2) \
+        .contiguous()
+
+
+def _conv_dgrad_bf16_plain(dout, out_mask, table, weights, mirror):
+    """The plain version of K2-bf16's input gradient from the forward's
+    own weights: :func:`_gather_matmul_conv_bf16_plain` over
+    :func:`_dgrad_weights_t` (the same bits for a float32 ``dout`` and for
+    its bfloat16 copy)."""
+    return _gather_matmul_conv_bf16_plain(
+        dout, out_mask, table, _dgrad_weights_t(weights, mirror))
+
+
+def _conv_dgrad_bf16_cuda(dout, out_mask, table, weights, mirror,
+                          plan=None):
+    """K2-bf16's input gradient on the card: dout in bfloat16 (cast if it
+    is float32), the forward's cached bfloat16 weights read transposed by
+    the kernel (no transposed copy); a plan on the SIMT route (dout with
+    fewer than 8 channels) takes the transposed copy."""
+    k, cin, cout = weights.shape
+    plan = plan or conv_plan(table.shape[0], k, cout, cin, bf16=True)
+    dout16, w16 = _as_bf16(dout), bf16_weights(weights)
+    if plan.route == 'simt':
+        return _launch_k2(dout16, out_mask, table,
+                          _dgrad_weights_t(w16, mirror), None, plan, '_bf16')
+    return _launch_k2_bf16(dout16, out_mask, table, w16, None, plan,
+                           KB_MIRROR if mirror else KB_TRANSPOSE)
 
 
 def _check_device(name, tensors):
@@ -444,40 +645,60 @@ def _check_device(name, tensors):
     return dev
 
 
-def _k2(feats, mask, nbr, weights, bias, launches, name, bf16):
+def _k2(feats, mask, nbr, weights, bias, launches, name, bf16, mirror=None):
     """Checks K2's inputs, then launches it (K2-bf16 with ``bf16``) on a
     CUDA tensor, counting the launch by route in ``launches`` (``<route>``
-    or ``<route>_bf16``), or runs its plain version on a CPU tensor."""
+    or ``<route>_bf16``), or runs its plain version on a CPU tensor.
+    ``mirror`` (the input gradient from the forward's own weights, (K,
+    Cout, Cin)): None for weights (K, Cin, Cout) as given; else read as
+    W[K-1-k]^T (True) or W[k]^T (False)."""
+    cin_at = 1 if mirror is None else 2
     if feats.dim() != 2 or mask.shape != feats.shape[:1] or nbr.dim() != 2 \
-            or weights.dim() != 3 or weights.shape[:2] != (nbr.shape[1],
-                                                           feats.shape[1]):
+            or weights.dim() != 3 or weights.shape[0] != nbr.shape[1] or \
+            weights.shape[cin_at] != feats.shape[1]:
         raise ValueError(
             f'{name}: shapes feats (N, Cin), mask (N,), nbr (M, K), '
-            f'weights (K, Cin, Cout); got {tuple(feats.shape)}, '
-            f'{tuple(mask.shape)}, {tuple(nbr.shape)}, {tuple(weights.shape)}')
-    if bias is not None and bias.shape != weights.shape[2:]:
+            f'weights (K, Cin, Cout) (the forward\'s (K, Cout, Cin) with '
+            f'mirror); got {tuple(feats.shape)}, {tuple(mask.shape)}, '
+            f'{tuple(nbr.shape)}, {tuple(weights.shape)}')
+    if bias is not None and (mirror is not None or
+                             bias.shape != weights.shape[2:]):
         raise ValueError(f'{name}: bias {tuple(bias.shape)}')
-    if feats.dtype != torch.float32 or weights.dtype != torch.float32 or \
+    feats_types = (torch.float32, torch.bfloat16) if bf16 else \
+        (torch.float32, )
+    if feats.dtype not in feats_types or weights.dtype != torch.float32 or \
             mask.dtype != torch.bool or nbr.dtype != torch.int32 or \
             (bias is not None and bias.dtype != torch.float32):
-        raise TypeError(f'{name} takes float32 feats/weights/bias, bool mask '
-                        'and int32 nbr')
+        raise TypeError(f'{name} takes float32 feats (or bfloat16 ones on '
+                        'the bf16 route), float32 weights and bias, bool '
+                        'mask and int32 nbr')
     tensors = [feats, mask, nbr, weights] + ([] if bias is None else [bias])
-    if _check_device(name, tensors).type == 'cuda':
-        if bf16:
+    cuda = _check_device(name, tensors).type == 'cuda'
+    if bf16:
+        if not cuda:
+            if mirror is None:
+                return _gather_matmul_conv_bf16_plain(feats, mask, nbr,
+                                                      weights, bias)
+            return _conv_dgrad_bf16_plain(feats, mask, nbr, weights, mirror)
+        if mirror is None:
             plan = bf16_plan(nbr, feats, weights)
             out = _gather_matmul_conv_bf16_cuda(feats, mask, nbr, weights,
                                                 bias, plan)
-            launches[plan.route + '_bf16'] += 1
         else:
-            plan = cuda_plan(feats, nbr, weights)
-            out = _gather_matmul_conv_cuda(feats, mask, nbr, weights, bias,
-                                           plan)
-            launches[plan.route] += 1
+            plan = conv_plan(nbr.shape[0], nbr.shape[1], feats.shape[1],
+                             weights.shape[1], bf16=True)
+            out = _conv_dgrad_bf16_cuda(feats, mask, nbr, weights, mirror,
+                                        plan)
+        launches[plan.route + '_bf16'] += 1
         return out
-    if bf16:
-        return _gather_matmul_conv_bf16_plain(feats, mask, nbr, weights, bias)
-    return _gather_matmul_conv_plain(feats, mask, nbr, weights, bias)
+    if mirror is not None:
+        weights = _dgrad_weights_t(weights, mirror)
+    if not cuda:
+        return _gather_matmul_conv_plain(feats, mask, nbr, weights, bias)
+    plan = cuda_plan(feats, nbr, weights)
+    out = _gather_matmul_conv_cuda(feats, mask, nbr, weights, bias, plan)
+    launches[plan.route] += 1
+    return out
 
 
 def gather_matmul_conv(feats: torch.Tensor, mask: torch.Tensor,
@@ -508,8 +729,10 @@ def gather_matmul_conv(feats: torch.Tensor, mask: torch.Tensor,
 
     Under ``set_conv_compute_dtype(torch.bfloat16)`` the call takes the
     bf16 contract: feats and weights rounded to bfloat16, products and sums
-    in float32 (K2-bf16 on the card: one bfloat16 tensor-core product where
-    3xTF32 takes three; :func:`_gather_matmul_conv_bf16_plain` on the CPU).
+    in float32 (K2-bf16 on the card: ``wgmma`` over the gathered rows as
+    they land, the weights' bfloat16 copy made once per version,
+    :func:`bf16_weights`; :func:`_gather_matmul_conv_bf16_plain` on the
+    CPU).
     """
     return _k2(feats, mask, nbr, weights, bias, gather_matmul_conv.launches,
                'gather_matmul_conv', _bf16_route())
@@ -517,7 +740,8 @@ def gather_matmul_conv(feats: torch.Tensor, mask: torch.Tensor,
 
 def conv_dgrad(dout: torch.Tensor, out_mask: torch.Tensor,
                table: torch.Tensor, weights_t: torch.Tensor,
-               bf16: bool = False) -> torch.Tensor:
+               bf16: bool = False, *, mirror: bool | None = None
+               ) -> torch.Tensor:
     """A sparse conv's input gradient through K2's contract:
     ``sum_k dout[table[:, k]] @ weights_t[k]``, the rows of ``dout`` whose
     ``out_mask`` is false read as zero. ``table`` is the mirrored table of a
@@ -526,9 +750,15 @@ def conv_dgrad(dout: torch.Tensor, out_mask: torch.Tensor,
     and plain version as :func:`gather_matmul_conv`; launches are counted
     apart in ``conv_dgrad.launches``. ``bf16``: the bf16 contract
     (K2-bf16), whatever the compute dtype; the autograd routes pass their
-    forward's."""
+    forward's, and ``dout`` may then be bfloat16 already.
+
+    ``mirror``: ``weights_t`` is the forward's own W (K, Cin, Cout), read
+    as ``W.flip(0)^T`` (True, a submanifold table) or ``W^T`` (False, a
+    transpose table). K2-bf16 then reads W's cached bfloat16 copy
+    transposed in the kernel; the float32 route builds the transposed copy
+    and runs as above."""
     return _k2(dout, out_mask, table, weights_t, None, conv_dgrad.launches,
-               'conv_dgrad', bf16)
+               'conv_dgrad', bf16, mirror)
 
 
 # kernel launches by route (CUDA path only); '_bf16': the bfloat16 variants
@@ -548,6 +778,8 @@ SMEM_PER_SM = 233472         # bytes of shared memory an SM gives its blocks
 SMEM_PER_BLOCK = 1024        # of which each resident block costs the runtime
 WN_WIDE, WN_NARROW = 64, 4   # the narrow route's tile of G
 WN_BLOCKS_PER_SM = 8         # narrow blocks (256 threads) resident on an SM
+WB_STEP = 64                 # pairs per step of a K3-bf16 tensor-core block
+WB_STAGES = 4                # its ring slots of landed rows
 
 
 class WgradPlan(NamedTuple):
@@ -572,10 +804,11 @@ def wgrad_smem(bm: int, bn: int, bf16: bool = False) -> int:
     """Dynamic shared memory of a tensor-core block with a bm x bn tile of
     G: 1 KB of alignment slack, two buffers of the TF32 hi and lo parts of
     both operands (32 pairs each) and three slots of staged fp32 rows; for
-    K3-bf16 two buffers of one bfloat16 part (64 pairs) and three slots of
-    staged bfloat16 rows (the same bytes a step moves)."""
+    K3-bf16 only its ring of ``WB_STAGES`` slots of landed bfloat16 rows
+    (64 pairs each), which the tensor cores read as they are, and twice as
+    many slots of the steps' pair indices."""
     if bf16:
-        return 1024 + 2 * (2 + WG_STAGES) * (bm + bn) * 2 * WG_STEP
+        return 1024 + WB_STAGES * ((bm + bn) * 2 + 2 * 8) * WB_STEP
     return 1024 + 4 * (2 * 2 + WG_STAGES) * (bm + bn) * WG_STEP
 
 
@@ -591,9 +824,9 @@ def wgrad_plan(r: int, k: int, cx: int, cy: int,
     Other shapes (the stem's Cy = 3) take the narrow route, whose tile is
     64 channels of the wider side by 4 of the narrower.
 
-    K3-bf16 (``bf16``) stages 16-byte chunks of 8 bfloat16 channels: its
-    tensor-core route takes Cx, Cy >= 8 and multiples of 8, with the same
-    tiles and chunks (its blocks take 64 pairs a step).
+    K3-bf16 (``bf16``) lands 16-byte chunks of 8 bfloat16 channels: its
+    tensor-core route takes Cx, Cy >= 8 and multiples of 8; its tiles and
+    chunks are its own (:func:`_bf16_wgrad_plan`).
 
     The pairs of each offset are cut into ``chunks`` only when the tiles
     of G (x K) fill fewer than two waves of the blocks the card keeps
@@ -607,11 +840,39 @@ def wgrad_plan(r: int, k: int, cx: int, cy: int,
     vec = 8 if bf16 else 4
     if min(cx, cy) < 8 or cx % vec or cy % vec:
         return _narrow_plan(r, k, cx, cy)
+    if bf16:
+        return _bf16_wgrad_plan(r, k, cx, cy)
     bm, bn = (128 if cx >= 128 else 64), (128 if cy >= 128 else 64)
     per_sm = max(1, SMEM_PER_SM // (wgrad_smem(bm, bn, bf16) +
                                     SMEM_PER_BLOCK))
     return WgradPlan('tc', bm, bn, _wgrad_chunks(r, k, cx, cy, bm, bn,
                                                  NUM_SMS * per_sm))
+
+
+# K3-bf16's plan: a side of the tile of G is 128 from this many channels
+BF16_WG_WIDE = 256
+BF16_WG_SPLIT_BELOW = 0.5   # chunks only below this many waves of tiles
+BF16_WG_WAVES = 1           # and then as many as fill this many waves
+
+
+def _bf16_wgrad_plan(r, k, cx, cy) -> WgradPlan:
+    """K3-bf16's tile and chunks: the tile's side is 128 where that side
+    has at least ``BF16_WG_WIDE`` channels, else 64 (more blocks, and up
+    to 3 of them resident on an SM); the pairs are cut into chunks only
+    when the tiles (x K) fill less than ``BF16_WG_SPLIT_BELOW`` of a wave
+    of resident blocks, and then into as many as fill ``BF16_WG_WAVES``
+    waves (within the bounds of :func:`_wgrad_chunks`)."""
+    bm = 128 if cx >= BF16_WG_WIDE else 64
+    bn = 128 if cy >= BF16_WG_WIDE else 64
+    slots = NUM_SMS * max(1, SMEM_PER_SM // (wgrad_smem(bm, bn, True) +
+                                             SMEM_PER_BLOCK))
+    tiles = k * -(-cx // bm) * -(-cy // bn)
+    if tiles >= BF16_WG_SPLIT_BELOW * slots:
+        return WgradPlan('tc', bm, bn, 1)
+    chunks = -(-BF16_WG_WAVES * slots // tiles)
+    return WgradPlan('tc', bm, bn, max(1, min(
+        chunks, -(-r // WG_MIN_CHUNK), WG_MAX_WS_BYTES // (4 * k * cx * cy),
+        65535)))
 
 
 def _narrow_plan(r, k, cx, cy) -> WgradPlan:
@@ -692,10 +953,12 @@ def _wgrad_pairs_plain(x_mask, idx, y_mask):
     return pairs, counts
 
 
-def _wgrad_meta_words(r: int, k: int) -> int:
-    """int32 words of K3's per-call scratch: the counts, a ticket, and one
-    64-bit status word per offset and 256-row block of the pair pass."""
-    return ((k + 2) & ~1) + 2 * k * -(-r // 256)
+def _wgrad_meta_words(r: int, k: int, arrivals: int = 0) -> int:
+    """int32 words of K3's per-call scratch: the counts, a ticket, one
+    64-bit status word per offset and 256-row block of the pair pass, and
+    ``arrivals`` counters (K3-bf16's folded chunk reduction: K x tiles of
+    G with more than one chunk)."""
+    return ((k + 2) & ~1) + 2 * k * -(-r // 256) + arrivals
 
 
 def _wgrad_cuda(x, x_mask, idx, y, y_mask, plan, lists=False):
@@ -707,13 +970,20 @@ def _wgrad_cuda(x, x_mask, idx, y, y_mask, plan, lists=False):
     ny, cy = y.shape
     dev = x.device
     out = torch.empty((k, cx, cy), dtype=torch.float32, device=dev)
-    # one 4-byte buffer: the pair lists, the counts and scratch, then the
-    # chunk partials (with more than one chunk)
-    n_pairs, n_meta = 2 * k * r, _wgrad_meta_words(r, k)
+    bf16 = x.dtype == torch.bfloat16
+    # one 4-byte buffer: the pair lists, the counts and scratch (and
+    # K3-bf16's arrival counters), then the chunk partials (with more than
+    # one chunk)
+    tiles = -(-cx // plan.bm) * -(-cy // plan.bn)
+    n_pairs = 2 * k * r
+    n_meta = _wgrad_meta_words(r, k, k * tiles if bf16 and plan.chunks > 1
+                               else 0)
+    if bf16:  # its last blocks read the partials 16 bytes at a time
+        n_meta += -(n_pairs + n_meta) % 4
     n_ws = plan.chunks * k * cx * cy if plan.chunks > 1 else 0
     buf = torch.empty(n_pairs + n_meta + n_ws, dtype=torch.int32, device=dev)
     base = buf.data_ptr()
-    name = 'es_sparse_wgrad' + ('_bf16' if x.dtype == torch.bfloat16 else '')
+    name = 'es_sparse_wgrad' + ('_bf16' if bf16 else '')
     if out.numel():
         err = getattr(kernels.library(), name)(
             int(plan.route == 'narrow'), x.data_ptr(), x_mask.data_ptr(), r,
@@ -736,16 +1006,16 @@ def _conv_wgrad_cuda(x, x_mask, idx, y, y_mask, plan=None):
 
 
 def bf16_wgrad_plan(x, idx, y) -> WgradPlan:
-    """K3-bf16's plan for these float32 inputs (the cast copies are
-    aligned)."""
+    """K3-bf16's plan for these inputs (the bfloat16 operands are
+    aligned: :func:`_as_bf16`)."""
     return wgrad_plan(*idx.shape, x.shape[1], y.shape[1], bf16=True)
 
 
 def _conv_wgrad_bf16_cuda(x, x_mask, idx, y, y_mask, plan=None, lists=False):
-    """K3-bf16 over float32 inputs: x and y cast to bfloat16 once each,
-    then the kernel by ``plan`` (see :func:`_wgrad_cuda` for ``lists``)."""
-    return _wgrad_cuda(x.to(torch.bfloat16), x_mask, idx,
-                       y.to(torch.bfloat16), y_mask,
+    """K3-bf16: x and y in bfloat16 (each cast where it is float32; the
+    autograd routes pass the copies their backward made once), then the
+    kernel by ``plan`` (see :func:`_wgrad_cuda` for ``lists``)."""
+    return _wgrad_cuda(_as_bf16(x), x_mask, idx, _as_bf16(y), y_mask,
                        plan or bf16_wgrad_plan(x, idx, y), lists)
 
 
@@ -755,11 +1025,13 @@ def conv_wgrad(x: torch.Tensor, x_mask: torch.Tensor, idx: torch.Tensor,
     """Kernel K3: ``G[k] = sum_r x[r]^T @ y[idx[r, k]]``, (K, Cx, Cy).
 
     Args:
-        x: (R, Cx) float32; rows with ``x_mask`` false read as zero.
+        x: (R, Cx) float32 (or bfloat16 with ``bf16``); rows with
+            ``x_mask`` false read as zero.
         x_mask: (R,) bool.
         idx: (R, K) int32 rows of y (-1, or any row outside [0, Ny), =
             absent).
-        y: (Ny, Cy) float32; rows with ``y_mask`` false read as zero.
+        y: (Ny, Cy) float32 (or bfloat16 with ``bf16``); rows with
+            ``y_mask`` false read as zero.
         y_mask: (Ny,) bool.
 
     Returns:
@@ -777,10 +1049,11 @@ def conv_wgrad(x: torch.Tensor, x_mask: torch.Tensor, idx: torch.Tensor,
     tensor it runs :func:`_conv_wgrad_plain`.
 
     ``bf16``: K3-bf16, the bf16 contract of the reference's custom-VJP
-    backwards: x and y rounded to bfloat16, G summed in float32 (one
-    bfloat16 ``wgmma`` where 3xTF32 takes three;
-    :func:`_conv_wgrad_bf16_plain` on the CPU). Launches count as
-    ``<route>_bf16``.
+    backwards: x and y rounded to bfloat16, G summed in float32 (``wgmma``
+    over the landed rows, no transpose pass, the chunks added by the
+    product's own blocks; :func:`_conv_wgrad_bf16_plain` on the CPU, the
+    same bits for float32 operands and for their bfloat16 copies).
+    Launches count as ``<route>_bf16``.
     """
     if x.dim() != 2 or x_mask.shape != x.shape[:1] or idx.dim() != 2 or \
             idx.shape[0] != x.shape[0] or y.dim() != 2 or \
@@ -790,11 +1063,12 @@ def conv_wgrad(x: torch.Tensor, x_mask: torch.Tensor, idx: torch.Tensor,
             f'y (Ny, Cy), y_mask (Ny,); got {tuple(x.shape)}, '
             f'{tuple(x_mask.shape)}, {tuple(idx.shape)}, {tuple(y.shape)}, '
             f'{tuple(y_mask.shape)}')
-    if x.dtype != torch.float32 or y.dtype != torch.float32 or \
+    types = (torch.float32, torch.bfloat16) if bf16 else (torch.float32, )
+    if x.dtype not in types or y.dtype not in types or \
             x_mask.dtype != torch.bool or y_mask.dtype != torch.bool or \
             idx.dtype != torch.int32:
-        raise TypeError('conv_wgrad takes float32 x/y, bool masks and int32 '
-                        'idx')
+        raise TypeError('conv_wgrad takes float32 x/y (or bfloat16 ones with '
+                        'bf16), bool masks and int32 idx')
     if _check_device('conv_wgrad', [x, x_mask, idx, y, y_mask]).type == \
             'cuda':
         if x.shape[0] >= 2**31 or idx.shape[1] > 65535:
@@ -831,6 +1105,15 @@ def _masked_rows(t, mask):
     return torch.where(mask[:, None], t, torch.zeros_like(t))
 
 
+def _backward_operand(ctx, t):
+    """An operand of a custom-VJP backward (dout, or feats for dW),
+    contiguous; on the bf16 route its bfloat16 copy, made once and shared
+    by K2-bf16's input gradient and K3-bf16 (the rounding both contracts
+    take first)."""
+    t = t.contiguous()
+    return t.to(torch.bfloat16) if ctx.bf16 else t
+
+
 class _SubmConv(torch.autograd.Function):
     """Submanifold conv: ``nbr`` is the level's own mirror-symmetric
     27-table (OFFSETS_3 is point-symmetric: offset K-1-k is -offset k), so
@@ -845,14 +1128,14 @@ class _SubmConv(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         feats, mask, nbr, weights = ctx.saved_tensors
-        dout = dout.contiguous()
+        dout = _backward_operand(ctx, dout)
         dfeats = dw = None
         if ctx.needs_input_grad[0]:
-            wt = weights.flip(0).transpose(1, 2).contiguous()
-            dfeats = _masked_rows(conv_dgrad(dout, mask, nbr, wt, ctx.bf16),
-                                  mask)
+            dfeats = _masked_rows(conv_dgrad(dout, mask, nbr, weights,
+                                             ctx.bf16, mirror=True), mask)
         if ctx.needs_input_grad[3]:
-            dw = conv_wgrad(feats, mask, nbr, dout, mask, ctx.bf16).flip(0)
+            dw = conv_wgrad(_backward_operand(ctx, feats), mask, nbr, dout,
+                            mask, ctx.bf16).flip(0)
         return dfeats, None, None, dw
 
 
@@ -869,14 +1152,14 @@ class _StridedConv(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         feats, mask, t_nbr, weights, out_mask = ctx.saved_tensors
-        dout = dout.contiguous()
+        dout = _backward_operand(ctx, dout)
         dfeats = dw = None
         if ctx.needs_input_grad[0]:
-            wt = weights.transpose(1, 2).contiguous()
-            dfeats = _masked_rows(
-                conv_dgrad(dout, out_mask, t_nbr, wt, ctx.bf16), mask)
+            dfeats = _masked_rows(conv_dgrad(
+                dout, out_mask, t_nbr, weights, ctx.bf16, mirror=False), mask)
         if ctx.needs_input_grad[4]:
-            dw = conv_wgrad(feats, mask, t_nbr, dout, out_mask, ctx.bf16)
+            dw = conv_wgrad(_backward_operand(ctx, feats), mask, t_nbr, dout,
+                            out_mask, ctx.bf16)
         return dfeats, None, None, None, dw, None
 
 

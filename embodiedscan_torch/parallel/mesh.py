@@ -29,6 +29,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..ops.sparse import drop_bf16_weights
+
 DATA_AXIS = 'data'
 VIEW_AXIS = 'view'
 # batch keys laid out (B, V, ...): these shard over the view axis as well
@@ -62,10 +64,13 @@ def process_device(device='cuda') -> torch.device:
 @torch.no_grad()
 def replicate(model: torch.nn.Module) -> torch.nn.Module:
     """Broadcasts rank 0's parameters and buffers to every process of the
-    group (nothing to do outside one)."""
+    group (nothing to do outside one). A broadcast writes the tensors'
+    memory without bumping their version counters, so the bf16 route's
+    weight copies are dropped after it."""
     if dist.is_initialized():
         for t in model.state_dict().values():
             dist.broadcast(t, 0)
+        drop_bf16_weights()
     return model
 
 

@@ -14,6 +14,8 @@ import os
 import torch
 from torch import nn
 
+from ..ops.sparse import drop_bf16_weights
+
 
 class CheckpointManager:
     """Saves and restores ``(model, optimizer)`` under ``work_dir``."""
@@ -64,6 +66,7 @@ class CheckpointManager:
         ckpt = torch.load(self._file(step), map_location=device,
                           weights_only=True)
         model.load_state_dict(ckpt['model'])
+        drop_bf16_weights()
         if optimizer is not None:
             if ckpt['optimizer'] is None:
                 raise ValueError(f'checkpoint {step} holds no optimizer')

@@ -47,6 +47,7 @@ import torch
 from torch import nn
 
 from ..models.attention import HeadsIn, HeadsOut
+from ..ops.sparse import drop_bf16_weights
 
 
 def _leaves(tree, prefix=()):
@@ -113,6 +114,7 @@ def load_jax_variables(model: nn.Module, params: dict,
             with torch.no_grad():
                 tensor.copy_(val.to(tensor.dtype))
             filled.add(names[id(tensor)])
+    drop_bf16_weights()
     missing = sorted(set(names.values()) - filled)
     if strict and missing:
         raise KeyError(f'port tensors without a reference leaf: {missing}')
@@ -217,6 +219,7 @@ def _merge_into(model: nn.Module, params: dict, stats: dict, prefix):
         for p in prefix:
             node = node.get(p, {}) if isinstance(node, dict) else {}
         merge(node, tree, prefix)
+    drop_bf16_weights()
     return model, loaded, skipped
 
 

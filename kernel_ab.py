@@ -38,6 +38,22 @@ version of the training port has. ``--plans`` (the current tree only) also
 times each tensor-core K3 call at every pair-chunk count of
 ``WG_PLAN_CHUNKS``, each held to the plain versions as chip_smoke holds it.
 
+    python3 kernel_ab.py --bf16 [--plans] [--cont]
+
+times the bfloat16 kernels of the current tree: under
+``set_conv_compute_dtype(torch.bfloat16)`` it records one full-width
+mv_det3d request (``mode='feats'``: every conv, no NMS) and one train step
+(and with ``--cont`` one 50-sweep cont_det3d request and one 10-sweep
+cont_det3d train step, calls of up to 3.3M rows), then times each K2-bf16
+call (forward and input gradient) and each K3-bf16 call as shipped, by
+CUDA events over its kernel alone (the operands cast beforehand). With
+``--plans`` it also times every tensor-core plan of each call: K2-bf16
+every tile of ``BF16_TILES`` by 27, 9, 5 or 3 offsets per split, K3-bf16
+every tile by ``WG_PLAN_CHUNKS`` chunks, each held to the call's plain
+version within chip_smoke's gate (the data ``conv_plan(..., bf16=True)`` and
+``wgrad_plan(bf16=True)`` were fitted to). Prints one JSON line of sums
+per group; the per-call numbers go to chiprun_out/kernel_ab.jsonl.
+
     python3 kernel_ab.py --tf32-control [ROOT]
 
 is the control for chip_smoke's GRAD_GATE: chip_smoke's CPU-against-card
@@ -285,6 +301,183 @@ def wgrad_plan_sums(rows):
     return out
 
 
+BF16_PLAN_OFFSETS = (27, 9, 5, 3)
+
+
+def record_bf16(S, P, cont):
+    """The recorders of the bf16 groups: 'request' and 'step' (mv_det3d at
+    full width), with ``cont`` also 'cont_request' (cont_det3d, 50 sweeps)
+    and 'cont_step' (10 sweeps)."""
+    from embodiedscan_torch.configs.base import (build_model, build_train,
+                                                 cont_det3d, mv_det3d)
+    from embodiedscan_torch.data.synthetic import make_scan, scan_to_sweeps
+    from embodiedscan_torch.train.state import train_step
+    recs = {}
+    torch.manual_seed(0)
+
+    def record(name, fn):
+        with cs.Recorder(S, P) as rec:
+            fn()
+            torch.cuda.synchronize()
+        rec.to_host()
+        recs[name] = rec
+        torch.cuda.empty_cache()
+
+    with cs.bf16_route(S):
+        cfg = mv_det3d()
+        d = cfg.data
+        model = build_model(cfg, device='cuda')
+        batch = cs.to_device(cs.make_request(d.n_points, d.n_views_test,
+                                             d.image_hw[0], 0), 'cuda')
+        with torch.no_grad():
+            record('request', lambda: model(batch, mode='feats'))
+        del model, batch
+        model, opt = build_train(cfg, device='cuda', steps_per_epoch=1)
+        batch = cs.to_device(cs.make_batch(1, d.n_points, d.n_views_train,
+                                           d.image_hw[0], cs.N_GT,
+                                           cfg.model.num_classes), 'cuda')
+        record('step', lambda: train_step(model, opt, batch))
+        del model, opt, batch
+        if cont:
+            cfg = cont_det3d()
+            d = cfg.data
+            scan = make_scan(seed=0, n_views=d.n_views_test,
+                             hw=tuple(d.image_hw), g=32)
+            batch = cs.to_device(scan_to_sweeps(
+                scan, n_views=d.n_views_test, num_points=d.n_points,
+                num_boxes=d.max_boxes, seed=0, train=False,
+                points_per_view=d.points_per_view), 'cuda')
+            model = build_model(cfg, device='cuda')
+            with torch.no_grad():
+                record('cont_request', lambda: model(batch, mode='feats'))
+            del model, batch, scan
+            model, opt = build_train(cfg, device='cuda', steps_per_epoch=1)
+            scan = make_scan(seed=1, n_views=d.n_views_train,
+                             hw=tuple(d.image_hw), g=32)
+            batch = cs.to_device(scan_to_sweeps(
+                scan, n_views=d.n_views_train, num_points=d.n_points,
+                num_boxes=d.max_boxes, seed=0, train=True,
+                points_per_view=d.points_per_view), 'cuda')
+            record('cont_step', lambda: train_step(model, opt, batch))
+            del model, opt, batch, scan
+    torch.cuda.empty_cache()
+    return recs
+
+
+def _gate(got, ref, what):
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    if not err <= cs.CONV_GATE * max(scale, 1e-30):
+        raise RuntimeError(f'{what}: max|d| {err} > {cs.CONV_GATE} x {scale}')
+
+
+@torch.no_grad()
+def time_bf16(S, recs, plans):
+    """Per-call rows of every K2-bf16 (forward and input gradient) and
+    K3-bf16 call of the recorded groups (see the module docstring)."""
+    rows = []
+    for group, rec in recs.items():
+        for kind, calls in (('conv', rec.conv16), ('dgrad', rec.dgrad16),
+                            ('wgrad', rec.wgrad16)):
+            for args in calls:
+                torch.cuda.empty_cache()
+                a = cs._on(args, 'cuda')
+                rows.append(dict(group=group, kind=kind,
+                                 **_time_bf16_call(S, kind, a, plans)))
+    # the kernels' own device time and launches of each call as shipped,
+    # by the profiler, after every event timing (see cs.cuda_ms)
+    for row in rows:
+        row['launches'], row['device_ms'], row['by_kernel'] = \
+            _profile_by_kernel(row.pop('run'))
+    return rows
+
+
+def _profile_by_kernel(fn):
+    """(launches, device ms, {kernel name: device ms}) of one call of
+    ``fn`` under the profiler (after a call outside it)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if str(e.device_type).endswith('CUDA')]
+    by = {}
+    for e in ev:
+        key = e.key.replace('(anonymous namespace)::', '')
+        name = key.split('<')[0].split('(')[0].split('::')[-1].split()[-1]
+        by[name] = by.get(name, 0.0) + cs._self_device_us(e) / 1e3
+    return sum(e.count for e in ev), sum(by.values()), by
+
+
+def _time_bf16_call(S, kind, a, plans):
+    if kind == 'wgrad':
+        x, xm, idx, y, ym = a
+        x16, y16 = S._as_bf16(x), S._as_bf16(y)
+        rule = S.bf16_wgrad_plan(x, idx, y)
+        row = dict(r=idx.shape[0], k=idx.shape[1], cx=x.shape[1],
+                   cy=y.shape[1], plan=list(rule))
+        run = (lambda plan: S._wgrad_cuda(x16, xm, idx, y16, ym, plan))
+        ref = S._conv_wgrad_bf16_plain(x, xm, idx, y, ym)
+        space = [S.WgradPlan('tc', bm, bn, c) for bm in (64, 128)
+                 for bn in (64, 128) for c in WG_PLAN_CHUNKS] \
+            if rule.route == 'tc' else []
+    else:
+        feats, mask, nbr, w = a[:4]
+        if kind == 'conv':
+            bias, mode, (k, cin, cout) = a[4], S.KB_FORWARD, w.shape
+            ref = S._gather_matmul_conv_bf16_plain(feats, mask, nbr, w, bias)
+        else:
+            bias = None
+            mode = S.KB_MIRROR if a[4] else S.KB_TRANSPOSE
+            k, cout, cin = w.shape
+            ref = S._conv_dgrad_bf16_plain(feats, mask, nbr, w, a[4])
+        m = nbr.shape[0]
+        rule = S.conv_plan(m, k, cin, cout, bf16=True)
+        f16, w16 = S._as_bf16(feats), S.bf16_weights(w)
+        row = dict(m=m, k=k, cin=cin, cout=cout, plan=list(rule))
+
+        def run(plan):
+            if plan.route == 'simt':
+                return S._launch_k2(f16, mask, nbr, w16 if mode == 0 else
+                                    S._dgrad_weights_t(w16, a[4]), bias,
+                                    plan, '_bf16')
+            return S._launch_k2_bf16(f16, mask, nbr, w16, bias, plan, mode)
+        space = [S.ConvPlan('tc', bm, bn, -(-k // min(per, k)), min(per, k))
+                 for bm, bn in S.BF16_TILES for per in BF16_PLAN_OFFSETS] \
+            if rule.route == 'tc' else []
+        space = list(dict.fromkeys(space))
+    _gate(run(rule), ref, f'{kind} {row}')
+    row['ms'] = cs.cuda_ms(lambda: run(rule), reps=3, warmup=1)
+    row['run'] = lambda: run(rule)  # profiled after every event timing
+    if plans:
+        row['plans'] = []
+        for plan in space:
+            _gate(run(plan), ref, f'{kind} {row} plan {plan}')
+            row['plans'].append(dict(plan=list(plan), ms=cs.cuda_ms(
+                lambda: run(plan), reps=3, warmup=1)))
+    return row
+
+
+def bf16_sums(rows):
+    """Per group and kind: calls, the shipped rule's events ms, device ms
+    and device ms by kernel, and with plans the best plan of each call
+    summed (events ms)."""
+    out = {}
+    for r in rows:
+        s = out.setdefault(f'{r["group"]}/{r["kind"]}',
+                           dict(calls=0, ms=0.0, device_ms=0.0, best=0.0))
+        s['calls'] += 1
+        s['ms'] += r['ms']
+        s['device_ms'] += r['device_ms']
+        for name, ms in r['by_kernel'].items():
+            kernels = s.setdefault('by_kernel', {})
+            kernels[name] = kernels.get(name, 0.0) + ms
+        s['best'] += min([p['ms'] for p in r.get('plans', [])] + [r['ms']])
+    return out
+
+
 # the single-TF32 cut: (file under csrc, 3xTF32 text, single-TF32 text) for
 # K2's and the mma.sync products (sparse_mma.cuh) and K3's wgmma ones
 SINGLE_TF32 = (
@@ -327,9 +520,10 @@ def tf32_control(root):
 
 def main(argv):
     plans = '--plans' in argv
+    cont = '--cont' in argv
     mode = next((a for a in argv if a in ('--tf32-control', '--train',
-                                          '--train-parity')), None)
-    args = [a for a in argv if a not in ('--plans', mode)]
+                                          '--train-parity', '--bf16')), None)
+    args = [a for a in argv if a not in ('--plans', '--cont', mode)]
     root = os.path.abspath(args[0] if args else os.path.dirname(
         os.path.abspath(__file__)))
     if not torch.cuda.is_available():
@@ -347,6 +541,14 @@ def main(argv):
         _, _, _, worst = cs.train_parity('cuda')
         print(json.dumps(dict(card=card, worst={
             k: dict(ratio=r, leaf=p) for k, (r, p) in worst.items()})))
+        return 0
+    if mode == '--bf16':
+        rows = time_bf16(S, record_bf16(S, P, cont), plans)
+        result = dict(root=root, card=card, mode='bf16', sums=bf16_sums(rows))
+        os.makedirs(cs.OUT_DIR, exist_ok=True)
+        with open(os.path.join(cs.OUT_DIR, 'kernel_ab.jsonl'), 'a') as f:
+            f.write(json.dumps(dict(result, rows=rows)) + '\n')
+        print(json.dumps(result))
         return 0
     if mode == '--train':
         rec, stats = train(S, P)
