@@ -1,0 +1,7 @@
+"""Device idle ms per step whose gap began while es.fwd was open on the thread holding es.step."""
+
+from benchmark.metrics import program_spans as PS
+
+
+def read(ctx):
+    return PS.idle_ms(ctx, 'es.fwd')

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..configs.base import Config
+from ..utils.trace import span
 from . import pipeline as pl
 
 CONT_TASKS = ('cont_det3d', 'cont_occ')
@@ -30,11 +31,12 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     the data); to the CPU the tensors share the arrays' memory."""
     device = torch.device(device)
     out = {}
-    for key, val in batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(val))
-        if device.type == 'cuda':
-            t = t.pin_memory().to(device, non_blocking=True)
-        out[key] = t
+    with span('es.to_device'):
+        for key, val in batch.items():
+            t = torch.from_numpy(np.ascontiguousarray(val))
+            if device.type == 'cuda':
+                t = t.pin_memory().to(device, non_blocking=True)
+            out[key] = t
     return out
 
 

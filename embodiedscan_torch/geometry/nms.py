@@ -8,6 +8,7 @@ suppression matrix, one step per candidate, as the reference's fori_loop.
 
 import torch
 
+from ..utils.trace import span
 from .iou import boxes3d_iou, boxes7d_to_9d
 
 
@@ -38,17 +39,21 @@ def nms3d(boxes: torch.Tensor, scores: torch.Tensor, mask: torch.Tensor,
                               stable=True)
         b = boxes[order]
         m = mask[order]
-    b9 = boxes7d_to_9d(b[:, :7])
-    iou = boxes3d_iou(b9, b9)
-    over = iou > iou_thr
-    if labels is not None:
-        lab = labels[order]
-        over = over & (lab[:, None] == lab[None, :])
-    over = torch.triu(over, diagonal=1).cpu()
-    alive = m.cpu()
-    suppressed = torch.zeros(k, dtype=torch.bool)
-    for i in range(k):
-        if alive[i] and not suppressed[i]:
-            suppressed |= over[i]
-    keep = (~suppressed & alive).to(dev)
+    with span('es.nms.iou'):
+        b9 = boxes7d_to_9d(b[:, :7])
+        iou = boxes3d_iou(b9, b9)
+        over = iou > iou_thr
+        if labels is not None:
+            lab = labels[order]
+            over = over & (lab[:, None] == lab[None, :])
+        over = torch.triu(over, diagonal=1)
+    with span('es.nms.wait'):
+        over = over.cpu()
+        alive = m.cpu()
+    with span('es.nms.sweep'):
+        suppressed = torch.zeros(k, dtype=torch.bool)
+        for i in range(k):
+            if alive[i] and not suppressed[i]:
+                suppressed |= over[i]
+        keep = (~suppressed & alive).to(dev)
     return order, keep

@@ -21,6 +21,7 @@ from ..geometry.nms import nms3d
 from ..geometry.rotations import (matrix_to_euler_zxy, ortho_6d_to_matrix,
                                   rotation_3d_in_euler)
 from ..ops import sparse as S
+from ..utils.trace import span
 from .losses import (axis_aligned_iou_loss, bbox_cd_loss, bce_with_logits,
                      rotated_iou_loss, sigmoid_focal_loss)
 from .norm import MaskedBatchNorm
@@ -249,39 +250,41 @@ class FCAF3DHead(nn.Module):
                 self.add_module(f'{name}_bn2', MaskedBatchNorm(cin))
 
     def forward(self, inputs) -> HeadOutputs:
-        n_levels = len(inputs)
-        center_preds, reg_preds, cls_preds, points, masks = \
-            [], [], [], [], []
-        x = inputs[-1]
-        prune_level = None  # the coarser level's, see fpn_up_block
-        for i in range(n_levels - 1, -1, -1):
-            if i < n_levels - 1:
-                x = fpn_up_block(self, i, x, prune_level, inputs[i],
-                                 min(self.pts_prune_threshold,
-                                     self.fpn_capacities[i]))
+        with span('es.head'):
+            n_levels = len(inputs)
+            center_preds, reg_preds, cls_preds, points, masks = \
+                [], [], [], [], []
+            x = inputs[-1]
+            prune_level = None  # the coarser level's, see fpn_up_block
+            for i in range(n_levels - 1, -1, -1):
+                if i < n_levels - 1:
+                    x = fpn_up_block(self, i, x, prune_level, inputs[i],
+                                     min(self.pts_prune_threshold,
+                                         self.fpn_capacities[i]))
 
-            nbr27 = S.neighbor_table_b(x, S.OFFSETS_3)
-            out = getattr(self, f'out_block_{i}_conv')(x.feats, x.mask, nbr27)
-            out = F.elu(getattr(self, f'out_block_{i}_bn')(out, x.mask))
-            center = self.conv_center(out)
-            cls = self.conv_cls(out)
-            reg_raw = self.conv_reg(out)
-            # maximum, not clamp: a gradient splits at a tie, as jnp.clip's
-            reg_dist = torch.exp(self.scales[i] * reg_raw[..., :6])
-            reg_dist = torch.maximum(reg_dist, reg_dist.new_tensor(1e-3))
-            reg = torch.cat([reg_dist, reg_raw[..., 6:]], -1)
-            prune_level = (x.coords, cls.amax(-1), x.mask, nbr27)
+                nbr27 = S.neighbor_table_b(x, S.OFFSETS_3)
+                out = getattr(self, f'out_block_{i}_conv')(x.feats, x.mask,
+                                                           nbr27)
+                out = F.elu(getattr(self, f'out_block_{i}_bn')(out, x.mask))
+                center = self.conv_center(out)
+                cls = self.conv_cls(out)
+                reg_raw = self.conv_reg(out)
+                # maximum, not clamp: a gradient splits at a tie, as jnp.clip's
+                reg_dist = torch.exp(self.scales[i] * reg_raw[..., :6])
+                reg_dist = torch.maximum(reg_dist, reg_dist.new_tensor(1e-3))
+                reg = torch.cat([reg_dist, reg_raw[..., 6:]], -1)
+                prune_level = (x.coords, cls.amax(-1), x.mask, nbr27)
 
-            world = x.coords.to(torch.float32) * (self.strides[i] *
-                                                  self.voxel_size)
-            center_preds.append(center)
-            reg_preds.append(reg)
-            cls_preds.append(cls)
-            points.append(world)
-            masks.append(x.mask)
+                world = x.coords.to(torch.float32) * (self.strides[i] *
+                                                      self.voxel_size)
+                center_preds.append(center)
+                reg_preds.append(reg)
+                cls_preds.append(cls)
+                points.append(world)
+                masks.append(x.mask)
 
-        return HeadOutputs(center_preds[::-1], reg_preds[::-1],
-                           cls_preds[::-1], points[::-1], masks[::-1])
+            return HeadOutputs(center_preds[::-1], reg_preds[::-1],
+                               cls_preds[::-1], points[::-1], masks[::-1])
 
     def loss(self, outs: HeadOutputs, gt_boxes: torch.Tensor,
              gt_labels: torch.Tensor, gt_mask: torch.Tensor) -> dict:
@@ -289,38 +292,41 @@ class FCAF3DHead(nn.Module):
         loss of ``bbox_mode`` (the rotated IoU for 'yaw7d', the
         axis-aligned IoU for 'aa6d', the corner chamfer for 'euler9d').
         gt_*: (B, G, ...) padded ground truth."""
-        levels = torch.cat([
-            torch.full((p.shape[1],), i, dtype=torch.int64, device=p.device)
-            for i, p in enumerate(outs.points)])
-        pts = torch.cat(outs.points, 1)  # (B, P, 3)
-        pmask = torch.cat(outs.masks, 1)
-        center = torch.cat(outs.center, 1)[..., 0]
-        reg = torch.cat(outs.reg, 1)
-        cls = torch.cat(outs.cls, 1)
-        b = pts.shape[0]
-        with torch.no_grad():
-            targets = [assign_targets(
-                pts[i], levels, pmask[i], gt_boxes[i], gt_labels[i],
-                gt_mask[i], len(outs.points), ASSIGN_THRESHOLD,
-                CENTER_THRESHOLD) for i in range(b)]
-        center_t, bbox_t, cls_t = (torch.stack(t) for t in zip(*targets))
-        pos = cls_t >= 0
-        # the batch mean of the positives (the reference's reduce_mean)
-        n_pos_avg = torch.clamp(pos.sum(1).to(torch.float32).mean(), min=1.0)
-        benign = reg.new_tensor([1.0] * 6 + BENIGN_TAIL[self.bbox_mode])
-        c_l, b_l, cl_l = [], [], []
-        for i in range(b):
-            cl_l.append(sigmoid_focal_loss(cls[i], cls_t[i], pmask[i],
-                                           self.num_classes, n_pos_avg))
-            c_l.append(torch.nan_to_num(bce_with_logits(
-                center[i], center_t[i], pos[i], n_pos_avg)))
-            reg_safe = torch.where(pos[i][:, None], reg[i], benign)
-            dec = decode_bbox_mode(pts[i], reg_safe, self.bbox_mode)
-            b_l.append(torch.nan_to_num(self.bbox_loss(dec, bbox_t[i],
-                                                       pos[i])))
-        return dict(loss_center=torch.stack(c_l).mean(),
-                    loss_bbox=torch.stack(b_l).mean(),
-                    loss_cls=torch.stack(cl_l).mean())
+        with span('es.loss'):
+            levels = torch.cat([
+                torch.full((p.shape[1],), i, dtype=torch.int64,
+                           device=p.device)
+                for i, p in enumerate(outs.points)])
+            pts = torch.cat(outs.points, 1)  # (B, P, 3)
+            pmask = torch.cat(outs.masks, 1)
+            center = torch.cat(outs.center, 1)[..., 0]
+            reg = torch.cat(outs.reg, 1)
+            cls = torch.cat(outs.cls, 1)
+            b = pts.shape[0]
+            with torch.no_grad():
+                targets = [assign_targets(
+                    pts[i], levels, pmask[i], gt_boxes[i], gt_labels[i],
+                    gt_mask[i], len(outs.points), ASSIGN_THRESHOLD,
+                    CENTER_THRESHOLD) for i in range(b)]
+            center_t, bbox_t, cls_t = (torch.stack(t) for t in zip(*targets))
+            pos = cls_t >= 0
+            # the batch mean of the positives (the reference's reduce_mean)
+            n_pos_avg = torch.clamp(pos.sum(1).to(torch.float32).mean(),
+                                    min=1.0)
+            benign = reg.new_tensor([1.0] * 6 + BENIGN_TAIL[self.bbox_mode])
+            c_l, b_l, cl_l = [], [], []
+            for i in range(b):
+                cl_l.append(sigmoid_focal_loss(cls[i], cls_t[i], pmask[i],
+                                               self.num_classes, n_pos_avg))
+                c_l.append(torch.nan_to_num(bce_with_logits(
+                    center[i], center_t[i], pos[i], n_pos_avg)))
+                reg_safe = torch.where(pos[i][:, None], reg[i], benign)
+                dec = decode_bbox_mode(pts[i], reg_safe, self.bbox_mode)
+                b_l.append(torch.nan_to_num(self.bbox_loss(dec, bbox_t[i],
+                                                           pos[i])))
+            return dict(loss_center=torch.stack(c_l).mean(),
+                        loss_bbox=torch.stack(b_l).mean(),
+                        loss_cls=torch.stack(cl_l).mean())
 
     def bbox_loss(self, dec: torch.Tensor, tgt: torch.Tensor,
                   pos: torch.Tensor) -> torch.Tensor:
@@ -364,42 +370,46 @@ class FCAF3DHead(nn.Module):
         batched-key sort each (``topk_rows_b``); candidates arrive
         score-descending, so NMS skips its own sort.
         """
-        lvl_boxes, lvl_scores, lvl_masks = [], [], []
-        for center, reg, cls, pt, m in zip(outs.center, outs.reg, outs.cls,
-                                           outs.points, outs.masks):
-            scores = torch.sigmoid(cls) * torch.sigmoid(center)
-            scores = torch.where(m[..., None], scores, torch.zeros_like(scores))
-            k = min(self.nms_pre, scores.shape[1])
-            top = S.topk_rows_b(scores.amax(-1), m, k)
-            lvl_boxes.append(decode_bbox_mode(S._take_rows(pt, top),
-                                              S._take_rows(reg, top),
-                                              self.bbox_mode))
-            lvl_scores.append(S._take_rows(scores, top))
-            lvl_masks.append(S._take_rows(m, top))
-        boxes = torch.cat(lvl_boxes, dim=1)  # (B, T, 9)
-        scores = torch.cat(lvl_scores, dim=1)  # (B, T, C)
-        mask = torch.cat(lvl_masks, dim=1)  # (B, T)
-        if self.bbox_mode == 'euler9d' and \
-                self.predict_protocol == 'reference':
-            # published protocol: yaw-only boxes through NMS and in the
-            # returned predictions
-            boxes = boxes.clone()
-            boxes[..., 7:9] = 0.0
+        with span('es.predict'):
+            lvl_boxes, lvl_scores, lvl_masks = [], [], []
+            for center, reg, cls, pt, m in zip(outs.center, outs.reg, outs.cls,
+                                               outs.points, outs.masks):
+                scores = torch.sigmoid(cls) * torch.sigmoid(center)
+                scores = torch.where(m[..., None], scores,
+                                     torch.zeros_like(scores))
+                k = min(self.nms_pre, scores.shape[1])
+                top = S.topk_rows_b(scores.amax(-1), m, k)
+                lvl_boxes.append(decode_bbox_mode(S._take_rows(pt, top),
+                                                  S._take_rows(reg, top),
+                                                  self.bbox_mode))
+                lvl_scores.append(S._take_rows(scores, top))
+                lvl_masks.append(S._take_rows(m, top))
+            boxes = torch.cat(lvl_boxes, dim=1)  # (B, T, 9)
+            scores = torch.cat(lvl_scores, dim=1)  # (B, T, C)
+            mask = torch.cat(lvl_masks, dim=1)  # (B, T)
+            if self.bbox_mode == 'euler9d' and \
+                    self.predict_protocol == 'reference':
+                # published protocol: yaw-only boxes through NMS and in the
+                # returned predictions
+                boxes = boxes.clone()
+                boxes[..., 7:9] = 0.0
 
-        b = scores.shape[0]
-        flat = torch.where(mask[..., None] & (scores > self.score_thr), scores,
-                           torch.zeros_like(scores)).reshape(b, -1)
-        kc = min(self.max_candidates, flat.shape[1])
-        cand_idx = S.topk_rows_b(flat, torch.ones_like(flat, dtype=torch.bool),
-                                 kc)
-        cand_scores = S._take_rows(flat, cand_idx)
-        pt_idx = torch.div(cand_idx, self.num_classes, rounding_mode='floor')
-        cand_labels = torch.remainder(cand_idx, self.num_classes)
-        cand_boxes = S._take_rows(boxes, pt_idx)
-        cand_mask = cand_scores > self.score_thr
-        keep = torch.stack([
-            nms3d(cand_boxes[i], cand_scores[i], cand_mask[i], self.iou_thr,
-                  cand_labels[i], presorted=True)[1] for i in range(b)])
-        d = min(self.max_dets, kc)
-        return dict(bboxes=cand_boxes[:, :d], scores=cand_scores[:, :d],
-                    labels=cand_labels[:, :d], mask=keep[:, :d])
+            b = scores.shape[0]
+            flat = torch.where(mask[..., None] & (scores > self.score_thr),
+                               scores, torch.zeros_like(scores)).reshape(b, -1)
+            kc = min(self.max_candidates, flat.shape[1])
+            cand_idx = S.topk_rows_b(
+                flat, torch.ones_like(flat, dtype=torch.bool), kc)
+            cand_scores = S._take_rows(flat, cand_idx)
+            pt_idx = torch.div(cand_idx, self.num_classes,
+                               rounding_mode='floor')
+            cand_labels = torch.remainder(cand_idx, self.num_classes)
+            cand_boxes = S._take_rows(boxes, pt_idx)
+            cand_mask = cand_scores > self.score_thr
+            keep = torch.stack([
+                nms3d(cand_boxes[i], cand_scores[i], cand_mask[i],
+                      self.iou_thr, cand_labels[i], presorted=True)[1]
+                for i in range(b)])
+            d = min(self.max_dets, kc)
+            return dict(bboxes=cand_boxes[:, :d], scores=cand_scores[:, :d],
+                        labels=cand_labels[:, :d], mask=keep[:, :d])

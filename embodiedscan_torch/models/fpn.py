@@ -12,6 +12,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..utils.trace import span
+
 
 class FPN(nn.Module):
     """Lateral 1x1 convs + top-down nearest upsampling + 3x3 output convs."""
@@ -28,12 +30,14 @@ class FPN(nn.Module):
         (default: all) (N, Hi, Wi, out_channels) outputs. The occupancy
         model reads only the finest; the reference computes all four and
         leaves the unread ones to XLA's dead-code elimination."""
-        laterals = [getattr(self, f'lateral{i}')(x.permute(0, 3, 1, 2))
-                    for i, x in enumerate(inputs)]
-        for i in range(len(laterals) - 1, 0, -1):
-            # half-pixel centres, as jax.image.resize(method='nearest')
-            up = F.interpolate(laterals[i], size=laterals[i - 1].shape[2:],
-                               mode='nearest-exact')
-            laterals[i - 1] = laterals[i - 1] + up
-        return tuple(getattr(self, f'fpn{i}')(laterals[i]).permute(0, 2, 3, 1)
-                     for i in range(levels or len(laterals)))
+        with span('es.resnet2d'):
+            laterals = [getattr(self, f'lateral{i}')(x.permute(0, 3, 1, 2))
+                        for i, x in enumerate(inputs)]
+            for i in range(len(laterals) - 1, 0, -1):
+                # half-pixel centres, as jax.image.resize(method='nearest')
+                up = F.interpolate(laterals[i],
+                                   size=laterals[i - 1].shape[2:],
+                                   mode='nearest-exact')
+                laterals[i - 1] = laterals[i - 1] + up
+            return tuple(getattr(self, f'fpn{i}')(laterals[i]).permute(
+                0, 2, 3, 1) for i in range(levels or len(laterals)))

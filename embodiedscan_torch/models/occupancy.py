@@ -28,6 +28,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..ops import sparse as S
+from ..utils.trace import span
 from .anchors import AlignedAnchor3DRangeGenerator
 from .fpn import FPN
 from .fusion import point_image_sample_batched
@@ -124,27 +125,28 @@ class ImVoxelNeck(nn.Module):
             k += 1
 
     def forward(self, x: torch.Tensor):
-        out_dtype = x.dtype
-        x = x.to(self.dtype)
-        down = []
-        for i, blocks in enumerate(self.n_blocks):
-            for j in range(blocks):
-                x = getattr(self, f'down_{i}_{j}')(x)
-            down.append(x)
-        outs, k = [], 0
-        for i in range(len(self.n_blocks) - 1, -1, -1):
-            if i < len(self.n_blocks) - 1:
-                x = _conv(getattr(self, f'up_{i + 1}_t'), x)
-                x = F.relu(getattr(self, f'BatchNorm_{k}')(x))
-                x = _conv(getattr(self, f'up_{i + 1}_c'), x)
-                x = F.relu(getattr(self, f'BatchNorm_{k + 1}')(x))
-                x = down[i] + x
-                k += 2
-            out = _conv(getattr(self, f'out_{i}_c'), x)
-            outs.append(F.relu(getattr(self, f'BatchNorm_{k}')(out)).to(
-                out_dtype))
-            k += 1
-        return outs[::-1]
+        with span('es.unet'):
+            out_dtype = x.dtype
+            x = x.to(self.dtype)
+            down = []
+            for i, blocks in enumerate(self.n_blocks):
+                for j in range(blocks):
+                    x = getattr(self, f'down_{i}_{j}')(x)
+                down.append(x)
+            outs, k = [], 0
+            for i in range(len(self.n_blocks) - 1, -1, -1):
+                if i < len(self.n_blocks) - 1:
+                    x = _conv(getattr(self, f'up_{i + 1}_t'), x)
+                    x = F.relu(getattr(self, f'BatchNorm_{k}')(x))
+                    x = _conv(getattr(self, f'up_{i + 1}_c'), x)
+                    x = F.relu(getattr(self, f'BatchNorm_{k + 1}')(x))
+                    x = down[i] + x
+                    k += 2
+                out = _conv(getattr(self, f'out_{i}_c'), x)
+                outs.append(F.relu(getattr(self, f'BatchNorm_{k}')(out)).to(
+                    out_dtype))
+                k += 1
+            return outs[::-1]
 
 
 def occ_multiscale_targets(gt_occ: torch.Tensor, gt_mask: torch.Tensor,

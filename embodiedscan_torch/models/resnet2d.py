@@ -11,6 +11,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..utils.trace import span
 from .norm import FrozenBatchNorm
 from .remat import checkpointed
 
@@ -120,14 +121,16 @@ class ResNet(nn.Module):
 
     def forward(self, x: torch.Tensor):
         """(N, H, W, 3) -> tuple of (N, Hs, Ws, Cs) maps at strides 4..32."""
-        x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        x = F.relu(self.stem_bn(_run(self.stem_conv, x, self.dtype)))
-        x = F.max_pool2d(x, 3, 2, 1)
-        outs = []
-        for i, blocks in enumerate(self.stage_blocks):
-            for j in range(blocks):
-                block = getattr(self, f'layer{i + 1}_{j}')
-                x = checkpointed(block, x) if self.remat else block(x)
-            if i in self.out_indices:
-                outs.append(x.permute(0, 2, 3, 1))
-        return tuple(outs)
+        with span('es.resnet2d'):
+            x = x.permute(0, 3, 1, 2).contiguous(
+                memory_format=torch.channels_last)
+            x = F.relu(self.stem_bn(_run(self.stem_conv, x, self.dtype)))
+            x = F.max_pool2d(x, 3, 2, 1)
+            outs = []
+            for i, blocks in enumerate(self.stage_blocks):
+                for j in range(blocks):
+                    block = getattr(self, f'layer{i + 1}_{j}')
+                    x = checkpointed(block, x) if self.remat else block(x)
+                if i in self.out_indices:
+                    outs.append(x.permute(0, 2, 3, 1))
+            return tuple(outs)

@@ -16,6 +16,7 @@ from torch.nn import functional as F
 
 from ..ops import sparse as S
 from ..ops.hashing import lookup_merge_b, lookup_merge_multi_b
+from ..utils.trace import span
 from .norm import MaskedBatchNorm, MaskedInstanceNorm
 from .remat import checkpointed
 
@@ -390,15 +391,17 @@ class MinkResNet(nn.Module):
             cin = 64 * 2**i * expansion
 
     def forward(self, st: S.SparseTensor):
-        dmap = S.downsample_coords_b(st, self.capacities[0])
-        s_nbr = strided_queries(st, dmap, S.OFFSETS_3)
-        feats = self.SparseConv_0(st.feats, st.mask, s_nbr, out_mask=dmap.mask)
-        feats = F.relu(self.MaskedInstanceNorm_0(feats, dmap.mask))
-        x = S.SparseTensor(dmap.coords, feats, dmap.mask)
-        x = S.maxpool2(x, S.downsample_coords_b(x, self.capacities[1]))
-        outs = []
-        for i in range(self.n_stages):
-            stage = getattr(self, f'SparseStage_{i}')
-            x = checkpointed(stage, x) if self.remat else stage(x)
-            outs.append(x)
-        return tuple(outs)
+        with span('es.mink3d'):
+            dmap = S.downsample_coords_b(st, self.capacities[0])
+            s_nbr = strided_queries(st, dmap, S.OFFSETS_3)
+            feats = self.SparseConv_0(st.feats, st.mask, s_nbr,
+                                      out_mask=dmap.mask)
+            feats = F.relu(self.MaskedInstanceNorm_0(feats, dmap.mask))
+            x = S.SparseTensor(dmap.coords, feats, dmap.mask)
+            x = S.maxpool2(x, S.downsample_coords_b(x, self.capacities[1]))
+            outs = []
+            for i in range(self.n_stages):
+                stage = getattr(self, f'SparseStage_{i}')
+                x = checkpointed(stage, x) if self.remat else stage(x)
+                outs.append(x)
+            return tuple(outs)

@@ -37,6 +37,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.trace import span
 from . import kernels
 from .hashing import lookup_merge_b, pack_key32_b, unique_coords_b
 
@@ -734,8 +735,10 @@ def gather_matmul_conv(feats: torch.Tensor, mask: torch.Tensor,
     :func:`bf16_weights`; :func:`_gather_matmul_conv_bf16_plain` on the
     CPU).
     """
-    return _k2(feats, mask, nbr, weights, bias, gather_matmul_conv.launches,
-               'gather_matmul_conv', _bf16_route())
+    with span('es.k2.fwd'):
+        return _k2(feats, mask, nbr, weights, bias,
+                   gather_matmul_conv.launches, 'gather_matmul_conv',
+                   _bf16_route())
 
 
 def conv_dgrad(dout: torch.Tensor, out_mask: torch.Tensor,
@@ -757,8 +760,9 @@ def conv_dgrad(dout: torch.Tensor, out_mask: torch.Tensor,
     transpose table). K2-bf16 then reads W's cached bfloat16 copy
     transposed in the kernel; the float32 route builds the transposed copy
     and runs as above."""
-    return _k2(dout, out_mask, table, weights_t, None, conv_dgrad.launches,
-               'conv_dgrad', bf16, mirror)
+    with span('es.k2.dgrad'):
+        return _k2(dout, out_mask, table, weights_t, None,
+                   conv_dgrad.launches, 'conv_dgrad', bf16, mirror)
 
 
 # kernel launches by route (CUDA path only); '_bf16': the bfloat16 variants
@@ -1069,23 +1073,24 @@ def conv_wgrad(x: torch.Tensor, x_mask: torch.Tensor, idx: torch.Tensor,
             idx.dtype != torch.int32:
         raise TypeError('conv_wgrad takes float32 x/y (or bfloat16 ones with '
                         'bf16), bool masks and int32 idx')
-    if _check_device('conv_wgrad', [x, x_mask, idx, y, y_mask]).type == \
-            'cuda':
-        if x.shape[0] >= 2**31 or idx.shape[1] > 65535:
-            raise ValueError('conv_wgrad: the kernel takes R < 2^31 and '
-                             'K <= 65535')
+    with span('es.k3'):
+        if _check_device('conv_wgrad', [x, x_mask, idx, y, y_mask]).type == \
+                'cuda':
+            if x.shape[0] >= 2**31 or idx.shape[1] > 65535:
+                raise ValueError('conv_wgrad: the kernel takes R < 2^31 and '
+                                 'K <= 65535')
+            if bf16:
+                plan = bf16_wgrad_plan(x, idx, y)
+                out = _conv_wgrad_bf16_cuda(x, x_mask, idx, y, y_mask, plan)
+                conv_wgrad.launches[plan.route + '_bf16'] += 1
+            else:
+                plan = cuda_wgrad_plan(x, idx, y)
+                out = _conv_wgrad_cuda(x, x_mask, idx, y, y_mask, plan)
+                conv_wgrad.launches[plan.route] += 1
+            return out
         if bf16:
-            plan = bf16_wgrad_plan(x, idx, y)
-            out = _conv_wgrad_bf16_cuda(x, x_mask, idx, y, y_mask, plan)
-            conv_wgrad.launches[plan.route + '_bf16'] += 1
-        else:
-            plan = cuda_wgrad_plan(x, idx, y)
-            out = _conv_wgrad_cuda(x, x_mask, idx, y, y_mask, plan)
-            conv_wgrad.launches[plan.route] += 1
-        return out
-    if bf16:
-        return _conv_wgrad_bf16_plain(x, x_mask, idx, y, y_mask)
-    return _conv_wgrad_plain(x, x_mask, idx, y, y_mask)
+            return _conv_wgrad_bf16_plain(x, x_mask, idx, y, y_mask)
+        return _conv_wgrad_plain(x, x_mask, idx, y, y_mask)
 
 
 conv_wgrad.launches = {'tc': 0, 'narrow': 0, 'tc_bf16': 0, 'narrow_bf16': 0}

@@ -18,6 +18,8 @@ from typing import Callable
 import torch
 from torch import nn
 
+from ..utils.trace import span
+
 
 def multistep_lr(base_lr: float, steps_per_epoch: int, milestones=(8, 11),
                  gamma: float = 0.1):
@@ -144,28 +146,38 @@ def train_step(model: nn.Module, optimizer: ClippedAdamW,
     ``use_mesh``), the gradients of the 2D branch (the ``view_branch`` of
     each module with one), each of its own views, are first summed over
     the view axis, and every mean is taken over the data axis alone (the
-    processes of a view group hold the same rows)."""
+    processes of a view group hold the same rows).
+
+    Under a profiler the step is the span ``es.step`` around its phases
+    ``es.fwd`` (the losses and their sum), ``es.bwd`` and ``es.optim``
+    (the reductions, the clip and AdamW, the losses stacked;
+    ``utils.trace``)."""
     from ..parallel.multihost import pmean_, psum_
     group = None if mesh is None else mesh.data_group
-    optimizer.zero_grad(set_to_none=True)
-    losses = model(batch, mode='loss')
-    total = sum(losses.values())
-    total.backward()
-    params = [p for g in optimizer.param_groups for p in g['params']]
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    if mesh is not None and mesh.view_group is not None:
-        ids = {id(p) for p in params}
-        view = [p.grad for mod in model.modules()
-                for sub in getattr(mod, 'view_branch', ())
-                for p in sub.parameters() if id(p) in ids]
-        psum_(view, mesh.view_group)
-    pmean_([p.grad for p in params], group)
-    optimizer.step()
-    with torch.no_grad():
-        pmean_([b for b in model.buffers() if b.is_floating_point()], group)
-    metrics = dict(losses, loss_total=total)
-    vals = torch.stack([v.detach() for v in metrics.values()])
-    pmean_([vals], group)
+    with span('es.step'):
+        optimizer.zero_grad(set_to_none=True)
+        with span('es.fwd'):
+            losses = model(batch, mode='loss')
+            total = sum(losses.values())
+        with span('es.bwd'):
+            total.backward()
+        with span('es.optim'):
+            params = [p for g in optimizer.param_groups for p in g['params']]
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            if mesh is not None and mesh.view_group is not None:
+                ids = {id(p) for p in params}
+                view = [p.grad for mod in model.modules()
+                        for sub in getattr(mod, 'view_branch', ())
+                        for p in sub.parameters() if id(p) in ids]
+                psum_(view, mesh.view_group)
+            pmean_([p.grad for p in params], group)
+            optimizer.step()
+            with torch.no_grad():
+                pmean_([b for b in model.buffers() if b.is_floating_point()],
+                       group)
+            metrics = dict(losses, loss_total=total)
+            vals = torch.stack([v.detach() for v in metrics.values()])
+            pmean_([vals], group)
     return dict(zip(metrics, vals.unbind()))
