@@ -12,8 +12,15 @@ Phases (one line each; any failure exits non-zero before the last line):
   2. serving path: the full-width mv_det3d detector (284 classes,
      MinkResNet-34 + ResNet-50/16, shipped capacities) serves one warm-up
      and three synthetic requests of 100k points and 50 views of 480x480;
-     launch counts are reset before each request and read after it; then
-     the host-clock time of each stage of one request;
+     launch counts are reset before each request and read after it (K4,
+     the NMS's suppression matrix, once a request); [nms] K4's matrix
+     against the torch route's on the card over every request's own 1024
+     candidates (identical, or the run fails) and over their first 128
+     (mismatches counted: under 256 boxes the torch route's corners take
+     another cuBLAS kernel), the share of the pairs given that K4 clipped
+     in the timed requests (its device counters), K4's and the torch
+     route's times; then the host-clock time of each stage of one request
+     (``of_which_nms_iou``: the request's suppression matrices);
   3. grounding path: the full-width mv_grounding grounder (the same trunk,
      the sparse neck, RoBERTa-base 12 x 768 over 256 tokens, 256 queries,
      6 decoder layers) serves one warm-up and three requests of the same
@@ -175,7 +182,7 @@ Phases (one line each; any failure exits non-zero before the last line):
      under 'all' and 'none' (step, peak, wrapper calls; every gradient
      and statistic against 'none''s).
  13. one JSON line with the kernels (each kernel's row on the detection
-     and grounding paths, then on the occupancy paths, then on the
+     and grounding paths, then K4's, then on the occupancy paths, then on the
      continuous ones, then on the loop's step, the demo's request and
      ChannelMapper, then the bf16 variants'), then the result line.
 Per-call details go to chiprun_out/chip_smoke_calls.json,
@@ -207,11 +214,12 @@ FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12  # dense bf16 tensor cores (K2-bf16, K3-bf16)
 # wrapper calls per request: K2 by route (the stem's Cin = 3 takes SIMT);
-# serving runs no backward kernel
+# serving runs no backward kernel; K4 (nms_overlap) once per scene of the
+# batch, in the head's nms3d (every other path: 0)
 EXPECTED_LAUNCHES = {'sparse_conv_tc': 43, 'sparse_conv_simt': 1,
                      'sparse_dgrad_tc': 0, 'sparse_dgrad_simt': 0,
                      'sparse_wgrad_tc': 0, 'sparse_wgrad_narrow': 0,
-                     'join_scan': 12}
+                     'join_scan': 12, 'nms_overlap': 1}
 # wrapper calls per train step: the 44 forward convs; K2 again for the
 # input gradient of the 35 submanifold and 4 strided convs (the stem's
 # input needs none, the 4 K = 1 downsamples take index_add_); K3 for the
@@ -220,14 +228,14 @@ EXPECTED_LAUNCHES = {'sparse_conv_tc': 43, 'sparse_conv_simt': 1,
 EXPECTED_TRAIN_LAUNCHES = {'sparse_conv_tc': 43, 'sparse_conv_simt': 1,
                            'sparse_dgrad_tc': 39, 'sparse_dgrad_simt': 0,
                            'sparse_wgrad_tc': 43, 'sparse_wgrad_narrow': 1,
-                           'join_scan': 12}
+                           'join_scan': 12, 'nms_overlap': 0}
 # wrapper calls per grounding request: the trunk's 37 convs and the neck's
 # 7 on K2 (the stem on SIMT); K1 for the trunk's stage tables and the
 # neck's FPN and neighbor tables
 EXPECTED_GROUND_LAUNCHES = {'sparse_conv_tc': 43, 'sparse_conv_simt': 1,
                             'sparse_dgrad_tc': 0, 'sparse_dgrad_simt': 0,
                             'sparse_wgrad_tc': 0, 'sparse_wgrad_narrow': 0,
-                            'join_scan': 12}
+                            'join_scan': 12, 'nms_overlap': 0}
 # wrapper calls per grounding train step: as the detector's step, the
 # neck's 7 convs in place of the head's (all 27-offset submanifold, with
 # their input gradient on K2 and weight gradient on K3); the frozen 2D stem
@@ -236,14 +244,15 @@ EXPECTED_GROUND_TRAIN_LAUNCHES = {'sparse_conv_tc': 43, 'sparse_conv_simt': 1,
                                   'sparse_dgrad_tc': 39,
                                   'sparse_dgrad_simt': 0,
                                   'sparse_wgrad_tc': 43,
-                                  'sparse_wgrad_narrow': 1, 'join_scan': 12}
+                                  'sparse_wgrad_narrow': 1, 'join_scan': 12,
+                                  'nms_overlap': 0}
 # wrapper calls per occupancy request: MinkResNet-34 alone (its 37 convs,
 # the stem on SIMT, and its joins); the 2D branch and the U-Net run on
 # cuDNN
 EXPECTED_OCC_LAUNCHES = {'sparse_conv_tc': 36, 'sparse_conv_simt': 1,
                          'sparse_dgrad_tc': 0, 'sparse_dgrad_simt': 0,
                          'sparse_wgrad_tc': 0, 'sparse_wgrad_narrow': 0,
-                         'join_scan': 5}
+                         'join_scan': 5, 'nms_overlap': 0}
 # wrapper calls per occupancy train step: the 37 forward convs; K2 for the
 # input gradient of the 28 submanifold and 4 strided convs; K3 for the
 # weight gradient of all 37 (the stem's on the narrow route)
@@ -251,7 +260,17 @@ EXPECTED_OCC_TRAIN_LAUNCHES = {'sparse_conv_tc': 36, 'sparse_conv_simt': 1,
                                'sparse_dgrad_tc': 32,
                                'sparse_dgrad_simt': 0,
                                'sparse_wgrad_tc': 36,
-                               'sparse_wgrad_narrow': 1, 'join_scan': 5}
+                               'sparse_wgrad_narrow': 1, 'join_scan': 5,
+                               'nms_overlap': 0}
+# K4 (csrc/nms_overlap.cu): float operations of one clipped pair, the
+# NumPy model's count (tests/test_torch_nms_overlap.py:k4_model: 6.5k-7.3k
+# a pair)
+K4_OPS_PER_PAIR = 6900
+# K4's counted check below the main path's K: the torch route's batched
+# corner product takes another cuBLAS kernel under 256 boxes (a last bit
+# apart, see csrc/nms_overlap.cu), so there mismatches are counted, not
+# gated
+K4_SMALL_K = 128
 CONV_GATE = 1e-4  # K2, K3: max|kernel - plain| <= CONV_GATE x max|plain|
 EVAL_GATE = 1e-6  # metric dicts with the IoU on the card vs on the cpu
 SPLIT_GATE = 1e-6  # K3 many chunks vs one: max|d| <= SPLIT_GATE x max
@@ -523,44 +542,51 @@ def phase_main_path(device):
     d = cfg.data
     requests = [make_request(d.n_points, d.n_views_test, d.image_hw[0], s)
                 for s in range(4)]
-    with Recorder(S, P) as rec:  # warm-up request: record kernel inputs
-        t0 = time.perf_counter()
-        preds = model(to_device(requests[0], device), mode='predict')
-        torch.cuda.synchronize()
-    log(f'[main] warm-up request {time.perf_counter() - t0:.2f} s, '
-        f'{len(rec.conv)} conv and {len(rec.scan)} join-scan calls recorded')
-    lat, mem, kept, served = [], [], [], []
-    totals = dict.fromkeys(EXPECTED_LAUNCHES, 0)
-    for i, req in enumerate(requests[1:]):
-        batch = to_device(req, device)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts(S, P)
-        t0 = time.perf_counter()
-        preds = model(batch, mode='predict')
-        torch.cuda.synchronize()
-        lat.append(time.perf_counter() - t0)
-        counts = read_counts(S, P)
-        mem.append(torch.cuda.max_memory_allocated() / 2**30)
-        served.append(preds)
-        for key, val in preds.items():
-            if val.is_floating_point() and not torch.isfinite(val).all():
-                raise RuntimeError(f'request {i}: non-finite {key}')
-        if preds['bboxes'].shape != (1, cfg.model.max_dets, 9):
-            raise RuntimeError(f'bboxes shape {tuple(preds["bboxes"].shape)}')
-        kept.append(int(preds['mask'].sum()))
-        check_counts(counts, EXPECTED_LAUNCHES, f'request {i}')
-        for name in totals:
-            totals[name] += counts[name]
-        log(f'[main] request {i}: {lat[-1] * 1e3:.1f} ms, peak '
-            f'{mem[-1]:.2f} GiB, kept {kept[-1]} of '
-            f'{preds["mask"].shape[1]} detections, launches {counts}')
+    with NmsInputs() as nms:  # every request's NMS candidates
+        with Recorder(S, P) as rec:  # warm-up request: record kernel inputs
+            t0 = time.perf_counter()
+            preds = model(to_device(requests[0], device), mode='predict')
+            torch.cuda.synchronize()
+        log(f'[main] warm-up request {time.perf_counter() - t0:.2f} s, '
+            f'{len(rec.conv)} conv and {len(rec.scan)} join-scan calls '
+            'recorded')
+        lat, mem, kept, served = [], [], [], []
+        totals = dict.fromkeys(EXPECTED_LAUNCHES, 0)
+        pairs0 = k4_pairs()
+        for i, req in enumerate(requests[1:]):
+            batch = to_device(req, device)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(S, P)
+            t0 = time.perf_counter()
+            preds = model(batch, mode='predict')
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+            counts = read_counts(S, P)
+            mem.append(torch.cuda.max_memory_allocated() / 2**30)
+            served.append(preds)
+            for key, val in preds.items():
+                if val.is_floating_point() and not torch.isfinite(val).all():
+                    raise RuntimeError(f'request {i}: non-finite {key}')
+            if preds['bboxes'].shape != (1, cfg.model.max_dets, 9):
+                raise RuntimeError(
+                    f'bboxes shape {tuple(preds["bboxes"].shape)}')
+            kept.append(int(preds['mask'].sum()))
+            check_counts(counts, EXPECTED_LAUNCHES, f'request {i}')
+            for name in totals:
+                totals[name] += counts[name]
+            log(f'[main] request {i}: {lat[-1] * 1e3:.1f} ms, peak '
+                f'{mem[-1]:.2f} GiB, kept {kept[-1]} of '
+                f'{preds["mask"].shape[1]} detections, launches {counts}')
+        pairs = [b - a for a, b in zip(pairs0, k4_pairs())]
     if not all(kept):
         raise RuntimeError('a request kept no detection')
     log(f'[main] latency ms per request: '
         f'{[round(t * 1e3, 3) for t in lat]}, peak GiB {max(mem):.3f}')
     stats = dict(latency_ms=[t * 1e3 for t in lat], peak_gib=max(mem),
                  kept=kept)
+    stats['nms'] = nms_check(nms.calls, pairs, len(lat))
+    del nms
     batch = to_device(requests[1], device)
     stats.update(stage_times(model, batch))
     return rec, totals, stats, model, batch, served
@@ -669,13 +695,17 @@ def ground_stage_times(model, batch):
 
 
 def reset_counts(S, P):
+    from embodiedscan_torch.geometry.iou import suppression_matrix
     for fn in (S.gather_matmul_conv, S.conv_dgrad, S.conv_wgrad):
         fn.launches = dict.fromkeys(fn.launches, 0)
     P.join_scan.launches = 0
+    suppression_matrix.launches = 0
 
 
 def read_counts(S, P):
-    counts = {'join_scan': P.join_scan.launches}
+    from embodiedscan_torch.geometry.iou import suppression_matrix
+    counts = {'join_scan': P.join_scan.launches,
+              'nms_overlap': suppression_matrix.launches}
     for name, fn in (('sparse_conv', S.gather_matmul_conv),
                      ('sparse_dgrad', S.conv_dgrad),
                      ('sparse_wgrad', S.conv_wgrad)):
@@ -689,6 +719,95 @@ def check_counts(counts, want, what):
         if counts[name] != n:
             raise RuntimeError(f'{what}: {name} launched {counts[name]} '
                                f'times, expected {n}')
+
+
+class NmsInputs:
+    """Records, while active, what every ``nms3d`` call of the FCAF3D head
+    hands to ``suppression_matrix``: ``calls`` [(boxes (K, 9), iou_thr,
+    labels)] (the head presorts its candidates)."""
+
+    def __enter__(self):
+        from embodiedscan_torch.geometry.iou import boxes7d_to_9d
+        from embodiedscan_torch.models import fcaf3d as F
+        self.calls, self._orig = [], F.nms3d
+        orig = self._orig
+
+        def record(boxes, scores, mask, iou_thr, labels=None,
+                   presorted=False):
+            if not presorted:
+                raise RuntimeError('NmsInputs: an nms3d call not presorted')
+            self.calls.append((boxes7d_to_9d(boxes[:, :7]).clone(),
+                               float(iou_thr),
+                               None if labels is None else labels.clone()))
+            return orig(boxes, scores, mask, iou_thr, labels,
+                        presorted=presorted)
+
+        F.nms3d = record
+        return self
+
+    def __exit__(self, *exc):
+        from embodiedscan_torch.models import fcaf3d as F
+        F.nms3d = self._orig
+
+
+def k4_pairs():
+    """K4's counters on the current card: [pairs clipped, pairs given
+    (j > i)] so far (reading them waits for the card)."""
+    from embodiedscan_torch.geometry.iou import suppression_matrix
+    counts = suppression_matrix.pair_counts.get(torch.cuda.current_device())
+    return [0, 0] if counts is None else counts.tolist()
+
+
+def nms_check(calls, pairs, n_requests):
+    """K4 against the torch route on the card, over the main path's own
+    candidates ``calls`` (:class:`NmsInputs`): every matrix identical at
+    the main path's K (>= 256), and over each call's first K4_SMALL_K
+    candidates the mismatches counted; the CUDA-event ms of K4 alone, with
+    its per-box prep and of the torch route on the first call; the share of
+    the pairs given that K4 clipped in the timed requests (``pairs``:
+    [clipped, given] over ``n_requests``). Returns the numbers and the
+    kernels line's K4 row (its launches are the caller's)."""
+    from embodiedscan_torch.geometry import iou as I
+    big = small = 0
+    for b9, thr, lab in calls:
+        if b9.shape[0] < 256:
+            raise RuntimeError(f'[nms] K = {b9.shape[0]} on the main path')
+        big += int((I.suppression_matrix(b9, thr, lab) !=
+                    I._suppression_matrix_plain(b9, thr, lab)).sum())
+        sb, sl = b9[:K4_SMALL_K], None if lab is None else lab[:K4_SMALL_K]
+        small += int((I.suppression_matrix(sb, thr, sl) !=
+                      I._suppression_matrix_plain(sb, thr, sl)).sum())
+    b9, thr, lab = calls[0]
+    fields, lab32 = I.nms_fields(b9, lab)
+    ms = cuda_ms(lambda: I._nms_overlap_cuda(fields, lab32, thr), reps=20)
+    prep_ms = cuda_ms(lambda: I.suppression_matrix(b9, thr, lab), reps=20)
+    plain_ms = cuda_ms(lambda: I._suppression_matrix_plain(b9, thr, lab),
+                       reps=3, warmup=1)
+    clipped, given = pairs
+    share = clipped / max(given, 1)
+    bound_ms = clipped / n_requests * K4_OPS_PER_PAIR / FP32_FLOPS * 1e3
+    log(f'[nms] K4 against the torch route over the main path\'s '
+        f'{len(calls)} candidate sets of K = {b9.shape[0]}: {big} entries '
+        f'differ; over their first {K4_SMALL_K}: {small} (counted: the '
+        f'torch route\'s corners change cuBLAS kernel under K = 256); the '
+        f'timed requests clipped {clipped} of {given} pairs given '
+        f'({share:.4%}); K4 {ms:.4f} ms, with its prep {prep_ms:.4f}, the '
+        f'torch route {plain_ms:.2f}; bound {bound_ms:.5f} ms (operations)')
+    if big:
+        raise RuntimeError(f'[nms] K4 differs from the torch route in {big} '
+                           'entries on the main path')
+    stats = dict(sets=len(calls), k=int(b9.shape[0]), mismatches=big,
+                 small_k=K4_SMALL_K, small_k_mismatches=small,
+                 clipped=clipped, given=given, clipped_share=share, ms=ms,
+                 prep_ms=prep_ms, plain_ms=plain_ms, bound_ms=bound_ms)
+    row = dict(name='nms_overlap', route='cuda',
+               source='embodiedscan_torch/csrc/nms_overlap.cu',
+               replaces='embodiedscan_tpu/geometry/nms.py:44', launches=None,
+               max_abs_err=float(big), ms=ms, prep_ms=prep_ms,
+               plain_ms=plain_ms, bound_ms=bound_ms, bound_by='operations',
+               library_ms=None, clipped_share=share,
+               small_k_mismatches=small)
+    return dict(stats, row=row)
 
 
 def _self_device_us(event):
@@ -732,15 +851,12 @@ def stage_times(model, batch, reps=3, warmup=True):
     trunk_ms, feats = timed(lambda: trunk(batch))
     head_ms, outs = timed(lambda: head(feats))
     pred_ms, _ = timed(lambda: head.predict(outs))
-    # the NMS pairwise IoU alone, on as many boxes as the NMS takes
-    from embodiedscan_torch.geometry.iou import boxes3d_iou
-    g = torch.Generator(device=pts.device).manual_seed(0)
-    k = head.max_candidates
-    boxes = torch.cat([torch.rand(k, 3, generator=g, device=pts.device) * 8,
-                       torch.rand(k, 3, generator=g, device=pts.device) + .2,
-                       torch.rand(k, 1, generator=g, device=pts.device) * 6,
-                       torch.zeros(k, 2, device=pts.device)], 1)
-    iou_ms, _ = timed(lambda: boxes3d_iou(boxes, boxes))
+    # the NMS's suppression matrices alone (K4 and its per-box prep on the
+    # card), over the candidates of every nms3d call of one predict
+    from embodiedscan_torch.geometry.iou import suppression_matrix
+    with NmsInputs() as nms:
+        head.predict(outs)
+    iou_ms, _ = timed(lambda: [suppression_matrix(*c) for c in nms.calls])
     stages = dict(voxelize=st_ms, mink_resnet34=mink_ms, resnet50=r2d_ms,
                   fusion=trunk_ms - st_ms - mink_ms - r2d_ms,
                   fcaf3d_head=head_ms, predict_nms=pred_ms,
@@ -3441,9 +3557,10 @@ def phase_cont_det3d(card, scan, device='cuda', cfg=None):
             raise RuntimeError('cont_det3d: a sweep kept no detection')
         return dict(kept_voxels=kept, detections=dets)
 
+    # K4 once per sweep row: the head's nms3d runs per row of the batch
     rec, totals, lat, mem, reports = _serve(
-        'cont_det3d', model, batches, CONT_LAUNCHES['cont_det3d'], check,
-        device)
+        'cont_det3d', model, batches,
+        {**CONT_LAUNCHES['cont_det3d'], 'nms_overlap': n}, check, device)
     kept = reports[0]['kept_voxels']
     log(f'[cont_det3d] latency ms per request {[round(t, 3) for t in lat]}, '
         f'peak GiB {max(mem):.3f}; kept voxels per row (request 0) '
@@ -4885,7 +5002,8 @@ EXPECTED_BF16_TRAIN_LAUNCHES = {
     'sparse_dgrad_simt': 0, 'sparse_wgrad_tc': 4, 'sparse_wgrad_narrow': 1,
     'join_scan': 12, 'sparse_conv_tc_bf16': 43, 'sparse_conv_simt_bf16': 1,
     'sparse_dgrad_tc_bf16': 39, 'sparse_dgrad_simt_bf16': 0,
-    'sparse_wgrad_tc_bf16': 39, 'sparse_wgrad_narrow_bf16': 0}
+    'sparse_wgrad_tc_bf16': 39, 'sparse_wgrad_narrow_bf16': 0,
+    'nms_overlap': 0}
 BF16_KERNELS = ('sparse_conv_tc_bf16', 'sparse_conv_simt_bf16',
                 'sparse_dgrad_tc_bf16', 'sparse_wgrad_tc_bf16')
 # CUDA launches of one replayed wrapper call, the weights' bfloat16 copy
@@ -5515,8 +5633,9 @@ def main():
         totals[name] += n
     for name, n in ot_totals.items():
         occ_totals[name] += n
-    rows = kernel_rows(calls, (('', totals, DET_PATHS),
-                               (' (occ)', occ_totals, OCC_PATHS)))
+    k4 = dict(main_stats['nms']['row'], launches=totals['nms_overlap'])
+    rows = kernel_rows(calls, (('', totals, DET_PATHS), )) + [k4] + \
+        kernel_rows(calls, ((' (occ)', occ_totals, OCC_PATHS), ))
     print(json.dumps({'kernels': rows + cont['rows'] + loop['rows'] +
                       precision['rows']}))
     print(json.dumps({'ok': True, 'device': {

@@ -24,6 +24,7 @@ import functools
 import numpy as np
 import torch
 
+from ..ops import kernels
 from .boxes import corners as box_corners
 from .rotations import euler_zxy_to_matrix
 
@@ -238,6 +239,102 @@ def boxes3d_overlap_paired(boxes1: torch.Tensor, boxes2: torch.Tensor):
 def boxes3d_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     """Pairwise exact IoU of oriented 9-DoF boxes: (N, 9) x (M, 9) -> (N, M)."""
     return boxes3d_overlap(boxes1, boxes2)[1]
+
+
+def _suppression_matrix_plain(boxes: torch.Tensor, iou_thr: float,
+                              labels: torch.Tensor | None = None):
+    """:func:`suppression_matrix` as tensor code over all K x K pairs (the
+    route of CPU tensors; on any device, the card check's yardstick)."""
+    over = boxes3d_iou(boxes, boxes) > iou_thr
+    if labels is not None:
+        over = over & (labels[:, None] == labels[None, :])
+    return torch.triu(over, diagonal=1)
+
+
+def nms_fields(boxes: torch.Tensor, labels: torch.Tensor | None = None):
+    """K4's inputs, checked: (K, 15) float32 per-box fields (the rotation
+    matrix row-major, center, sizes: ``csrc/nms_overlap.cu``'s ``F_*``)
+    and the labels as int32 (or None).
+
+    The rotation matrix is the torch route's own
+    (:func:`euler_zxy_to_matrix`: its sines and cosines); the kernel
+    derives the rest per pair in the torch route's order of operations.
+    """
+    if boxes.dim() != 2 or boxes.shape[1] != 9:
+        raise ValueError(f'nms_fields takes (K, 9) boxes, got '
+                         f'{tuple(boxes.shape)}')
+    if boxes.dtype != torch.float32:
+        raise TypeError(f'nms_fields takes float32 boxes, got {boxes.dtype}')
+    k = boxes.shape[0]
+    if labels is not None:
+        if labels.shape != (k,):
+            raise ValueError(f'nms_fields takes ({k},) labels, got '
+                             f'{tuple(labels.shape)}')
+        if labels.dtype.is_floating_point or labels.dtype.is_complex or \
+                labels.dtype == torch.bool:
+            raise TypeError(f'nms_fields takes integer labels, got '
+                            f'{labels.dtype}')
+        if labels.device != boxes.device:
+            raise ValueError('boxes and labels lie on different devices')
+        labels = labels.to(torch.int32).contiguous()
+    fields = torch.cat([euler_zxy_to_matrix(boxes[:, 6:9]).reshape(k, 9),
+                        boxes[:, :6]], 1)
+    return fields, labels
+
+
+def _nms_overlap_cuda(fields: torch.Tensor, labels: torch.Tensor | None,
+                      iou_thr: float) -> torch.Tensor:
+    """Launches K4 over :func:`nms_fields`' output on the current stream."""
+    k = fields.shape[0]
+    if not fields.is_cuda:
+        raise ValueError(f'K4 takes CUDA tensors, got {fields.device}')
+    if fields.shape != (k, 15) or fields.dtype != torch.float32 or \
+            not fields.is_contiguous():
+        raise ValueError('K4 takes contiguous (K, 15) float32 fields')
+    if labels is not None and (labels.shape != (k,) or
+                               labels.dtype != torch.int32 or
+                               not labels.is_contiguous() or
+                               labels.device != fields.device):
+        raise ValueError('K4 takes contiguous (K,) int32 labels on the '
+                         "fields' device")
+    over = torch.empty((k, k), dtype=torch.bool, device=fields.device)
+    if k == 0:
+        return over
+    dev = fields.device
+    counts = suppression_matrix.pair_counts.get(dev.index)
+    if counts is None:
+        counts = torch.zeros(2, dtype=torch.int64, device=dev)
+        suppression_matrix.pair_counts[dev.index] = counts
+    err = kernels.library().es_nms_overlap(
+        fields.data_ptr(), None if labels is None else labels.data_ptr(), k,
+        float(iou_thr), over.data_ptr(), counts.data_ptr(),
+        kernels.stream_handle(dev))
+    kernels.check(err, 'es_nms_overlap')
+    suppression_matrix.launches += 1
+    return over
+
+
+def suppression_matrix(boxes: torch.Tensor, iou_thr: float,
+                       labels: torch.Tensor | None = None) -> torch.Tensor:
+    """The rotated NMS's (K, K) bool matrix: ``over[i, j]`` for j > i, the
+    same label (when ``labels`` are given) and IoU above ``iou_thr``, of
+    (K, 9) boxes.
+
+    On a CUDA tensor one launch of K4 (``csrc/nms_overlap.cu``) over
+    :func:`nms_fields`, which computes each pair's IoU in the tensor
+    code's order of operations on the card; on a CPU tensor
+    :func:`_suppression_matrix_plain`, the tensor code.
+    """
+    if boxes.is_cuda:
+        return _nms_overlap_cuda(*nms_fields(boxes, labels), iou_thr)
+    return _suppression_matrix_plain(boxes, iou_thr, labels)
+
+
+suppression_matrix.launches = 0  # K4 launches (CUDA path only)
+# device index -> int64 (2,) on that device: the pairs K4 clipped and the
+# pairs it was given (j > i), added up by the kernel; read them off the
+# hot path (reading waits for the device)
+suppression_matrix.pair_counts = {}
 
 
 def boxes7d_to_9d(boxes: torch.Tensor) -> torch.Tensor:

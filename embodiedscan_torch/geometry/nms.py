@@ -1,15 +1,17 @@
 """Greedy rotated 3D NMS (port of ``embodiedscan_tpu/geometry/nms.py``).
 
-All classes in one pass: the pairwise IoU is computed once on the input's
-device and masked by label equality. The greedy sweep over score-sorted
-candidates is inherently sequential; it runs on the host over the (K, K)
-suppression matrix, one step per candidate, as the reference's fori_loop.
+All classes in one pass: the suppression matrix (pairwise IoU above the
+threshold, masked by label equality, upper triangle) is built once on the
+input's device, by one kernel on a CUDA tensor (``iou.suppression_matrix``).
+The greedy sweep over score-sorted candidates is inherently sequential; it
+runs on the host over that matrix, one step per candidate, as the
+reference's fori_loop.
 """
 
 import torch
 
 from ..utils.trace import span
-from .iou import boxes3d_iou, boxes7d_to_9d
+from .iou import boxes7d_to_9d, suppression_matrix
 
 
 def nms3d(boxes: torch.Tensor, scores: torch.Tensor, mask: torch.Tensor,
@@ -40,13 +42,8 @@ def nms3d(boxes: torch.Tensor, scores: torch.Tensor, mask: torch.Tensor,
         b = boxes[order]
         m = mask[order]
     with span('es.nms.iou'):
-        b9 = boxes7d_to_9d(b[:, :7])
-        iou = boxes3d_iou(b9, b9)
-        over = iou > iou_thr
-        if labels is not None:
-            lab = labels[order]
-            over = over & (lab[:, None] == lab[None, :])
-        over = torch.triu(over, diagonal=1)
+        over = suppression_matrix(boxes7d_to_9d(b[:, :7]), iou_thr,
+                                  None if labels is None else labels[order])
     with span('es.nms.wait'):
         over = over.cpu()
         alive = m.cpu()

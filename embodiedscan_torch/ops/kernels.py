@@ -37,7 +37,8 @@ _CONV_WGMMA = [_P, _P, _L, _I, _P, _L, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I,
 _WGRAD = [_I, _P, _P, _L, _I, _P, _I, _P, _P, _L, _I, _I, _I, _I, _P, _P, _P,
           _P, _P]
 # C entry points: name -> argtypes (every one returns a cudaError_t as int);
-# the _bf16 ones are the bfloat16 variants of K2 and K3
+# the _bf16 ones are the bfloat16 variants of K2 and K3; es_nms_overlap is
+# K4, the rotated NMS's suppression matrix
 _SIGNATURES = {
     'es_join_scan_tile': [],
     'es_join_scan': [_P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
@@ -47,6 +48,7 @@ _SIGNATURES = {
     'es_sparse_conv_wgmma_bf16': _CONV_WGMMA,
     'es_sparse_wgrad': _WGRAD,
     'es_sparse_wgrad_bf16': _WGRAD,
+    'es_nms_overlap': [_P, _P, _I, ctypes.c_float, _P, _P, _P],
 }
 
 # seconds the last build took (0.0 when a cached library was loaded)

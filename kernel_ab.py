@@ -54,6 +54,23 @@ version within chip_smoke's gate (the data ``conv_plan(..., bf16=True)`` and
 ``wgrad_plan(bf16=True)`` were fitted to). Prints one JSON line of sums
 per group; the per-call numbers go to chiprun_out/kernel_ab.jsonl.
 
+    python3 kernel_ab.py --nms
+
+is the card check of K4 (``csrc/nms_overlap.cu``, the rotated NMS's
+suppression matrix), which no cell runs alone. It compares K4's matrix
+with the torch route's (``geometry/iou.py:_suppression_matrix_plain``) on
+the card, on the same inputs: the candidates ``nms3d`` gets in every
+request of ``mv_det3d.serve.v50``'s pool for 12 seeds (the cell's seeded
+weights and scenes), the adversarial sets of
+``tests/test_torch_nms_overlap.py`` at two thresholds, and a set of 512
+labelled pairs whose IoU lies within ~1e-5 of 0.5. It counts mismatches
+(0 expected everywhere), and IoUs that differ in any bit (K4 run at each
+pair's own torch-route IoU and the float below it, on the near set and on
+clipped pairs of the requests). It times K4 on a request's candidates
+(CUDA events, with and without its per-box prep; launches and device ms
+under the profiler) against the torch route, and reads K4's counters:
+the share of the pairs given (j > i) that it clipped.
+
     python3 kernel_ab.py --tf32-control [ROOT]
 
 is the control for chip_smoke's GRAD_GATE: chip_smoke's CPU-against-card
@@ -487,6 +504,145 @@ SINGLE_TF32 = (
      'constexpr int WG_TF32_TERMS = 1;'))
 
 
+NMS_SEEDS = tuple(3_000_000_019 + 7_919 * i for i in range(12))
+
+
+def nms_candidates(seeds, dev):
+    """[(boxes (K, 9), thr, labels)] as ``nms3d`` hands them to
+    ``suppression_matrix`` in mv_det3d.serve.v50's requests
+    (:class:`chip_smoke.NmsInputs`): each seed's model and pool (the cell's
+    weights and scenes), every scene of the pool served once."""
+    from benchmark.harness import cells
+    from benchmark.harness import program as BP
+    from benchmark.harness import spec
+    cell = spec.cell('mv_det3d.serve.v50', spec.benchmark())
+    with cs.NmsInputs() as nms:
+        for seed in seeds:
+            model, pool, _ = cells.serve_setup(cell, seed, dev)
+            with torch.no_grad():
+                for _, batch in pool:
+                    BP.request(model, batch, dev)
+            del model, pool
+            torch.cuda.empty_cache()
+    return nms.calls
+
+
+def near_threshold_set(thr=0.5, pairs=512, seed=0):
+    """(2 pairs, 9) yaw boxes and labels: pair m is boxes 2m, 2m + 1, of
+    label m, the second the first moved along its own x axis by the
+    distance that gives IoU ``thr``, times 1 +- 2e-5."""
+    rng = np.random.RandomState(seed)
+    a = np.zeros((pairs, 9))
+    a[:, :3] = rng.uniform(0, 8, (pairs, 3))
+    a[:, 3:6] = rng.uniform(0.2, 2.0, (pairs, 3))
+    a[:, 6] = rng.uniform(-np.pi, np.pi, pairs)
+    shift = a[:, 3] * (1 - thr) / (1 + thr) * (
+        1 + rng.uniform(-2e-5, 2e-5, pairs))
+    b = a.copy()
+    b[:, 0] += shift * np.cos(a[:, 6])
+    b[:, 1] += shift * np.sin(a[:, 6])
+    boxes = np.stack([a, b], 1).reshape(2 * pairs, 9).astype(np.float32)
+    return boxes, np.repeat(np.arange(pairs), 2)
+
+
+def _iou_bits_diff(I, b9, labels, pairs):
+    """Pairs (i, j) whose K4 IoU differs from the torch route's in any bit:
+    K4 over (i, j) must be false at the torch IoU v and true at the float
+    below v."""
+    iou = I.boxes3d_iou(b9, b9).cpu().numpy()
+    fields, lab = I.nms_fields(b9, labels)
+    bad = 0
+    for i, j in pairs:
+        v = np.float32(iou[i, j])
+        below = np.nextafter(v, np.float32(-np.inf))
+        at_v = bool(I._nms_overlap_cuda(fields, lab, float(v))[i, j])
+        at_below = bool(I._nms_overlap_cuda(fields, lab, float(below))[i, j])
+        bad += int(at_v or not at_below)
+    return bad
+
+
+def nms_check(dev):
+    """The ``--nms`` mode: K4 against the torch route on the card ``dev``."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), 'tests'))
+    from test_torch_nms_overlap import SETS, _set
+    from embodiedscan_torch.geometry import iou as I
+    counts = I.suppression_matrix.pair_counts
+    t0 = time.perf_counter()
+    cands = nms_candidates(NMS_SEEDS, dev)
+    torch.cuda.synchronize()
+    served_s = time.perf_counter() - t0
+    before = counts[dev.index].tolist()
+    req, bits_pairs, per_req = [], [], []
+    for n, (b9, thr, labels) in enumerate(cands):
+        got = I.suppression_matrix(b9, thr, labels)
+        want = I._suppression_matrix_plain(b9, thr, labels)
+        req.append(int((got != want).sum()))
+        per_req.append(int(want.sum()))
+        if n < 4:  # clipped pairs of the first requests for the bit check
+            iou = I.boxes3d_iou(b9, b9)
+            same = labels[:, None] == labels[None, :]
+            ii, jj = torch.nonzero(torch.triu((iou > 0) & same, 1),
+                                   as_tuple=True)
+            bits_pairs.append((b9, labels, list(zip(ii.tolist()[:64],
+                                                    jj.tolist()[:64]))))
+    after = counts[dev.index].tolist()
+    clipped, given = after[0] - before[0], after[1] - before[1]
+    adv = {}
+    for idx in range(len(SETS)):
+        boxes, labels = _set(idx)
+        b9 = torch.from_numpy(boxes).to(dev)
+        lab = None if labels is None else torch.from_numpy(labels).to(dev)
+        for thr in (0.25, 0.5):
+            got = I.suppression_matrix(b9, thr, lab)
+            want = I._suppression_matrix_plain(b9, thr, lab)
+            adv[f'set{idx}@{thr}'] = int((got != want).sum())
+    boxes, labels = near_threshold_set()
+    b9 = torch.from_numpy(boxes).to(dev)
+    lab = torch.from_numpy(labels).to(dev)
+    iou = I.boxes3d_iou(b9, b9).cpu().numpy()
+    pair_iou = iou[np.arange(0, len(boxes), 2), np.arange(1, len(boxes), 2)]
+    near = dict(pairs=len(pair_iou),
+                within_1e5=int((np.abs(pair_iou - 0.5) < 1e-5).sum()),
+                mismatches=int((I.suppression_matrix(b9, 0.5, lab) !=
+                                I._suppression_matrix_plain(b9, 0.5, lab))
+                               .sum().item()))
+    near['iou_bits_diff'] = _iou_bits_diff(
+        I, b9, lab, [(2 * m, 2 * m + 1) for m in range(len(pair_iou))])
+    req_bits = sum(_iou_bits_diff(I, b, lb, pr) for b, lb, pr in bits_pairs)
+    # timing on the first request's candidates (the main path's shape)
+    b9, thr, labels = cands[0]
+    fields, lab = I.nms_fields(b9, labels)
+    timing = dict(
+        k=int(b9.shape[0]),
+        k4_ms=cs.cuda_ms(lambda: I.suppression_matrix(b9, thr, labels),
+                         reps=50),
+        k4_kernel_ms=cs.cuda_ms(lambda: I._nms_overlap_cuda(fields, lab, thr),
+                                reps=50),
+        k4_host_ms=host_ms(lambda: I.suppression_matrix(b9, thr, labels)),
+        torch_ms=cs.cuda_ms(
+            lambda: I._suppression_matrix_plain(b9, thr, labels), reps=3,
+            warmup=1))
+    launches, dev_ms = cs.device_profile(
+        lambda: I.suppression_matrix(b9, thr, labels))
+    _, _, by_kernel = _profile_by_kernel(
+        lambda: I._nms_overlap_cuda(fields, lab, thr))
+    t_launches, t_dev_ms = cs.device_profile(
+        lambda: I._suppression_matrix_plain(b9, thr, labels))
+    timing.update(k4_launches=launches, k4_device_ms=dev_ms,
+                  k4_kernel_device_ms=by_kernel.get('nms_overlap'),
+                  torch_launches=t_launches, torch_device_ms=t_dev_ms)
+    return dict(
+        requests=len(cands), seeds=len(NMS_SEEDS), served_s=served_s,
+        request_mismatches=sum(req), worst_request=max(req),
+        over_pairs_per_request=[min(per_req), max(per_req)],
+        request_iou_bits_diff=req_bits,
+        request_bits_pairs=sum(len(p) for _, _, p in bits_pairs),
+        clipped=clipped, given=given, clipped_share=clipped / max(given, 1),
+        adversarial_mismatches=adv, near_threshold=near, timing=timing,
+        launches=I.suppression_matrix.launches)
+
+
 def tf32_control(root):
     """chip_smoke's train parity from ROOT, from a copy with every 3xTF32
     product cut to single TF32 and from one with K3's products alone cut."""
@@ -522,7 +678,8 @@ def main(argv):
     plans = '--plans' in argv
     cont = '--cont' in argv
     mode = next((a for a in argv if a in ('--tf32-control', '--train',
-                                          '--train-parity', '--bf16')), None)
+                                          '--train-parity', '--bf16',
+                                          '--nms')), None)
     args = [a for a in argv if a not in ('--plans', '--cont', mode)]
     root = os.path.abspath(args[0] if args else os.path.dirname(
         os.path.abspath(__file__)))
@@ -541,6 +698,14 @@ def main(argv):
         _, _, _, worst = cs.train_parity('cuda')
         print(json.dumps(dict(card=card, worst={
             k: dict(ratio=r, leaf=p) for k, (r, p) in worst.items()})))
+        return 0
+    if mode == '--nms':
+        result = dict(card=card, mode='nms', **nms_check(
+            torch.device('cuda', torch.cuda.current_device())))
+        os.makedirs(cs.OUT_DIR, exist_ok=True)
+        with open(os.path.join(cs.OUT_DIR, 'kernel_ab.jsonl'), 'a') as f:
+            f.write(json.dumps(result) + '\n')
+        print(json.dumps(result))
         return 0
     if mode == '--bf16':
         rows = time_bf16(S, record_bf16(S, P, cont), plans)
