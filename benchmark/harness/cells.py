@@ -64,31 +64,33 @@ def _change_norms(model, plan, seed, names, device) -> dict:
 def run_train(cell, seed, seconds, trace, device, t_start, control=False,
               faults=None):
     conf, t, work = cell['conf'], cell['traffic'], cell['work']
+    task, bench_dir = cell['task'], cell['bench_dir']
     n_checked = work['checked_steps']
     if t['pool'] < n_checked:
         raise ValueError('the pool must hold a batch for every checked step')
     marks = [('start', time.perf_counter())]
-    plan = W.plan(conf['model'], work.get('init'))
+    plan = W.plan(task, conf['model'], work.get('init'))
     model, opt = P.build(conf, True, seed, device, plan)
     marks.append(('model', time.perf_counter()))
-    pool = G.pool(t, conf, seed, device)
+    pool = G.pool(t, conf, seed, device, bench_dir)
     marks.append(('pool', time.perf_counter()))
     step = (faults or {}).get('train_step', P.train_step)
     if control:
         P.set_control(True)
     losses, grad = [], None
-    for i in range(n_checked):
-        out = step(model, opt, pool[i])
-        losses.append({k: float(v) for k, v in out.items()
-                       if k != 'loss_total'})
-        if i == 0:
-            grad = C.program_train_readings(model, opt)
-        marks.append((f'step {i + 1}', time.perf_counter()))
+    with C.watch_train(task, model) as watched:
+        for i in range(n_checked):
+            out = step(model, opt, pool[i])
+            losses.append({k: float(v) for k, v in out.items()
+                           if k != 'loss_total'})
+            if i == 0:
+                grad = C.program_train_readings(model, opt)
+            marks.append((f'step {i + 1}', time.perf_counter()))
     change = _change_norms(model, plan, seed, set(grad), device)
     marks.append(('change', time.perf_counter()))
     log('set-up: ' + ', '.join(f'{name} {t1 - t0:.2f} s' for (_, t0), (
         name, t1) in zip([('import', t_start)] + marks, marks)))
-    prog = dict(losses=losses, grad=grad, change=change)
+    prog = dict(losses=losses, grad=grad, change=change, watched=watched)
     res = dict(metrics={}, attempted=0, failed=0)
     b = t['batch']
     if not trace:
@@ -118,8 +120,9 @@ def run_train(cell, seed, seconds, trace, device, t_start, control=False,
     _free()
     t_ref = time.perf_counter()
     ref = C.reference_train(
-        conf, plan, seed,
-        lambda: (G.batch(t, conf, seed, i, device) for i in range(n_checked)),
+        task, conf, plan, seed,
+        lambda: (G.batch(t, conf, seed, i, device, bench_dir)
+                 for i in range(n_checked)),
         device)
     log(f'reference: {n_checked} steps in {time.perf_counter() - t_ref:.1f} s')
     for side, r in (('program', prog), ('reference', ref)):
@@ -131,7 +134,7 @@ def run_train(cell, seed, seconds, trace, device, t_start, control=False,
         log(f'losses step {i + 1}: ' + ', '.join(
             f'{k} {lp[k]!r} / {lr[k]!r}' for k in lr) + ' (program / reference)')
     res['numbers'] = C.compare_train(prog, ref, work['loss_steps'],
-                                     work.get('update', 'worst'))
+                                     work.get('update', 'worst'), task)
     moved = C.moved_leaves(ref['grad'])
     log('readings: loss_gap by step ' + ', '.join(
         f'{C.loss_gap([lp], [lr])[0]!r}' for lp, lr in
@@ -166,12 +169,12 @@ def serve_setup(cell, seed, device):
     """The served model with the seed's weights, and the pool of requests
     in (pinned, on a card) host memory: [(tensors, numpy views)]."""
     conf, t = cell['conf'], cell['traffic']
-    plan = W.plan(conf['model'], cell['work'].get('init'))
+    plan = W.plan(cell['task'], conf['model'], cell['work'].get('init'))
     model, _ = P.build(conf, False, seed, device, plan)
     pinned = torch.device(device).type == 'cuda'
     pool_np = []
     for i in range(t['pool']):
-        b = G.batch(t, conf, seed, i, device)
+        b = G.batch(t, conf, seed, i, device, cell['bench_dir'])
         host = {k: (v.cpu().pin_memory() if pinned else v.cpu())
                 for k, v in b.items()}
         pool_np.append((host, {k: v.numpy() for k, v in host.items()}))
@@ -182,6 +185,7 @@ def serve_setup(cell, seed, device):
 def run_serve(cell, seed, seconds, trace, device, t_start, control=False,
               faults=None):
     conf, t, work = cell['conf'], cell['traffic'], cell['work']
+    task = cell['task']
     model, pool_np, plan = serve_setup(cell, seed, device)
     request = (faults or {}).get('request', P.request)
     if control:
@@ -228,23 +232,16 @@ def run_serve(cell, seed, seconds, trace, device, t_start, control=False,
     from ..reference import build as R
     R.plain_float32()
     with torch.device(device):
-        ref_model = R.build_model(conf['model'], max_dets=conf['model'].get(
-            'max_candidates')).eval()
+        ref_model = task.build(conf['model'], serve=True).eval()
     W.load(ref_model, plan, seed)
-    refs = {s: R.predict(ref_model, G.batch(t, conf, seed, s, device))
+    refs = {s: task.predict(ref_model, G.batch(t, conf, seed, s, device,
+                                               cell['bench_dir']))
             for s in scenes}
     log(f'reference: {len(scenes)} scenes in '
         f'{time.perf_counter() - t_ref:.1f} s')
-    if conf['model']['task'] == 'mv_occ':
-        res['numbers'] = C.compare_occ(
-            outs, [(i, outs[i][0], lg) for i, lg in kept.logits], refs)
-    else:
-        s, keep = outs[0][1]['scores'][0], outs[0][1]['mask'][0]
-        log(f'request 0 served scores {float(s[0])!r} to {float(s[-1])!r}, '
-            f'{int((s > work["score_thr"]).sum())} live, {int(keep.sum())} '
-            f'kept')
-        res['numbers'] = C.compare_det(outs, refs, work['score_thr'],
-                                       device)
+    res['numbers'] = task.compare_serve(
+        outs, [(i, outs[i][0], lg) for i, lg in kept.logits], refs, work,
+        device)
     return res
 
 

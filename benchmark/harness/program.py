@@ -46,14 +46,13 @@ def _no_host_init():
 STEPS_PER_EPOCH = 1000
 
 
-def build(conf: dict, train: bool, seed: int, device, plan=None):
+def build(conf: dict, train: bool, seed: int, device, plan: list):
     """(model, optimizer or None) of the configuration on ``device``, the
-    weights of ``plan`` (default: the configuration's rule) under ``seed``
-    loaded; the model in training mode with its optimizer for ``train``,
-    else in eval mode."""
+    weights of ``plan`` (``weights.plan``) under ``seed`` loaded; the model
+    in training mode with its optimizer for ``train``, else in eval
+    mode."""
     from embodiedscan_torch.configs.base import build_model, build_train
     cfg = port_config(conf)
-    plan = plan or W.plan(conf['model'])
     with _no_host_init(), torch.device(device):
         if train:
             model, opt = build_train(cfg, device=device,

@@ -1,8 +1,11 @@
 """Finds the benchmark's parts by name: ``BENCHMARK.json`` at the root of
 the checkout, ``configs/<config>.json``, ``workloads/<cell>.json``,
-``traffic/<traffic>.json`` and one reader per per-layer metric,
-``metrics/<metric>.py``. A later change adds a configuration, a cell, a
-traffic mix or a metric by adding such files and entries, never code here.
+``traffic/<traffic>.json``, one reader per per-layer metric,
+``metrics/<metric>.py``, one file per task, ``tasks/<task>.py`` (the
+configuration's ``model.task``), and one per scene kind,
+``traffic/scenes/<scene>.py`` (read by ``traffic/generate.py``). A later
+change adds a configuration, a cell, a traffic mix, a metric, a task or a
+scene kind by adding such files and entries, never code here.
 """
 
 import hashlib
@@ -35,21 +38,56 @@ def traffic(name: str, bench_dir: Path = BENCH_DIR) -> dict:
     return read_json(bench_dir / 'traffic' / f'{name}.json')
 
 
-def metric_reader(name: str, bench_dir: Path = BENCH_DIR):
-    """The ``read(ctx)`` function of ``metrics/<name>.py``."""
-    path = bench_dir / 'metrics' / f'{name}.py'
-    spec = importlib.util.spec_from_file_location(
-        'benchmark_metric_' + name.replace('.', '_').replace('-', '_'), path)
+def load_file(kind: str, path: Path):
+    """The module of the Python file ``path``, loaded by path (so that a
+    checkout other than this one can bring its own); fails naming the file
+    where there is none."""
+    if not path.is_file():
+        raise FileNotFoundError(f'no {kind} file {path}')
+    name = f'benchmark_{kind}_' + path.stem.replace('.', '_').replace('-', '_')
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def metric_reader(name: str, bench_dir: Path = BENCH_DIR):
+    """The ``read(ctx)`` function of ``metrics/<name>.py``."""
+    return load_file('metric', bench_dir / 'metrics' / f'{name}.py').read
+
+
+def task(name: str, bench_dir: Path = BENCH_DIR):
+    """The module ``tasks/<name>.py``: all that the harness does
+    differently for one task. It defines
+
+    - ``build(model, serve=False)``: the plain reference's model of a
+      configuration's ``model`` section, on the current default device,
+      with its constructed weights; ``serve``: as the serving check runs it;
+    - ``trained(name)``: whether the parameter ``name`` is trained;
+    - ``predict(model, batch)``: the reference's served outputs of a batch;
+    - ``compare_serve(outs, logits, refs, work, device)``: {number: (value,
+      where)} of a serving cell: ``outs`` [(scene, the program's outputs)]
+      of every request, ``logits`` [(request, scene, per-scale logits)] of
+      the sampled requests (``_Logits`` in ``cells.py``), ``refs`` scene ->
+      :func:`predict`'s outputs, ``work`` the cell's file;
+
+    and where it needs them
+
+    - ``weight_rules(ref)``: {parameter: ('normal', std) or ('const',
+      fill)} over the generic rule of ``weights.py``, for the model that
+      ``build`` made (on the meta device);
+    - ``watch_train(model)``: a context manager, entered around the checked
+      training steps of the program and of the reference, that yields a dict
+      it fills; and ``compare_train(prog, ref)``: {number: (value, where)}
+      from the two dicts, beside the generic training numbers."""
+    return load_file('task', bench_dir / 'tasks' / f'{name}.py')
 
 
 def cell(name: str, bench: dict, bench_dir: Path = BENCH_DIR) -> dict:
     """Everything one run of the cell ``name`` needs: its entry in
     ``BENCHMARK.json``, its workload file, its configuration and traffic
-    files, and the names of the end-to-end and per-layer metrics it
-    reports."""
+    files, its configuration's task file, the folder they were read from,
+    and the names of the end-to-end and per-layer metrics it reports."""
     entry = next((w for w in bench['workloads'] if w['name'] == name), None)
     if entry is None:
         raise KeyError(f'no workload {name!r} in BENCHMARK.json')
@@ -60,10 +98,11 @@ def cell(name: str, bench: dict, bench_dir: Path = BENCH_DIR) -> dict:
         return [m for m in metrics
                 if name in m.get('workloads', [name])]
 
+    conf = read_json(bench_dir.parent / conf_entry['file'])
     return dict(
         name=name, entry=entry, chips=entry['chips'],
-        work=workload(name, bench_dir),
-        conf=read_json(bench_dir.parent / conf_entry['file']),
+        work=workload(name, bench_dir), conf=conf,
+        task=task(conf['model']['task'], bench_dir), bench_dir=bench_dir,
         traffic=traffic(entry['traffic'], bench_dir),
         end_to_end=reported(bench['end_to_end']),
         per_layer=reported(bench['per_layer']),

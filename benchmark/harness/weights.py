@@ -3,10 +3,10 @@ the program and to the plain reference by parameter name.
 
 The rule follows the port's own initialization (He fan-out normal for the
 sparse kernels and dense layers, LeCun normal for the 2D and 3D convs,
-N(0, 0.01) head projections with the prior-probability class bias, zero
-biases, norms at identity). It is read off the reference's modules, built
-on the meta device, so it holds no memory and needs nothing of the
-program.
+zero biases, norms at identity), with the task file's own rules over it
+(``weight_rules``: a head's projections, say). It is read off the
+reference's modules, built on the meta device by the task file, so it
+holds no memory and needs nothing of the program.
 """
 
 import math
@@ -14,57 +14,55 @@ import math
 import torch
 from torch import nn
 
-from ..reference import build as R
-from ..reference.models.fcaf3d import _CLS_BIAS, FCAF3DHead
 from .spec import sub_seed
 
 CHUNK = 1 << 26   # elements drawn per call
 
 
-def plan(model: dict, init: dict | None = None) -> list:
+def plan(task, model: dict, init: dict | None = None) -> list:
     """[(name, shape, kind, value)]: kind 'normal' (value = std) or
     'const' (value = fill), for every parameter of the configuration's
-    model, in a fixed order. ``init``: a cell's own standard deviations
-    by parameter name (a workload file's ``init``), over the rule."""
+    model, in a fixed order. ``task``: the cell's task file, which builds
+    the model and may set rules of its own over the generic one;
+    ``init``: a cell's own standard deviations by parameter name (a
+    workload file's ``init``), over both."""
     with torch.device('meta'):
-        ref = R.build_model(model)
+        ref = task.build(model)
     rules = {}
     for mod_name, mod in ref.named_modules():
         pre = mod_name + '.' if mod_name else ''
         for pname, p in mod.named_parameters(recurse=False):
-            name = pre + pname
-            if pname == 'kernel':              # sparse conv (K, Cin, Cout)
-                rules[name] = ('normal', math.sqrt(2.0 / (p.shape[0] *
-                                                          p.shape[2])))
-            elif pname.endswith('_tconv'):
-                rules[name] = ('normal', math.sqrt(2.0 / (8 * p.shape[-1])))
-            elif isinstance(mod, nn.Linear) and pname == 'weight':
-                rules[name] = ('normal', math.sqrt(2.0 / mod.out_features))
-            elif isinstance(mod, nn.ConvTranspose3d) and pname == 'weight':
-                rules[name] = ('normal', math.sqrt(1.0 / (
-                    p.shape[0] * p[0, 0].numel())))
-            elif isinstance(mod, (nn.Conv2d, nn.Conv3d)) and \
-                    pname == 'weight':
-                rules[name] = ('normal', math.sqrt(1.0 / p[0].numel()))
-            elif pname in ('bias', ):
-                rules[name] = ('const', 0.0)
-            elif pname in ('scale', 'weight', 'scales'):
-                rules[name] = ('const', 1.0)
-            else:
-                raise ValueError(f'no weight rule for {name}')
-    # the head projections last, over the generic rule of their layers
-    # (``named_modules`` yields the head before its children)
-    for mod_name, mod in ref.named_modules():
-        if isinstance(mod, FCAF3DHead):
-            pre = mod_name + '.' if mod_name else ''
-            for lin in ('conv_center', 'conv_reg', 'conv_cls'):
-                rules[f'{pre}{lin}.weight'] = ('normal', 0.01)
-            rules[f'{pre}conv_cls.bias'] = ('const', _CLS_BIAS)
+            rule = _generic(mod, pname, p)
+            if rule is not None:
+                rules[pre + pname] = rule
+    rules.update(getattr(task, 'weight_rules', lambda ref: {})(ref))
+    for name, _ in ref.named_parameters():
+        if name not in rules:
+            raise ValueError(f'no weight rule for {name}')
     for name, std in (init or {}).items():
         if name not in rules:
             raise ValueError(f'init names no parameter: {name}')
         rules[name] = ('normal', float(std))
     return [(n, tuple(p.shape)) + rules[n] for n, p in ref.named_parameters()]
+
+
+def _generic(mod, pname: str, p):
+    """The generic rule of the parameter ``pname`` of ``mod``, or None."""
+    if pname == 'kernel':              # sparse conv (K, Cin, Cout)
+        return 'normal', math.sqrt(2.0 / (p.shape[0] * p.shape[2]))
+    if pname.endswith('_tconv'):
+        return 'normal', math.sqrt(2.0 / (8 * p.shape[-1]))
+    if isinstance(mod, nn.Linear) and pname == 'weight':
+        return 'normal', math.sqrt(2.0 / mod.out_features)
+    if isinstance(mod, nn.ConvTranspose3d) and pname == 'weight':
+        return 'normal', math.sqrt(1.0 / (p.shape[0] * p[0, 0].numel()))
+    if isinstance(mod, (nn.Conv2d, nn.Conv3d)) and pname == 'weight':
+        return 'normal', math.sqrt(1.0 / p[0].numel())
+    if pname in ('bias', ):
+        return 'const', 0.0
+    if pname in ('scale', 'weight', 'scales'):
+        return 'const', 1.0
+    return None
 
 
 def values(pl: list, seed: int, device):

@@ -17,6 +17,10 @@ import embodiedscan_torch.configs.base, embodiedscan_torch.train.state
 import embodiedscan_torch.data.loader, embodiedscan_torch.ops.sparse
 for m in spec.benchmark()['per_layer']:
     spec.metric_reader(m['name'])
+for path in sorted((spec.BENCH_DIR / 'tasks').glob('*.py')):
+    spec.task(path.stem)
+for path in sorted((spec.BENCH_DIR / 'traffic' / 'scenes').glob('*.py')):
+    spec.load_file('scene', path)
 print(','.join(run.forbidden_modules()))
 '''
 

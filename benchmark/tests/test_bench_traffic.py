@@ -1,6 +1,7 @@
 """The traffic generator: the same seed gives the same scenes, another
 seed others, and every scene of a kind has the same sizes."""
 
+import pytest
 import torch
 
 from benchmark.harness import spec
@@ -59,3 +60,10 @@ def test_arrivals_fixed_rate():
 def test_sub_seed_large_seeds():
     assert spec.sub_seed(2**33, 'a') != spec.sub_seed(2**33, 'b')
     assert 0 <= spec.sub_seed(2**33 + 1, 'a') < 2**63
+
+
+def test_scene_kind_without_file_fails_naming_it():
+    with pytest.raises(FileNotFoundError, match='scenes/no_room.py'):
+        G.scene(dict(DET, scene='no_room'), CONF, 1, 0, 'cpu')
+    with pytest.raises(FileNotFoundError, match='tasks/no_task.py'):
+        spec.task('no_task')
