@@ -114,6 +114,12 @@ class ModelConfig:
     text_layers: int = 12
     text_hidden: int = 768
     text_heads: int = 12
+    # RoBERTa's word-embedding rows and LayerNorm epsilon. The defaults are
+    # the JAX package's (BERT's 30522 rows, HF's RobertaConfig default
+    # 1e-12); the mv_grounding presets set roberta-base's published 50265
+    # and 1e-5 (its config.json)
+    text_vocab_size: int = 30522
+    text_ln_eps: float = 1e-12
     # rematerialization (models/remat.py): 'none' | '2d' | '3d' | 'all'
     # (True = 'all'). The reference's presets set '2d' (and 'all' for
     # cont_occ), sized for a 16 GB chip; on the 80 GB card every preset
@@ -197,10 +203,13 @@ def cont_det3d() -> Config:
 
 
 def mv_grounding() -> Config:
-    """configs/grounding/mv-grounding_8xb12_embodiedscan-vg-9dof.py."""
+    """configs/grounding/mv-grounding_8xb12_embodiedscan-vg-9dof.py, its
+    text encoder roberta-base as published (50265 rows, eps 1e-5)."""
     cfg = Config()
     cfg.model.task = 'mv_grounding'
     cfg.model.fpn_capacities = (1024, 1024, 1024, 2048)
+    cfg.model.text_vocab_size = 50265
+    cfg.model.text_ln_eps = 1e-5
     cfg.data.batch_size = 12
     # 64 padded gt boxes bound every published prompt family
     cfg.data.max_boxes = 64
@@ -315,6 +324,7 @@ def build_model(cfg: Config, device='cuda', img_dtype=torch.float32,
             resnet_depth=m.resnet_depth, mink_depth=m.mink_depth,
             text_arch=m.text_arch, text_layers=m.text_layers,
             text_hidden=m.text_hidden, text_heads=m.text_heads,
+            text_vocab_size=m.text_vocab_size, text_ln_eps=m.text_ln_eps,
             freeze_text=m.freeze_text, box_coder=m.box_coder,
             matcher=m.matcher, iou_cost_capacity=m.iou_cost_capacity,
             cost_cls_weight=m.cost_cls_weight,

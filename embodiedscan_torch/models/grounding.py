@@ -32,13 +32,14 @@ from ..geometry.iou import paired_iou_pruned
 from ..geometry.rotations import rotation_3d_in_euler
 from ..ops import sparse as S
 from ..ops.hungarian import auction_match, hungarian_match
+from ..utils.trace import span
 from .attention import MultiHeadDotProductAttention
 from .fcaf3d import _CLS_BIAS, fpn_up_block
 from .losses import bbox_cd_loss
 from .match_costs import bbox3d_l1_cost, binary_focal_cost
 from .norm import MaskedBatchNorm
 from .sparse_nn import SparseConv
-from .text import FLAX_LN_EPS, TextEncoder
+from .text import FLAX_LN_EPS, ROBERTA_LN_EPS, TextEncoder
 from .trunk import STRIDES, SparseFusionTrunk
 
 _NEG_INF = -1e4
@@ -47,7 +48,14 @@ _NEG_INF = -1e4
 class MinkNeck(nn.Module):
     """Sparse FPN neck emitting (feats, scores, xyz, mask) per location,
     levels concatenated fine to coarse; one ``conv_cls`` shared by all
-    levels scores the locations for the next level's prune."""
+    levels scores the locations for the next level's prune.
+
+    ``MinkNeck.live_counts``: device index -> int64 scalar on that
+    device, the live locations the neck emitted, added on the device by
+    every forward (out of the mask's width a sample, a shape known on the
+    host); read it off the hot path (reading waits for the device)."""
+
+    live_counts = {}
 
     def __init__(self, in_channels, out_channels: int = 256,
                  voxel_size: float = 0.01, strides=STRIDES,
@@ -75,6 +83,20 @@ class MinkNeck(nn.Module):
                 self.add_module(f'{name}_bn2', MaskedBatchNorm(cin))
 
     def forward(self, inputs):
+        with span('es.neck'):
+            out = self._forward(inputs)
+            self._count(out[3])
+            return out
+
+    def _count(self, mask):
+        dev = mask.device
+        live = MinkNeck.live_counts.get(dev.index)
+        if live is None:
+            live = torch.zeros((), dtype=torch.int64, device=dev)
+            MinkNeck.live_counts[dev.index] = live
+        live += mask.sum()
+
+    def _forward(self, inputs):
         n_levels = len(inputs)
         feats_l, scores_l, xyz_l, mask_l = [], [], [], []
         x = inputs[-1]
@@ -226,6 +248,7 @@ class GroundingOutputs(NamedTuple):
     cls: torch.Tensor  # (L, B, Q, T) per-layer token logits
     boxes: torch.Tensor  # (L, B, Q, 9)
     query_mask: torch.Tensor  # (B, Q)
+    query_index: torch.Tensor  # (B, Q) the neck row of each query
 
 
 class SparseFusionGrounder(nn.Module):
@@ -239,6 +262,8 @@ class SparseFusionGrounder(nn.Module):
                  resnet_depth: int = 50, mink_depth: int = 34,
                  text_arch: str = 'roberta', text_layers: int = 12,
                  text_hidden: int = 768, text_heads: int = 12,
+                 text_vocab_size: int = 30522,
+                 text_ln_eps: float = ROBERTA_LN_EPS,
                  freeze_text: bool = True, box_coder: str = 'baseline',
                  matcher: str = 'hungarian', iou_cost_capacity: int = 0,
                  cost_cls_weight: float = 1.0, cost_l1_weight: float = 2.0,
@@ -269,9 +294,11 @@ class SparseFusionGrounder(nn.Module):
                              voxel_size=voxel_size,
                              fpn_capacities=tuple(fpn_capacities))
         self.text_encoder = TextEncoder(embed_dims, arch=text_arch,
+                                        vocab_size=text_vocab_size,
                                         layers=text_layers,
                                         hidden=text_hidden, heads=text_heads,
-                                        frozen=freeze_text)
+                                        frozen=freeze_text,
+                                        ln_eps=text_ln_eps)
         for i in range(num_decoder_layers):
             self.add_module(f'layer{i}', DecoderLayer(embed_dims))
         self.self_posembed = PositionEmbeddingLearned(9, embed_dims)
@@ -284,18 +311,26 @@ class SparseFusionGrounder(nn.Module):
     def select_queries(self, feats, xyz, mask, text_feats, text_mask):
         """The top ``num_queries`` neck locations by their best contrastive
         token score: (query feats, query xyz, query mask, indices)."""
-        enc_cls = self.cls_embed(feats, text_feats, text_mask, mask)
-        sel = torch.where(mask, enc_cls.amax(-1),
-                          enc_cls.new_tensor(float('-inf')))
-        top = top_k_indices(sel, self.num_queries)
-        return (S._take_rows(feats, top), S._take_rows(xyz, top),
-                S._take_rows(mask, top), top)
+        with span('es.select'):
+            enc_cls = self.cls_embed(feats, text_feats, text_mask, mask)
+            sel = torch.where(mask, enc_cls.amax(-1),
+                              enc_cls.new_tensor(float('-inf')))
+            top = top_k_indices(sel, self.num_queries)
+            return (S._take_rows(feats, top), S._take_rows(xyz, top),
+                    S._take_rows(mask, top), top)
 
-    def decoder(self, query, query_coords, query_mask, feats, xyz, mask,
-                text_feats, text_mask) -> GroundingOutputs:
-        """The decoder layers, each refining the boxes from the query
-        locations; per-layer token logits and boxes. The boxes fed back into
-        the next layer's position embedding carry no gradient."""
+    def decoder(self, query, query_coords, query_mask, query_index, feats,
+                xyz, mask, text_feats, text_mask) -> GroundingOutputs:
+        """The decoder layers over the queries :meth:`select_queries`
+        returned, each refining the boxes from the query locations;
+        per-layer token logits and boxes. The boxes fed back into the next
+        layer's position embedding carry no gradient."""
+        with span('es.decoder'):
+            return self._decoder(query, query_coords, query_mask, query_index,
+                                 feats, xyz, mask, text_feats, text_mask)
+
+    def _decoder(self, query, query_coords, query_mask, query_index, feats,
+                 xyz, mask, text_feats, text_mask) -> GroundingOutputs:
         pred_bboxes = self.decode_boxes(query_coords,
                                         self.reg_branch(query)).detach()
         key_pos = self.cross_posembed(xyz, mask)
@@ -311,28 +346,28 @@ class SparseFusionGrounder(nn.Module):
                                           text_feats, text_mask))
             all_boxes.append(new_boxes)
         return GroundingOutputs(torch.stack(all_cls), torch.stack(all_boxes),
-                                query_mask)
+                                query_mask, query_index)
 
     @staticmethod
     def predict(outs: GroundingOutputs) -> dict:
         """The last layer's boxes, each query's best token probability
-        (0 for masked queries), and the query mask."""
+        (0 for masked queries), the query mask and the neck rows the
+        queries came from."""
         scores = torch.sigmoid(outs.cls[-1]).amax(-1)
         scores = torch.where(outs.query_mask, scores,
                              torch.zeros_like(scores))
         return dict(bboxes=outs.boxes[-1], scores=scores,
-                    mask=outs.query_mask)
+                    mask=outs.query_mask, query_index=outs.query_index)
 
     def outputs(self, batch: dict) -> tuple:
-        """(GroundingOutputs, text mask): trunk, neck, text encoder, query
-        selection and decoder."""
+        """(GroundingOutputs, text mask): trunk, neck, text encoder,
+        query selection and decoder."""
         feats, _, xyz, mask = self.neck(self.trunk(batch))
         text_mask = batch['text_mask'] > 0
         text_feats = self.text_encoder(batch['text_ids'], batch['text_mask'])
-        query, coords, qmask, _ = self.select_queries(
-            feats, xyz, mask, text_feats, text_mask)
-        return self.decoder(query, coords, qmask, feats, xyz, mask,
-                            text_feats, text_mask), text_mask
+        queries = self.select_queries(feats, xyz, mask, text_feats, text_mask)
+        return self.decoder(*queries, feats, xyz, mask, text_feats,
+                            text_mask), text_mask
 
     @torch.no_grad()
     def match(self, outs: GroundingOutputs, text_mask: torch.Tensor,
@@ -417,7 +452,7 @@ class SparseFusionGrounder(nn.Module):
         """``'loss'`` (with autograd; needs positive_maps, gt_boxes and
         gt_mask) returns the per-layer losses of :meth:`loss`; ``'feats'``
         (GroundingOutputs) and ``'predict'`` (bboxes (B, Q, 9), scores
-        (B, Q), mask (B, Q)) run without autograd."""
+        (B, Q), mask (B, Q), query_index (B, Q)) run without autograd."""
         if mode == 'loss':
             return self.loss(*self.outputs(batch), batch)
         if mode not in ('feats', 'predict'):

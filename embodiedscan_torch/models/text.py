@@ -8,8 +8,10 @@ The JAX package runs HuggingFace's Flax RoBERTa; the port carries its own
 RoBERTa in PyTorch, with the submodules named as the flax tree
 (``FlaxRobertaModule_0/embeddings/word_embeddings``,
 ``.../encoder/layer/0/attention/self/query``, ...) so weights carry over
-leaf for leaf. Its LayerNorms take HF's ``layer_norm_eps`` 1e-12, the
-tiny arch's take flax's 1e-6; the GELU is the exact (erf) one.
+leaf for leaf. Its LayerNorms take ``ln_eps``: by default HF's
+``RobertaConfig`` default 1e-12, as the JAX package's; the mv_grounding
+presets give roberta-base's published 1e-5 (and its 50265-row vocabulary).
+The tiny arch's take flax's 1e-6; the GELU is the exact (erf) one.
 """
 
 import json
@@ -23,11 +25,12 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..utils.trace import span
 from .attention import MultiHeadDotProductAttention, dot_product_attention
 
 _TOKEN_RE = re.compile(r"\w+|[^\w\s]")
 
-ROBERTA_LN_EPS = 1e-12  # RobertaConfig.layer_norm_eps
+ROBERTA_LN_EPS = 1e-12  # RobertaConfig's default layer_norm_eps
 FLAX_LN_EPS = 1e-6  # flax nn.LayerNorm's default
 
 
@@ -273,12 +276,13 @@ def build_positive_maps(tokenizer, texts: List[str],
 class _Embeddings(nn.Module):
     """Word + token-type + position embeddings, then LayerNorm."""
 
-    def __init__(self, vocab_size, hidden, max_positions, type_vocab_size):
+    def __init__(self, vocab_size, hidden, max_positions, type_vocab_size,
+                 ln_eps):
         super().__init__()
         self.word_embeddings = nn.Embedding(vocab_size, hidden)
         self.position_embeddings = nn.Embedding(max_positions, hidden)
         self.token_type_embeddings = nn.Embedding(type_vocab_size, hidden)
-        self.LayerNorm = nn.LayerNorm(hidden, eps=ROBERTA_LN_EPS)
+        self.LayerNorm = nn.LayerNorm(hidden, eps=ln_eps)
 
     def forward(self, input_ids, token_type_ids, position_ids):
         h = (self.word_embeddings(input_ids) +
@@ -306,10 +310,10 @@ class _SelfAttention(nn.Module):
 class _DenseNorm(nn.Module):
     """``LayerNorm(dense(h) + residual)`` (HF's SelfOutput and Output)."""
 
-    def __init__(self, cin, cout):
+    def __init__(self, cin, cout, ln_eps):
         super().__init__()
         self.dense = nn.Linear(cin, cout)
-        self.LayerNorm = nn.LayerNorm(cout, eps=ROBERTA_LN_EPS)
+        self.LayerNorm = nn.LayerNorm(cout, eps=ln_eps)
 
     def forward(self, h, residual):
         return self.LayerNorm(self.dense(h) + residual)
@@ -317,11 +321,11 @@ class _DenseNorm(nn.Module):
 
 class _Attention(nn.Module):
 
-    def __init__(self, hidden, heads):
+    def __init__(self, hidden, heads, ln_eps):
         super().__init__()
         # 'self' is the flax name; reached through getattr
         self.add_module('self', _SelfAttention(hidden, heads))
-        self.output = _DenseNorm(hidden, hidden)
+        self.output = _DenseNorm(hidden, hidden, ln_eps)
 
     def forward(self, x, bias):
         return self.output(getattr(self, 'self')(x, bias), x)
@@ -339,11 +343,11 @@ class _Intermediate(nn.Module):
 
 class _Layer(nn.Module):
 
-    def __init__(self, hidden, heads):
+    def __init__(self, hidden, heads, ln_eps):
         super().__init__()
-        self.attention = _Attention(hidden, heads)
+        self.attention = _Attention(hidden, heads, ln_eps)
         self.intermediate = _Intermediate(hidden, 4 * hidden)
-        self.output = _DenseNorm(4 * hidden, hidden)
+        self.output = _DenseNorm(4 * hidden, hidden, ln_eps)
 
     def forward(self, x, bias):
         a = self.attention(x, bias)
@@ -352,9 +356,9 @@ class _Layer(nn.Module):
 
 class _Encoder(nn.Module):
 
-    def __init__(self, hidden, layers, heads):
+    def __init__(self, hidden, layers, heads, ln_eps):
         super().__init__()
-        self.layer = nn.ModuleList(_Layer(hidden, heads)
+        self.layer = nn.ModuleList(_Layer(hidden, heads, ln_eps)
                                    for _ in range(layers))
 
     def forward(self, x, bias):
@@ -367,14 +371,15 @@ class RobertaModule(nn.Module):
     """HF ``FlaxRobertaModule`` without the pooler (eval: no dropout):
     ``(input_ids, attention_mask, token_type_ids, position_ids)`` ->
     last hidden state (B, L, hidden). Padded keys get the additive bias
-    float32-min, as HF's."""
+    float32-min, as HF's. ``ln_eps``: every LayerNorm's epsilon."""
 
     def __init__(self, vocab_size, hidden, layers, heads,
-                 max_positions=514, type_vocab_size=1):
+                 max_positions=514, type_vocab_size=1,
+                 ln_eps=ROBERTA_LN_EPS):
         super().__init__()
         self.embeddings = _Embeddings(vocab_size, hidden, max_positions,
-                                      type_vocab_size)
-        self.encoder = _Encoder(hidden, layers, heads)
+                                      type_vocab_size, ln_eps)
+        self.encoder = _Encoder(hidden, layers, heads, ln_eps)
 
     def forward(self, input_ids, attention_mask, token_type_ids,
                 position_ids):
@@ -390,22 +395,25 @@ class TextEncoder(nn.Module):
 
     Args:
         arch: 'roberta' (RoBERTa of ``layers`` x ``hidden``, ``heads``
-            heads, vocabulary ``vocab_size``) or 'tiny' (the JAX package's
-            small pre-norm transformer, for tests).
+            heads, vocabulary ``vocab_size``, LayerNorm epsilon
+            ``ln_eps``) or 'tiny' (the JAX package's small pre-norm
+            transformer, for tests, its norms at flax's 1e-6).
         frozen: detach the encoder's output (the projection stays
             trainable), the reference's lr_mult 0.
     """
 
     def __init__(self, embed_dims: int = 256, arch: str = 'roberta',
                  vocab_size: int = 30522, hidden: int = 768,
-                 layers: int = 12, heads: int = 12, frozen: bool = True):
+                 layers: int = 12, heads: int = 12, frozen: bool = True,
+                 ln_eps: float = ROBERTA_LN_EPS):
         super().__init__()
         self.arch = arch
         self.layers = layers
         self.frozen = frozen
         if arch == 'roberta':
             self.FlaxRobertaModule_0 = RobertaModule(vocab_size, hidden,
-                                                     layers, heads)
+                                                     layers, heads,
+                                                     ln_eps=ln_eps)
             self.proj_name = 'Dense_0'
         elif arch == 'tiny':
             self.add_module('Embed_0', nn.Embedding(vocab_size, hidden))
@@ -442,13 +450,14 @@ class TextEncoder(nn.Module):
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: torch.Tensor) -> torch.Tensor:
         """(B, L) token ids and 0/1 mask -> (B, L, embed_dims)."""
-        if self.arch == 'roberta':
-            mask = attention_mask.long()
-            hidden = self.FlaxRobertaModule_0(
-                input_ids, mask, torch.zeros_like(input_ids),
-                torch.cumsum(mask, -1) * mask + 1)
-        else:
-            hidden = self._tiny(input_ids, attention_mask)
-        if self.frozen:
-            hidden = hidden.detach()
-        return getattr(self, self.proj_name)(hidden)
+        with span('es.text'):
+            if self.arch == 'roberta':
+                mask = attention_mask.long()
+                hidden = self.FlaxRobertaModule_0(
+                    input_ids, mask, torch.zeros_like(input_ids),
+                    torch.cumsum(mask, -1) * mask + 1)
+            else:
+                hidden = self._tiny(input_ids, attention_mask)
+            if self.frozen:
+                hidden = hidden.detach()
+            return getattr(self, self.proj_name)(hidden)

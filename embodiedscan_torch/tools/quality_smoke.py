@@ -62,6 +62,9 @@ def tiny_cfg(task: str):
     if task == 'mv_grounding':
         m.num_queries = 8
         m.text_arch = 'tiny'
+        # the reference's tiny text encoder has its 30522 rows (the preset's
+        # 50265 are roberta-base's); the hash tokenizer's ids lie below them
+        m.text_vocab_size = 30522
         m.text_layers = 1
         m.text_hidden = 32
         m.text_heads = 2

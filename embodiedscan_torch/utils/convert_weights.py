@@ -510,8 +510,11 @@ def load_roberta_into_variables(model, torch_state_dict,
                                         'FlaxRobertaModule_0'),
                                 src_prefix='text_encoder.'):
     """Converted torch RoBERTa weights onto the grounder's text encoder.
-    The port's vocabulary is 30522 rows, as the JAX package's: a
-    roberta-base checkpoint's 50265-row word embedding is skipped."""
+    Every leaf whose shape matches the encoder's loads: a roberta-base
+    checkpoint's 50265-row word embedding loads into an encoder of that
+    vocabulary (the mv_grounding presets'), and is skipped by one of the
+    JAX package's 30522 rows (``ModelConfig.text_vocab_size``'s
+    default)."""
     params = convert_roberta(torch_state_dict, prefix=src_prefix)
     return _merge_into(model, params, {}, prefix)
 

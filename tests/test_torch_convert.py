@@ -351,6 +351,25 @@ def test_reference_grounder_loads_as_reference(ground_vars, case):
         assert skipped == [WORD] and n == total - 1
 
 
+def test_published_vocabulary_loads_into_a_grounder_of_its_size():
+    """roberta-base's 50265-row word embedding, skipped by the JAX
+    package's 30522-row encoder (above), loads into an encoder of the
+    mv_grounding presets' vocabulary: every tensor taken, the rows as
+    given."""
+    sd = _grounder_sd(50265)
+    model, n, skipped = tC.load_reference_grounder(
+        TG(**GROUND, text_vocab_size=50265).eval(), sd, mink_depth=18,
+        resnet_depth=18, num_layers=2, num_heads=8)
+    total = sum(1 for _ in model.parameters()) + sum(1 for _ in
+                                                     model.buffers())
+    assert skipped == [] and n == total
+    emb = model.text_encoder.FlaxRobertaModule_0.embeddings.word_embeddings
+    want = np.asarray(sd['text_encoder.embeddings.word_embeddings.weight'],
+                      np.float32)
+    assert emb.weight.shape == (50265, GROUND['text_hidden'])
+    np.testing.assert_array_equal(emb.weight.detach().numpy(), want)
+
+
 def test_reference_grounder_skips_the_pooler_subtree():
     # a real grounder checkpoint holds RoBERTa's pooler; the port has none:
     # one skip for the whole subtree, the rest loads as without it

@@ -80,7 +80,10 @@ def test_preset_fields_match_reference(preset):
     """The schedule, data and runtime fields: the same names and values.
     The model fields: every one of the reference's, at the same values but
     ``remat`` (the reference's '2d', or 'all' for cont_occ, the port's
-    'none'); the port adds only the grounding loss's weights."""
+    'none'); the port adds only the grounding loss's weights and the text
+    encoder's vocabulary and norm, which the reference fixes at 30522 rows
+    and 1e-12 and the mv_grounding presets set to roberta-base's 50265
+    and 1e-5."""
     j, t = jcfg.PRESETS[preset](), tcfg.PRESETS[preset]()
     for part in ('schedule', 'data'):
         assert _fields(getattr(t, part)) == _fields(getattr(j, part)), part
@@ -89,7 +92,11 @@ def test_preset_fields_match_reference(preset):
     assert set(jm) <= set(tm)
     assert set(tm) - set(jm) <= {'iou_cost_capacity', 'cost_cls_weight',
                                  'cost_l1_weight', 'cost_iou_weight',
-                                 'decouple_weights'}
+                                 'decouple_weights', 'text_vocab_size',
+                                 'text_ln_eps'}
+    assert (tm['text_vocab_size'], tm['text_ln_eps']) == \
+        ((50265, 1e-5) if preset.startswith('mv_grounding') else
+         (30522, 1e-12))
     assert {k: tm[k] for k in jm if k != 'remat'} == \
         {k: v for k, v in jm.items() if k != 'remat'}
     assert (jm['remat'], tm['remat']) == \

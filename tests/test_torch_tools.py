@@ -108,6 +108,8 @@ def test_tiny_cfg_matches_the_reference(task):
     # the one value that differs: the reference's presets' remat '2d', the
     # port's 'none' (the 80 GB card needs no recomputation)
     assert (want['model']['remat'], got['model']['remat']) == ('2d', 'none')
+    # a field the reference lacks: its text encoder's 30522 rows
+    assert got['model']['text_vocab_size'] == 30522
 
 
 def test_quality_smoke_writes_its_report(tmp_path, monkeypatch):
